@@ -1,0 +1,133 @@
+"""The port's host layer: shared with the JAX package, never loading jax.
+
+``turbo_tpu_torch.host`` loads the JAX package's numpy modules without
+running ``turbo_tpu/__init__.py``; the copied host functions of
+``turbo_tpu_torch/solver/config.py`` equal the originals.
+"""
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from turbo_tpu.compile.model import compile_model as jax_compile
+from turbo_tpu.frontend.fzn import parse_fzn_text as jax_parse
+from turbo_tpu.solver import engine as jax_engine
+from turbo_tpu.solver.plan import build_plan as jax_build_plan
+from turbo_tpu_torch.host.compile.model import compile_model
+from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+from turbo_tpu_torch.host.solver.plan import build_plan
+from turbo_tpu_torch.instances import golomb, random_model
+from turbo_tpu_torch.solver import config as port_config
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+HOST_MODULES = ("frontend.ast", "frontend.fzn", "frontend.native",
+                "frontend.xcsp3", "compile.tnf", "compile.model",
+                "compile.analyze", "core.ops", "solver.plan",
+                "solver.oracle", "solver.deduce_np", "solver.strategy",
+                "solver.timers", "utils.config", "utils.output",
+                "utils.checker")
+MODELS = [random_model(3), random_model(4, n_vars=9, n_cons=24), golomb(5)]
+
+
+def _same(a, b, path="root"):
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b), path
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _same(a[k], b[k], f"{path}[{k!r}]")
+    else:
+        assert a == b, path
+
+
+def test_cli_never_loads_jax(tmp_path):
+    """The port's CLI on a tiny model, in a fresh interpreter: jax is
+    never imported, by the CLI or by the host layer it shares."""
+    model = tmp_path / "m.fzn"
+    model.write_text(random_model(0))
+    mods = ", ".join(repr(f"turbo_tpu_torch.host.{m}") for m in HOST_MODULES)
+    code = (
+        "import importlib, sys\n"
+        "import turbo_tpu_torch.cli as cli\n"
+        f"for m in ({mods}):\n"
+        "    importlib.import_module(m)\n"
+        "import turbo_tpu_torch.solver.engine, turbo_tpu_torch.kernels\n"
+        f"rc = cli.main([{str(model)!r}, '-platform', 'cpu', '-s'])\n"
+        "assert rc == 0\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'turbo_tpu' not in sys.modules\n"
+        "print('NOJAX')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "NOJAX" in r.stdout and "----------" in r.stdout
+
+
+def test_port_sources_import_no_jax():
+    for f in (ROOT / "turbo_tpu_torch").rglob("*.py"):
+        text = f.read_text()
+        assert "import jax" not in text and "from jax" not in text, f
+
+
+@pytest.mark.parametrize("mi", range(len(MODELS)))
+def test_tnf_and_plan_equal_to_jax_package(mi):
+    text = MODELS[mi]
+    tnf_j = jax_compile(jax_parse(text))
+    tnf_t = compile_model(parse_fzn_text(text))
+    _same(tnf_j, tnf_t)
+    _same(jax_build_plan(tnf_j), build_plan(tnf_t))
+
+
+@pytest.mark.parametrize("mi", range(len(MODELS)))
+def test_copied_host_functions_equal_originals(mi):
+    text = MODELS[mi]
+    tnf_j = jax_compile(jax_parse(text))
+    tnf_t = compile_model(parse_fzn_text(text))
+    for seed, eps in ((1, "default"), (7, "first_fail"), (3, "input_order")):
+        kw = dict(seed=seed, eps_var_order=eps, num_dives=16)
+        cj, ct = jax_engine.EngineConfig(**kw), port_config.EngineConfig(**kw)
+        pj, pt = jax_build_plan(tnf_j), build_plan(tnf_t)
+        assert (jax_engine.apply_strategy_config(pj, cj)
+                == port_config.apply_strategy_config(pt, ct))
+        _same(pj.strategies, pt.strategies)
+        assert jax_engine.auto_max_depth(pj) == port_config.auto_max_depth(pt)
+        for k in (0, 5):
+            for D, shards in ((16, 1), (1024, 1), (64, 4)):
+                a = dataclasses.replace(cj, subproblems_power=k, num_dives=D)
+                b = dataclasses.replace(ct, subproblems_power=k, num_dives=D)
+                assert (jax_engine.choose_subproblems_power(
+                            tnf_j, a, shards, allow_probe=False)
+                        == port_config.choose_subproblems_power(
+                            tnf_t, b, shards, allow_probe=False))
+    # The probe is wall-clock bounded; these trees are far inside it.
+    assert (jax_engine.probe_tree_power(tnf_j, probe_timeout_s=30)
+            == port_config.probe_tree_power(tnf_t, probe_timeout_s=30))
+
+
+def test_random_strategies_shuffle_like_the_original():
+    text = """
+    var 0..5: a :: output_var; var 0..5: b :: output_var;
+    var 0..5: c :: output_var; var 0..5: d :: output_var;
+    constraint int_lin_le([1, 1, 1, 1], [a, b, c, d], 9);
+    solve :: int_search([a, b, c, d], random, indomain_min, complete)
+        maximize a;
+    """
+    pj = jax_build_plan(jax_compile(jax_parse(text)))
+    pt = build_plan(compile_model(parse_fzn_text(text)))
+    # The compiler maps `random` to input_order; set it on the plan.
+    for p in (pj, pt):
+        p.strategies[0].var_order = "random"
+    jax_engine.apply_strategy_config(pj, jax_engine.EngineConfig(seed=11))
+    port_config.apply_strategy_config(pt, port_config.EngineConfig(seed=11))
+    _same(pj.strategies, pt.strategies)

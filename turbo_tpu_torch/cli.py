@@ -1,0 +1,182 @@
+"""turbo-tpu-torch command line entry point.
+
+``python -m turbo_tpu_torch.cli model.fzn [flags]``: the flags of
+``turbo_tpu.cli`` (shared ``parse_args``), the same solution blocks,
+separators and ``%%%mzn-stat`` lines. ``-arch tpu|gpu|barebones`` run
+the batched engine on the CUDA card (``-platform cpu``: the plain torch
+versions on the CPU); ``-arch cpu`` runs the shared numpy oracle.
+"""
+from __future__ import annotations
+
+import sys
+import time
+
+from .host.compile.model import compile_model
+from .host.frontend.fzn import parse_fzn
+from .host.utils.config import Configuration, parse_args
+from .host.utils.output import (MznStats, print_final_separator,
+                                print_mzn_statistics, print_solution)
+
+
+def _unported(cfg: Configuration):
+    """The part of the JAX CLI this port does not carry yet, by name."""
+    if cfg.hosts > 1:
+        return "-hosts > 1 (multi-host EPS)"
+    if cfg.arch in ("hybrid", "multi"):
+        return f"-arch {cfg.arch}"
+    if cfg.checkpoint_path:
+        return "-checkpoint"
+    if cfg.fixpoint == "wac1" and cfg.arch != "cpu":
+        return "-fp wac1"
+    return None
+
+
+def run(cfg: Configuration) -> int:
+    missing = _unported(cfg)
+    if missing:
+        raise NotImplementedError(f"{missing} is not ported to "
+                                  "turbo_tpu_torch (see ROADMAP.md)")
+    device = None
+    if cfg.arch != "cpu":
+        import torch
+
+        from .device import pick_device
+        device = pick_device(cfg.platform)
+        hw = (torch.cuda.get_device_name(device) if device.type == "cuda"
+              else "cpu")
+    else:
+        hw = "cpu"
+    stats = MznStats(cfg.print_statistics)
+    t0 = time.monotonic()
+    stats.stat("command_line", f'"turbo-tpu-torch {cfg.problem_path}"')
+    stats.stat("problem_path", f'"{cfg.problem_path}"')
+    stats.stat("solver", '"turbo-tpu-torch"')
+    from . import __version__
+    stats.stat("version", f'"{cfg.version_tag or __version__}"')
+    stats.stat("hardware", f'"{cfg.hardware or hw}"')
+    stats.stat("arch", f'"{cfg.arch}"')
+    stats.stat("fixpoint", f'"{cfg.fixpoint if cfg.arch != "cpu" else "ac1"}"')
+    stats.stat("subproblems_factor", cfg.subproblems_factor)
+    stats.stat("seed", cfg.seed)
+    stats.stat("eps_var_order", f'"{cfg.eps_var_order}"')
+    stats.stat("eps_value_order", f'"{cfg.eps_value_order}"')
+    stats.stat("free_search", '"yes"' if cfg.free_search else '"no"')
+    stats.stat("or_nodes", cfg.or_nodes)
+    stats.stat("timeout_ms", cfg.timeout_ms)
+    stats.stat("cutnodes", cfg.stop_after_n_nodes or 0)
+    if cfg.problem_path.endswith(".xml"):
+        from .host.frontend.xcsp3 import parse_xcsp3
+
+        model = parse_xcsp3(cfg.problem_path)
+    else:
+        model = parse_fzn(cfg.problem_path)
+    stats.stat("parsed_variables", len(model.vars))
+    stats.stat("parsed_constraints", len(model.constraints))
+    if cfg.free_search:
+        model.solve.searches = []
+    tnf = compile_model(model)
+    stats.stat("variables", tnf.num_vars)
+    stats.stat("propagators", tnf.num_props)
+    if cfg.print_statistics and not cfg.disable_network_analysis:
+        from .host.compile.analyze import print_analysis
+
+        print_analysis(stats, model, tnf)
+    init_time = time.monotonic() - t0
+    stats.stat("initTime", f"{init_time:.3f}")
+
+    timeout_s = (cfg.timeout_ms / 1000.0 - init_time) if cfg.timeout_ms else 1e18
+    timeout_s = max(timeout_s, 0.5)
+
+    if cfg.arch == "cpu":
+        return _run_oracle(cfg, stats, tnf, timeout_s, init_time)
+
+    enumerate_all = tnf.obj_var < 0 and cfg.stop_after_n_solutions != 1
+    if enumerate_all or cfg.print_intermediate:
+        raise NotImplementedError(
+            "-a / -i / -n N streaming needs the on-device solution ring, "
+            "which is not ported to turbo_tpu_torch (see ROADMAP.md)")
+    from .host.solver.plan import auto_num_dives
+    from .solver.config import EngineConfig
+    from .solver.engine import BatchedSolver
+
+    num_dives = cfg.or_nodes or auto_num_dives(tnf)
+    econf = EngineConfig(num_dives=num_dives,
+                         subproblems_power=cfg.subproblems_power,
+                         subproblems_factor=cfg.subproblems_factor,
+                         max_depth=cfg.max_depth,
+                         eps_var_order=cfg.eps_var_order,
+                         eps_value_order=cfg.eps_value_order,
+                         seed=cfg.seed,
+                         disable_simplify=cfg.disable_simplify,
+                         shave=cfg.shave)
+    # Plan and kernel build count in initTime, outside the -t window.
+    tb = time.monotonic()
+    solver = BatchedSolver(tnf, econf, device=device)
+    setup = time.monotonic() - tb
+    if cfg.verbose:
+        print(f"% D={num_dives} k={solver.k} MAXD={solver.cfg.max_depth} "
+              f"device={device} setup={setup:.2f}s "
+              f"(kernel build {solver.build_time:.2f}s)", file=sys.stderr)
+    r = solver.solve(timeout_s=timeout_s,
+                     stop_after_n_solutions=cfg.stop_after_n_solutions,
+                     node_limit=cfg.stop_after_n_nodes)
+    r.init_time = round(init_time + setup, 3)
+    if r.best_lb is not None:
+        print_solution(tnf, r.best_lb)
+    print_final_separator(r.status, tnf.obj_var >= 0,
+                          exhaustive=r.exhaustive)
+    print_mzn_statistics(stats, r)
+    return 0
+
+
+def _run_oracle(cfg, stats, tnf, timeout_s, init_time) -> int:
+    """-arch cpu: the shared sequential numpy oracle."""
+    import types
+
+    from .host.solver import oracle
+
+    printer = None
+    if cfg.print_intermediate or not tnf.obj_var >= 0:
+        def printer(blb, bub):
+            print_solution(tnf, blb)
+    r = oracle.solve(tnf, timeout_s=timeout_s,
+                     stop_after_n_solutions=cfg.stop_after_n_solutions,
+                     node_limit=cfg.stop_after_n_nodes or (1 << 62),
+                     print_intermediate=printer)
+    if r.best_lb is not None and printer is None:
+        print_solution(tnf, r.best_lb)
+    print_final_separator(r.status, tnf.obj_var >= 0,
+                          exhaustive=r.stats.exhaustive)
+    if cfg.print_statistics:
+        s = r.stats
+        print_mzn_statistics(stats, types.SimpleNamespace(
+            nodes=s.nodes, fails=s.fails, depth_max=s.depth_max,
+            init_time=round(init_time, 3), solve_time=s.solve_time,
+            solutions=s.solutions, eps_num_subproblems=1,
+            eps_solved_subproblems=1, eps_skipped_subproblems=0,
+            fixpoint_iterations=s.fixpoint_iterations,
+            num_deductions=s.num_deductions, num_blocks=1,
+            num_blocks_done=int(s.exhaustive), variables=tnf.num_vars,
+            propagators=tnf.num_props, search_time=s.search_time,
+            fixpoint_time=s.fixpoint_time, dive_time=0.0,
+            transfer_cpu2gpu_time=0.0, transfer_gpu2cpu_time=0.0,
+            select_fp_functions_time=s.select_fp_functions_time,
+            wait_cpu_time=0.0, first_block_idle_time=s.solve_time,
+            cumulative_time_block_sec=s.solve_time,
+            deductions_per_block_second=(s.num_deductions / s.solve_time
+                                         if s.solve_time > 0 else 0.0),
+            best_obj_time=s.best_obj_time, objective=r.objective))
+    return 0
+
+
+def main(argv=None) -> int:
+    cfg = parse_args(argv)
+    try:
+        return run(cfg)
+    except Exception as e:
+        print(f"% ERROR: {e}", file=sys.stderr)
+        raise
+
+
+if __name__ == "__main__":
+    sys.exit(main())

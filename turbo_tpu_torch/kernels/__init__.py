@@ -1,0 +1,244 @@
+"""The solver's CUDA kernels for Hopper and their wrappers.
+
+Three kernels, each one thread block per dive on PyTorch's current
+stream (``csrc/*.cu``):
+
+- ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap;
+- ``classify`` (K2): per dive, some domain empty / every propagator
+  entailed;
+- ``select`` (K3): branch variable and the two children.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with ``torch.empty``, raises when the launch fails,
+and counts its launches in ``launches``. The plain torch versions live
+in ``solver/propagate.py`` and ``solver/engine.py``; nothing here falls
+back to them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .build import load
+
+I32 = torch.int32
+
+
+class PlanView(ctypes.Structure):
+    """Mirror of ``struct PlanView`` in csrc/common.cuh."""
+    _fields_ = [(n, ctypes.c_int if t == "i" else ctypes.c_void_p)
+                for n, t in (
+                    ("V", "i"), ("n_active", "i"), ("P", "i"), ("n_cand", "i"),
+                    ("prop_op", "p"), ("px", "p"), ("py", "p"), ("pz", "p"),
+                    ("E", "i"), ("T", "i"), ("e_idx", "p"), ("e_res", "p"),
+                    ("e_len", "p"), ("e_tab", "p"), ("M", "i"), ("W", "i"),
+                    ("m_x", "p"), ("m_b", "p"), ("m_base", "p"),
+                    ("m_top", "p"), ("m_cnt", "p"), ("m_next_ge", "p"),
+                    ("m_prev_le", "p"), ("m_next_out", "p"),
+                    ("m_prev_out", "p"), ("L", "i"), ("base_lin", "i"),
+                    ("base_linb", "i"), ("l_b", "p"), ("l_op", "p"),
+                    ("l_rhs", "p"), ("l_K", "p"), ("l_toff", "p"),
+                    ("l_flags", "p"), ("l_coef", "p"), ("l_var", "p"),
+                    ("inc_off", "p"), ("inc_slot", "p"), ("n_conf", "i"),
+                    ("conf_slot", "p"), ("conf_off", "p"), ("lb_floor", "p"),
+                    ("ub_cap", "p"), ("S", "i"), ("s_off", "p"),
+                    ("s_ids", "p"), ("s_vo", "p"), ("s_valo", "p"))]
+
+
+def kernel_tables(dp) -> dict:
+    """The plan in the kernels' flat layout, as numpy arrays and ints:
+    concatenated linear rows (term offsets into the candidate slots),
+    the bucketed incidence tables as CSR without neutral slots, the
+    conflict fold without neutral entries, concatenated strategies."""
+    n = lambda t: t.cpu().numpy()
+    neutral = dp.n_cand - 1
+    inc_off, inc_slot = [0], []
+    for start, count, idx in dp.buckets:
+        for row in n(idx):
+            inc_slot.extend(int(s) for s in row if s != neutral)
+            inc_off.append(len(inc_slot))
+    assert len(inc_off) == dp.n_active + 1
+    l_b, l_op, l_rhs, l_K, l_toff, l_flags, l_coef, l_var = ([] for _ in range(8))
+    off = 0
+    for bk in dp.lin:
+        C, K = bk.coef.shape
+        l_b.append(n(bk.b)); l_op.append(n(bk.op))
+        l_rhs.append(n(bk.rhs).astype(np.int64))
+        l_K.append(np.full(C, K)); l_toff.append(off + K * np.arange(C))
+        l_flags.append(np.full(C, int(bk.unit) | (int(bk.fit32) << 1)))
+        l_coef.append(n(bk.coef).reshape(-1)); l_var.append(n(bk.var).reshape(-1))
+        off += C * K
+    cat = lambda xs, dt: (np.concatenate(xs) if xs else np.zeros(0)).astype(dt)
+    conf_slot = conf_off = np.zeros(0, dtype=np.int32)
+    if dp.conf_idx is not None:
+        keep = n(dp.conf_idx) != neutral
+        conf_slot, conf_off = n(dp.conf_idx)[keep], n(dp.conf_off)[keep]
+    s_ids = [n(t) for t in dp.strat_ids]
+    base_lin = 3 * dp.P + 2 * dp.E + 2 * dp.M
+    i32 = np.int32
+    tabs = dict(
+        V=dp.V, n_active=dp.n_active, P=dp.P, n_cand=dp.n_cand,
+        prop_op=n(dp.prop_op), px=n(dp.all_x), py=n(dp.all_y), pz=n(dp.all_z),
+        E=dp.E, T=int(dp.e_tab.shape[1]), e_idx=n(dp.e_idx),
+        e_res=n(dp.e_res), e_len=n(dp.e_len), e_tab=n(dp.e_tab),
+        M=dp.M, W=dp.m_W, m_x=n(dp.m_x), m_b=n(dp.m_b),
+        m_base=n(dp.m_base), m_top=n(dp.m_top), m_cnt=n(dp.m_cnt_flat),
+        m_next_ge=n(dp.m_next_ge), m_prev_le=n(dp.m_prev_le),
+        m_next_out=n(dp.m_next_out), m_prev_out=n(dp.m_prev_out),
+        L=sum(len(x) for x in l_b), base_lin=base_lin,
+        base_linb=base_lin + off,
+        l_b=cat(l_b, i32), l_op=cat(l_op, i32), l_rhs=cat(l_rhs, np.int64),
+        l_K=cat(l_K, i32), l_toff=cat(l_toff, i32),
+        l_flags=cat(l_flags, i32), l_coef=cat(l_coef, i32),
+        l_var=cat(l_var, i32),
+        inc_off=np.asarray(inc_off, i32), inc_slot=np.asarray(inc_slot, i32),
+        n_conf=len(conf_slot), conf_slot=conf_slot, conf_off=conf_off,
+        lb_floor=n(dp.lb_floor), ub_cap=n(dp.ub_cap),
+        S=len(s_ids),
+        s_off=np.cumsum([0] + [len(s) for s in s_ids]).astype(i32),
+        s_ids=cat(s_ids, i32), s_vo=np.asarray(dp.strat_vo, i32),
+        s_valo=np.asarray(dp.strat_valo, i32))
+    # Every table is int32 in the kernels except the int64 l_rhs.
+    return {k: (np.ascontiguousarray(v, np.int64 if k == "l_rhs" else i32)
+                if isinstance(v, np.ndarray) else v) for k, v in tabs.items()}
+
+
+class KernelPlan:
+    """The kernel tables of one plan on its CUDA device, and the PlanView
+    that points at them (the tensors are kept alive here). Built once
+    per plan by its owner (``PropagatorKernels.kernel_plan``)."""
+
+    def __init__(self, dp):
+        self.dp = dp
+        tabs = kernel_tables(dp)
+        self.tensors = {}
+        view = {}
+        for name, _ in PlanView._fields_:
+            v = tabs[name]
+            if isinstance(v, np.ndarray):
+                t = torch.as_tensor(v).to(dp.device)
+                self.tensors[name] = t
+                view[name] = t.data_ptr()
+            else:
+                view[name] = int(v)
+        self.view = PlanView(**view)
+        self.smem_limit = torch.cuda.get_device_properties(
+            dp.device).shared_memory_per_block_optin
+
+
+def _check(t, name, shape, dtype=I32):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+class _Kernel:
+    """A launch wrapper: ``launches`` counts the launches it made."""
+    name = source = replaces = ""
+
+    def __init__(self):
+        self.launches = 0
+
+    def _launch(self, fn, *args):
+        lib = load()
+        rc = fn(lib)(*args)
+        if rc != 0:
+            msg = lib.tt_error_string(rc).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
+                               f"({rc})")
+        self.launches += 1
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class _Fixpoint(_Kernel):
+    name = "fixpoint"
+    source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
+    replaces = "turbo_tpu/solver/propagate_jax.py:912"
+
+    def __call__(self, kp, lb, ub, cap: int, smem: bool = True):
+        """(lb, ub, iters (D,) int32, unconv (D,) bool) after AC-1 sweeps
+        to the fixpoint or ``cap``; see csrc/fixpoint.cu. The store sits
+        in shared memory when it fits; ``smem=False`` forces the
+        global-memory path that larger stores take."""
+        dp = kp.dp
+        D = lb.shape[0]
+        _check(lb, "lb", (D, dp.V))
+        _check(ub, "ub", (D, dp.V))
+        if dp.P == 0:
+            z = torch.zeros(D, dtype=I32, device=lb.device)
+            return lb.clone(), ub.clone(), z, z != 0
+        lb_out = torch.empty_like(lb)
+        ub_out = torch.empty_like(ub)
+        iters = torch.empty(D, dtype=I32, device=lb.device)
+        unconv = torch.empty(D, dtype=torch.bool, device=lb.device)
+        cand = torch.empty((D, 2, dp.n_cand), dtype=I32, device=lb.device)
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: lib.tt_fixpoint, ctypes.byref(kp.view),
+                         lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
+                         ub_out.data_ptr(), iters.data_ptr(),
+                         unconv.data_ptr(), cand.data_ptr(), D, int(cap),
+                         kp.smem_limit if smem else 0, _stream(lb))
+        return lb_out, ub_out, iters, unconv
+
+
+class _Classify(_Kernel):
+    name = "classify"
+    source = "turbo_tpu_torch/kernels/csrc/classify.cu"
+    replaces = "turbo_tpu/solver/propagate_jax.py:983"
+
+    def __call__(self, kp, lb, ub):
+        """(bot, ent) as (D,) bool; see csrc/classify.cu."""
+        D = lb.shape[0]
+        _check(lb, "lb", (D, kp.dp.V))
+        _check(ub, "ub", (D, kp.dp.V))
+        bot = torch.empty(D, dtype=torch.bool, device=lb.device)
+        ent = torch.empty(D, dtype=torch.bool, device=lb.device)
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: lib.tt_classify, ctypes.byref(kp.view),
+                         lb.data_ptr(), ub.data_ptr(), bot.data_ptr(),
+                         ent.data_ptr(), D, _stream(lb))
+        return bot, ent
+
+
+class _Select(_Kernel):
+    name = "select"
+    source = "turbo_tpu_torch/kernels/csrc/select.cu"
+    replaces = "turbo_tpu/solver/engine.py:550"
+
+    def __call__(self, kp, lb, ub, strat):
+        """(found, var, chosen, valo, c0l, c0u, c1l, c1u), each (D,);
+        see csrc/select.cu."""
+        D = lb.shape[0]
+        _check(lb, "lb", (D, kp.dp.V))
+        _check(ub, "ub", (D, kp.dp.V))
+        _check(strat, "strat", (D,))
+        found = torch.empty(D, dtype=torch.bool, device=lb.device)
+        outs = [torch.empty(D, dtype=I32, device=lb.device) for _ in range(7)]
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: lib.tt_select, ctypes.byref(kp.view),
+                         lb.data_ptr(), ub.data_ptr(), strat.data_ptr(),
+                         found.data_ptr(), *(o.data_ptr() for o in outs), D,
+                         _stream(lb))
+        return (found, *outs)
+
+
+fixpoint = _Fixpoint()
+classify = _Classify()
+select = _Select()
+KERNELS = (fixpoint, classify, select)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0

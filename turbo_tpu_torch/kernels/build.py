@@ -1,0 +1,79 @@
+"""Build the CUDA kernels with nvcc into a shared library and load it.
+
+The sources in ``csrc/`` have a plain C interface; they are compiled for
+Hopper (``sm_90a``) into ``_build/libturbo_kernels_<hash>.so``, keyed by
+a hash of the sources and flags, and loaded through ``ctypes``. The
+build happens at first use; a failure raises (nothing falls back to the
+plain torch versions).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+SOURCES = ("fixpoint.cu", "classify.cu", "select.cu")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", "") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "of turbo_tpu_torch cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib):
+    P = ctypes.c_void_p
+    I = ctypes.c_int
+    lib.tt_fixpoint.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
+    lib.tt_classify.argtypes = [P, P, P, P, P, I, P]
+    lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P]
+    for fn in (lib.tt_fixpoint, lib.tt_classify, lib.tt_select):
+        fn.restype = I
+    lib.tt_error_string.argtypes = [I]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load():
+    """Build (at first use, once per source hash) and load the kernel
+    library; raises when the kernels cannot be built."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    out = BUILD_DIR / f"libturbo_kernels_{_digest()}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
+               *(str(CSRC / s) for s in SOURCES)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = r.stdout + r.stderr
+        (BUILD_DIR / "build.log").write_text(build_log)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+        os.replace(tmp, out)
+    _lib = _bind(ctypes.CDLL(str(out)))
+    return _lib

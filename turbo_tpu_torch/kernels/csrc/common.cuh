@@ -1,0 +1,291 @@
+// Shared device code of the three solver kernels (fixpoint.cu,
+// classify.cu, select.cu): the plan tables as one struct passed by
+// value, and the per-propagator rules of
+// turbo_tpu/solver/propagate_jax.py written for one thread.
+//
+// Arithmetic follows the JAX package bit for bit: store values and
+// TNF add/min/max/le/eq candidates are int32 with two's-complement
+// wrap (done through unsigned arithmetic, which C++ defines); mul/div
+// and linear sums are int64; every candidate is clamped to
+// [NINF, INF] before it is narrowed to int32.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define TT_INF 1073741823
+#define TT_NINF (-1073741823)
+#define TT_SUM_CLAMP (1LL << 40)
+#define TT_THREADS 256
+
+enum { OP_ADD = 0, OP_MUL = 1, OP_DIV = 2, OP_MIN = 3, OP_MAX = 4,
+       OP_LE = 5, OP_EQ = 6 };
+
+// Device tables of one plan (see kernels/__init__.py: KernelPlan).
+// Candidate slots: [3P roles | E idx | E res | M x | M b | linear terms
+// | linear b], the layout of solver/plan.py.
+struct PlanView {
+  int V, n_active, P, n_cand;
+  const int* prop_op;   // (P,)
+  const int* px;        // (P,) x/y/z var ids, group order
+  const int* py;
+  const int* pz;
+  int E, T;
+  const int* e_idx;     // (E,)
+  const int* e_res;
+  const int* e_len;
+  const int* e_tab;     // (E, T)
+  int M, W;
+  const int* m_x;       // (M,)
+  const int* m_b;
+  const int* m_base;
+  const int* m_top;
+  const int* m_cnt;     // (M, W + 1) prefix counts
+  const int* m_next_ge; // (M, W)
+  const int* m_prev_le;
+  const int* m_next_out;
+  const int* m_prev_out;
+  int L, base_lin, base_linb;
+  const int* l_b;       // (L,) reified var
+  const int* l_op;      // (L,) 1 = eq, 0 = le
+  const long long* l_rhs;
+  const int* l_K;       // (L,) terms per row (bucket width)
+  const int* l_toff;    // (L,) first term, = term slot - base_lin
+  const int* l_flags;   // (L,) bit 0: unit coefficients, bit 1: fit32
+  const int* l_coef;    // (terms,)
+  const int* l_var;
+  const int* inc_off;   // (n_active + 1,) CSR of candidate slots per var
+  const int* inc_slot;
+  int n_conf;
+  const int* conf_slot; // singleton-tail conflict fold
+  const int* conf_off;
+  const int* lb_floor;  // (V,) lb0 - 1
+  const int* ub_cap;    // (V,) ub0 + 1
+  int S;
+  const int* s_off;     // (S + 1,) strategy ranges in s_ids
+  const int* s_ids;
+  const int* s_vo;      // (S,) var order code
+  const int* s_valo;    // (S,) value order code
+};
+
+__device__ __forceinline__ int add32(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int sub32(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+__device__ __forceinline__ int mul32(int a, int b) {
+  return (int)((unsigned)a * (unsigned)b);
+}
+__device__ __forceinline__ long long fdiv64(long long a, long long b) {
+  long long q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
+  return q;
+}
+__device__ __forceinline__ long long cdiv64(long long a, long long b) {
+  return -fdiv64(-a, b);
+}
+// jnp _tdiv: floor, then +1 on a nonzero remainder of mixed signs,
+// which is C's truncating division (b != 0).
+__device__ __forceinline__ long long tdiv64(long long a, long long b) {
+  return a / b;
+}
+__device__ __forceinline__ int clip32(long long v) {
+  return (int)(v < TT_NINF ? TT_NINF : (v > TT_INF ? TT_INF : v));
+}
+__device__ __forceinline__ long long lmin(long long a, long long b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ long long lmax(long long a, long long b) {
+  return a > b ? a : b;
+}
+
+// x = y op z: candidate intervals for the three roles
+// (propagate_jax._deduce_group, deduce_np.deduce).
+__device__ __forceinline__ void deduce(int op, int lx, int ux, int ly, int uy,
+                                       int lz, int uz, int* c) {
+  long long xl, xu, yl, yu, zl, zu;
+  switch (op) {
+    case OP_ADD:
+      xl = add32(ly, lz); xu = add32(uy, uz);
+      yl = sub32(lx, uz); yu = sub32(ux, lz);
+      zl = sub32(lx, uy); zu = sub32(ux, ly);
+      break;
+    case OP_MUL: {
+      long long p1 = (long long)ly * lz, p2 = (long long)ly * uz;
+      long long p3 = (long long)uy * lz, p4 = (long long)uy * uz;
+      xl = lmin(lmin(p1, p2), lmin(p3, p4));
+      xu = lmax(lmax(p1, p2), lmax(p3, p4));
+      // _inv_mul(a = x, b = z) for y, (a = x, b = y) for z.
+      for (int r = 0; r < 2; ++r) {
+        long long lb_ = r == 0 ? lz : ly, ub_ = r == 0 ? uz : uy;
+        bool has0 = lb_ <= 0 && ub_ >= 0;
+        long long sb = lb_ == 0 ? 1 : lb_, tb = ub_ == 0 ? -1 : ub_;
+        long long lo = cdiv64(lx, sb), hi = fdiv64(lx, sb);
+        lo = lmin(lo, cdiv64(lx, tb)); hi = lmax(hi, fdiv64(lx, tb));
+        lo = lmin(lo, cdiv64(ux, sb)); hi = lmax(hi, fdiv64(ux, sb));
+        lo = lmin(lo, cdiv64(ux, tb)); hi = lmax(hi, fdiv64(ux, tb));
+        if (has0) { lo = TT_NINF; hi = TT_INF; }
+        if (r == 0) { yl = lo; yu = hi; } else { zl = lo; zu = hi; }
+      }
+      break;
+    }
+    case OP_DIV: {
+      // _fwd_div: hull of trunc(y / z) over z != 0.
+      long long lo = TT_INF, hi = TT_NINF;
+      for (int part = 0; part < 2; ++part) {
+        bool valid = part == 0 ? lz <= -1 : uz >= 1;
+        long long plo = part == 0 ? lz : (lz > 1 ? lz : 1);
+        long long phi = part == 0 ? (uz < -1 ? uz : -1) : uz;
+        if (!valid) continue;
+        long long ys[2] = {ly, uy}, zs[2] = {plo, phi};
+        for (int i = 0; i < 2; ++i)
+          for (int j = 0; j < 2; ++j) {
+            long long q = tdiv64(ys[i], zs[j]);
+            lo = lmin(lo, q); hi = lmax(hi, q);
+          }
+      }
+      xl = lo; xu = hi;
+      if (lz == 0 && uz == 0) { xl = TT_INF; xu = TT_NINF; }
+      long long alz = lz < 0 ? -(long long)lz : lz;
+      long long auz = uz < 0 ? -(long long)uz : uz;
+      long long pad = lmax(lmax(alz, auz) - 1, 0);
+      long long p1 = (long long)lx * lz, p2 = (long long)lx * uz;
+      long long p3 = (long long)ux * lz, p4 = (long long)ux * uz;
+      yl = lmin(lmin(p1, p2), lmin(p3, p4)) - pad;
+      yu = lmax(lmax(p1, p2), lmax(p3, p4)) + pad;
+      zl = TT_NINF; zu = TT_INF;
+      break;
+    }
+    case OP_MIN:
+      xl = ly < lz ? ly : lz; xu = uy < uz ? uy : uz;
+      yl = lx; yu = lz > ux ? ux : TT_INF;
+      zl = lx; zu = ly > ux ? ux : TT_INF;
+      break;
+    case OP_MAX:
+      xl = ly > lz ? ly : lz; xu = uy > uz ? uy : uz;
+      yu = ux; yl = uz < lx ? lx : TT_NINF;
+      zu = ux; zl = uy < lx ? lx : TT_NINF;
+      break;
+    case OP_LE: {
+      bool tt = lx >= 1, ff = ux <= 0;
+      xl = uy <= lz; xu = 1 - (ly > uz);
+      yl = ff ? add32(lz, 1) : TT_NINF; yu = tt ? uz : TT_INF;
+      zl = tt ? ly : TT_NINF; zu = ff ? sub32(uy, 1) : TT_INF;
+      break;
+    }
+    default: {  // OP_EQ
+      bool tt = lx >= 1, ff = ux <= 0;
+      bool zsing = lz == uz, ysing = ly == uy;
+      xl = ly == uy && uy == lz && lz == uz;
+      xu = (ly > lz ? ly : lz) <= (uy < uz ? uy : uz);
+      yl = tt ? lz : (ff && zsing && lz == ly ? add32(ly, 1) : TT_NINF);
+      yu = tt ? uz : (ff && zsing && lz == uy ? sub32(uy, 1) : TT_INF);
+      zl = tt ? ly : (ff && ysing && ly == lz ? add32(lz, 1) : TT_NINF);
+      zu = tt ? uy : (ff && ysing && ly == uz ? sub32(uz, 1) : TT_INF);
+      break;
+    }
+  }
+  c[0] = clip32(xl); c[1] = clip32(xu);
+  c[2] = clip32(yl); c[3] = clip32(yu);
+  c[4] = clip32(zl); c[5] = clip32(zu);
+}
+
+// Entailment of x = y op z (propagate_jax._ask_group).
+__device__ __forceinline__ bool ask(int op, int lx, int ux, int ly, int uy,
+                                    int lz, int uz) {
+  bool sing = lx == ux && ly == uy && lz == uz;
+  switch (op) {
+    case OP_ADD: return sing && lx == add32(ly, lz);
+    case OP_MUL: return sing && (long long)lx == (long long)ly * lz;
+    case OP_DIV: return sing && lz != 0 && (long long)lx == tdiv64(ly, lz);
+    case OP_MIN: return sing && lx == (ly < lz ? ly : lz);
+    case OP_MAX: return sing && lx == (ly > lz ? ly : lz);
+    case OP_LE: return (lx >= 1 && uy <= lz) || (ux <= 0 && ly > uz);
+    default:
+      return (lx >= 1 && ly == uy && lz == uz && ly == lz) ||
+             (ux <= 0 && (uy < lz || ly > uz));
+  }
+}
+
+// One linear term's min/max contribution: int32 products under fit32
+// (no clamp), else int64 clamped to +-SUM_CLAMP.
+__device__ __forceinline__ void lin_term(bool fit32, int c, int xl, int xu,
+                                         long long* tmin, long long* tmax) {
+  if (fit32) {
+    int a = mul32(c, xl), b = mul32(c, xu);
+    *tmin = a < b ? a : b;
+    *tmax = a > b ? a : b;
+  } else {
+    long long a = (long long)c * xl, b = (long long)c * xu;
+    long long lo = lmin(a, b), hi = lmax(a, b);
+    *tmin = lmax(-TT_SUM_CLAMP, lmin(lo, TT_SUM_CLAMP));
+    *tmax = lmax(-TT_SUM_CLAMP, lmin(hi, TT_SUM_CLAMP));
+  }
+}
+
+__device__ __forceinline__ void lin_sums(const PlanView& p, int r,
+                                         const int* lb, const int* ub,
+                                         long long* smin, long long* smax) {
+  bool fit32 = p.l_flags[r] & 2;
+  long long s0 = 0, s1 = 0;
+  const int* coef = p.l_coef + p.l_toff[r];
+  const int* var = p.l_var + p.l_toff[r];
+  for (int t = 0; t < p.l_K[r]; ++t) {
+    long long a, b;
+    lin_term(fit32, coef[t], lb[var[t]], ub[var[t]], &a, &b);
+    s0 += a; s1 += b;
+  }
+  *smin = s0; *smax = s1;
+}
+
+// Reified linear row: b = (sum c*x <op> rhs) (_linear_ask_all).
+__device__ __forceinline__ bool lin_ask(const PlanView& p, int r,
+                                        const int* lb, const int* ub) {
+  long long smin, smax;
+  lin_sums(p, r, lb, ub, &smin, &smax);
+  long long rhs = p.l_rhs[r];
+  bool is_eq = p.l_op[r] == 1;
+  bool tt = lb[p.l_b[r]] >= 1, ff = ub[p.l_b[r]] <= 0;
+  bool ent_t = is_eq ? (smin == rhs && smax == rhs) : (smax <= rhs);
+  bool ent_f = is_eq ? (rhs < smin || rhs > smax) : (smin > rhs);
+  return (tt && ent_t) || (ff && ent_f);
+}
+
+// Element row i: values[idx - 1] == res (_element_ask).
+__device__ __forceinline__ bool elem_ask(const PlanView& p, int i,
+                                         const int* lb, const int* ub) {
+  int len = p.e_len[i];
+  int li = lb[p.e_idx[i]], ui = ub[p.e_idx[i]];
+  li = li < 1 ? 1 : li; li = li > len ? len : li;
+  ui = ui < 1 ? 1 : ui; ui = ui > len ? len : ui;
+  int lr = lb[p.e_res[i]], ur = ub[p.e_res[i]];
+  int tmin = TT_INF, tmax = TT_NINF;
+  const int* tab = p.e_tab + (long long)i * p.T;
+  for (int j = 0; j < p.T; ++j) {
+    if (j >= li - 1 && j <= ui - 1 && j < len) {
+      tmin = tab[j] < tmin ? tab[j] : tmin;
+      tmax = tab[j] > tmax ? tab[j] : tmax;
+    }
+  }
+  return lr == ur && tmin == lr && tmax == lr;
+}
+
+// Membership row i: window count of the set's members in [lx, ux].
+__device__ __forceinline__ int member_count(const PlanView& p, int i, int lx,
+                                            int ux) {
+  int W = p.W, base = p.m_base[i];
+  int wl = sub32(lx, base), wh = add32(sub32(ux, base), 1);
+  wl = wl < 0 ? 0 : (wl > W ? W : wl);
+  wh = wh < 0 ? 0 : (wh > W ? W : wh);
+  const int* cnt = p.m_cnt + (long long)i * (W + 1);
+  return cnt[wh] - cnt[wl];
+}
+
+__device__ __forceinline__ bool member_ask(const PlanView& p, int i,
+                                           const int* lb, const int* ub) {
+  int lx = lb[p.m_x[i]], ux = ub[p.m_x[i]];
+  int c = member_count(p, i, lx, ux);
+  long long width = (long long)ux - lx + 1;
+  return (lb[p.m_b[i]] >= 1 && c == width && width > 0) ||
+         (ub[p.m_b[i]] <= 0 && c == 0);
+}

@@ -1,0 +1,137 @@
+"""Engine configuration and the host-side helpers of the batched engine.
+
+``EngineConfig`` keeps the field names of ``turbo_tpu.solver.engine.
+EngineConfig`` for the fields this port runs; the functions below are
+copies of host functions that live inside that jax module (so they
+cannot be imported from it), with their semantics unchanged:
+``probe_tree_power`` (engine.py:317), ``auto_max_depth`` (337),
+``choose_subproblems_power`` (384) and ``apply_strategy_config`` (438).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    num_dives: int = 64          # D: lanes (GPU: thread blocks)
+    subproblems_power: int = 0   # k: 2^k subproblems; 0 -> auto from factor
+    subproblems_factor: int = 300
+    # Decision stack depth (MAXD); 0 = auto-size from the instance.
+    max_depth: int = 0
+    # Per-step fixpoint sweep cap; lanes still changing at the cap are
+    # held (no branch, no node) and resume next step.
+    fp_max_iters: int = 10000
+    eps_var_order: str = "default"
+    eps_value_order: str = "default"
+    seed: int = 1
+    enumerate_all: bool = False  # all-solutions mode: not ported
+    disable_simplify: bool = False
+    shave: bool = False
+    fp_cap_auto: bool = False    # live cap calibration: not ported
+    use_table: bool = False      # EPS subproblem table: not ported
+
+
+def probe_tree_power(tnf, probe_nodes: int = 2000,
+                     probe_timeout_s: float = 0.5):
+    """Root-tree size probe for EPS auto-splitting: run the sequential
+    oracle briefly; if it exhausts the whole tree in N nodes, return
+    ceil(log2(N))+1, else None (use the factor split)."""
+    from ..host.solver import oracle
+    try:
+        r = oracle.solve(tnf, timeout_s=probe_timeout_s,
+                         node_limit=probe_nodes)
+    except Exception:
+        return None
+    if not r.stats.exhaustive:
+        return None
+    return max(1, int(np.ceil(np.log2(max(2, r.stats.nodes)))) + 1)
+
+
+def auto_max_depth(plan) -> int:
+    """Decision-stack depth that provably covers the instance: per var,
+    ceil(log2(w)) decisions under a halving value order, w-1 under
+    indomain_min/max, charged by the first strategy that contains it;
+    capped at the reference's MAX_SEARCH_DEPTH=10000."""
+    from ..host.solver.plan import quantize
+    lb0 = plan.lb0[:plan.n_active].astype(np.int64)
+    ub0 = plan.ub0[:plan.n_active].astype(np.int64)
+    w = ub0 - lb0 + 1
+    cost = np.zeros(plan.n_active, dtype=np.int64)
+    seen = np.zeros(plan.n_active, dtype=bool)
+    for s in plan.strategies:
+        if getattr(s, "is_eps", False):
+            continue  # k <= 30 dive decisions, charged in the margin
+        ids = np.asarray(s.ids, dtype=np.int64)
+        ids = ids[ids < plan.n_active]
+        ids = ids[~seen[ids]]
+        if len(ids) == 0:
+            continue
+        ws = w[ids]
+        if s.val_order in ("indomain_split", "indomain_reverse_split"):
+            c = np.ceil(np.log2(np.clip(ws, 2, None))).astype(np.int64)
+        else:
+            c = np.minimum(ws - 1, 10000)
+        cost[ids] = np.where(ws > 1, c, 0)
+        seen[ids] = True
+    bits = int(cost.sum())
+    return int(min(10000, max(128, quantize(bits + 38))))
+
+
+def choose_subproblems_power(tnf, config, num_shards: int,
+                             allow_probe: bool = True) -> int:
+    """EPS split size 2^k: pinned -sub, or the occupancy-factor default
+    capped by a dive-work budget (TURBO_TPU_DIVE_BUDGET lockstep steps
+    per lane), by ~2^TURBO_TPU_REFILL_BITS refills per lane, and by the
+    root-tree probe."""
+    D = config.num_dives
+    k = config.subproblems_power
+    if k <= 0:
+        total = max(1, config.subproblems_factor * D * num_shards)
+        k = max(1, int(np.ceil(np.log2(total))))
+        budget = int(os.environ.get("TURBO_TPU_DIVE_BUDGET", "1500"))
+        kb = 1
+        while kb < 30 and ((1 << (kb + 1)) * (kb + 1)) // max(D * num_shards, 1) <= budget:
+            kb += 1
+        k = min(k, kb)
+        refill_bits = int(os.environ.get("TURBO_TPU_REFILL_BITS", "2"))
+        kr = int(np.ceil(np.log2(max(1, D * num_shards)))) + refill_bits
+        k = min(k, max(kr, 1))
+        if not config.enumerate_all and allow_probe:
+            kp = probe_tree_power(tnf)
+            if kp is not None:
+                k = min(k, kp)
+    # Every shard must own a non-empty subproblem range.
+    k = max(k, int(np.ceil(np.log2(max(1, num_shards)))))
+    return min(k, 30)
+
+
+def apply_strategy_config(plan, cfg) -> bool:
+    """Seed-shuffle 'random' strategies and prepend the EPS dive
+    strategy (common_solving.hpp:631-667). Returns whether an EPS
+    strategy was prepended."""
+    from ..host.solver.plan import PlanStrategy
+    rng = np.random.default_rng(cfg.seed)
+    for st in plan.strategies:
+        if st.var_order == "random":
+            ids = st.ids.copy()
+            rng.shuffle(ids)
+            st.ids = ids
+            st.var_order = "input_order"
+    has_eps = cfg.eps_var_order != "default"
+    if has_eps:
+        base = plan.strategies[-1]  # default whole-store strategy
+        eps = PlanStrategy(cfg.eps_var_order,
+                           cfg.eps_value_order
+                           if cfg.eps_value_order != "default"
+                           else "indomain_min",
+                           base.ids.copy())
+        eps.is_eps = True
+        plan.strategies.insert(0, eps)
+        # Re-pad the strategy list to a power of two.
+        while len(plan.strategies) & (len(plan.strategies) - 1):
+            plan.strategies.append(plan.strategies[-1])
+    return has_eps
