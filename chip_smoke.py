@@ -5,20 +5,40 @@ Run from the root of the repository (``--kernels-only`` stops after
 phase 3). Phases (any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-2. the kernel build with nvcc from a cold ``turbo_tpu_torch/kernels/_build``;
-3. each kernel against its plain torch version on the same CUDA tensors
-   (4 seeded random models at D=1024 with randomly narrowed stores and
-   stores fixed at a solution, and golomb(12) at D=512): every output
-   exactly equal (tolerance 0: all integer), with the median time of
-   both (the golomb(12) times go into the JSON line);
-4. the main path (``turbo_tpu_torch.cli.main``) on 6 small seeded models
-   against the shared numpy oracle (status and objective equal) and
-   against the port's engine on the CPU with the plain versions
-   (nodes, failures, solutions and fixpoint iterations equal);
-5. golomb(8) proven optimal at 34;
-6. golomb(12) at full width (``-or 0``, ``-t 60000``): every printed
-   solution checked against the model by ``utils/checker.py``;
-7. the launch counts of the three kernels over phases 4-6 (each > 0).
+2. the kernel build with nvcc (one per source, in parallel) from a cold
+   ``turbo_tpu_torch/kernels/_build``;
+3. each kernel against its plain torch version on the same CUDA tensors,
+   every output exactly equal (tolerance 0: all integer), with the median
+   time of both: K1-K3 on 4 seeded random models at D=1024 with randomly
+   narrowed stores and stores fixed at a solution, and on golomb(12) at
+   D=512; K4 (embed and table refill) and K5 (open-branch count) on
+   random stores, table rows, masks and stacks at golomb(12)'s shapes
+   (W=D=512, V=2560, 2048 table rows, MAXD=10000). The golomb(12) times
+   go into the JSON line;
+4. the solver API on the card against the port's engine on the CPU with
+   the plain versions, on 6 small seeded models, steal and resplit
+   stubbed out on both: nodes, failures, solutions and fixpoint
+   iterations equal, (a) in the default table mode with the cap pinned
+   at 4 and (b) with the table off at cap 10000; (c) the default CLI
+   (``turbo_tpu_torch.cli.main``: EPS table, cap calibration, steal and
+   resplit) on the same models against the shared numpy oracle: status
+   and objective equal;
+5. golomb(8) through the default CLI proven optimal at 34;
+6. the main path: golomb(12) through the default CLI at full width
+   (``-or 0``, ``-t 60000``): every printed solution checked against the
+   model by ``utils/checker.py``; the table build time, live table rows,
+   the calibrator's sweep and steal/resplit rounds are printed;
+7. the table-off path: golomb(12) at D=512 through the solver API with
+   ``use_table=False``, ``fp_cap_auto=False`` for 15 s, its best
+   solution checked;
+8. a drain-forcing case (golomb(8), D=64 lanes over 2^4 subproblems, the
+   default configuration) proven optimal at 34, so that the steal gate
+   and K5 run; then the host round trip of a golomb(12) table-mode state
+   (D=512, MAXD=10000) and one steal round on it, timed;
+9. the launch counts of each path driven in phases 4c-8, each set to 0
+   just before the path and read just after it: all five kernels (and
+   both entry points of K4) on the main path (6) and on the drain case
+   (8), K1-K3 on the table-off path (7).
 
 It prints a JSON line of the kernels, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -26,7 +46,6 @@ and last ``{"ok": true, "device": {...}}``.
 import contextlib
 import io
 import json
-import os
 import pathlib
 import re
 import shutil
@@ -36,6 +55,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "chiprun_out" / "chip_smoke"
+# The path whose launch counts the JSON line's ``launches`` reports.
+MAIN = "default CLI, golomb(12)"
 
 
 def fail(msg):
@@ -84,6 +105,17 @@ def run_cli(args):
         fail(f"cli {args} returned {rc}")
     stats = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", out.getvalue(), re.M))
     return out.getvalue(), err.getvalue(), stats
+
+
+def check_solution(model, block):
+    """Fail unless the solution block satisfies every constraint."""
+    from turbo_tpu_torch.host.utils.checker import Checker
+    values = {k: int(v) for k, v in
+              re.findall(r"^(\w+) = (-?\d+);$", block, re.M)}
+    ck = Checker(model, values)
+    bad = [c.name for c in model.constraints if not ck.holds(c)]
+    if bad:
+        fail(f"printed solution violates {bad[:5]}")
 
 
 def status_of(out, is_opt):
@@ -136,7 +168,8 @@ def phase_kernels(torch, dev):
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
 
-    errs = {k.name: 0 for k in kernels.KERNELS}
+    errs = {k.name: 0 for k in (kernels.fixpoint, kernels.classify,
+                                kernels.select)}
     times = {}
     # Exactness on 4 random models at D=1024; exactness and the reported
     # times at the main path's full-width shape, golomb(12) at D=512.
@@ -203,7 +236,296 @@ def phase_kernels(torch, dev):
             f"entailed lanes={n_ent}: fixpoint/classify/select exact; ms "
             + ", ".join(f"{k} {times[label, k][0]:.4f} (plain "
                         f"{times[label, k][1]:.4f})" for k in errs))
-    return {k: (errs[k],) + times["golomb(12)", k] for k in errs}
+    kres = {k: (errs[k],) + times["golomb(12)", k] for k in errs}
+    kres.update(phase_table_kernels(torch, dev, s, tnf))
+    return kres
+
+
+def exact(name, got, want):
+    """Max abs error of got vs want (each a tensor or a tuple of them);
+    fails unless 0."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    err = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{name}: output {i} {g.dtype}{tuple(g.shape)} vs "
+                 f"{w.dtype}{tuple(w.shape)}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"{name}: differs from its plain version (max abs err {err})")
+    return err
+
+
+def phase_table_kernels(torch, dev, s, tnf):
+    """K4 (both entry points) and K5 against their plain versions at
+    golomb(12)'s shapes: W = D = 512 rows of V = 2560, 2048 table rows,
+    (512, 10000) stacks."""
+    import numpy as np
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.solver.engine import (open_branch_count_plain,
+                                               table_refill_plain)
+    from turbo_tpu_torch.host.solver.plan import quantize
+    from turbo_tpu_torch.solver.eps_table import embed_plain
+    rng = np.random.default_rng(42)
+    plan, D, MAXD = s.plan, 512, 10000
+    n_pad = quantize(1 << 11)  # golomb(12) at D=512 splits 2^11 ways
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                  device=dev)
+    lb, ub = random_stores(plan, tnf, D, rng, None)
+    var = rng.integers(0, plan.n_active, D)
+    lo, hi = lb[np.arange(D), var], ub[np.arange(D), var]
+    mid = lo + (hi - lo) // 2
+    args = (t(lb), t(ub), t(rng.integers(0, len(s.dp.strat_ids) + 1, D)),
+            t(var), t(lo), t(mid), t(mid + 1), t(hi),
+            t(rng.integers(0, D, D)), t(rng.integers(0, 2, D)))
+    out = {}
+    err = exact("embed", kernels.embed(*args), embed_plain(*args))
+    ms = (median_ms(lambda: kernels.embed(*args)),
+          median_ms(lambda: embed_plain(*args)))
+    out["embed"] = (err,) + ms
+    tlb, tub = random_stores(plan, tnf, n_pad, rng, None)
+    tab = (t(tlb), t(tub))
+    idx = t(rng.integers(-3, n_pad + 3, D))
+    refill = torch.as_tensor(rng.random(D) < 0.5, device=dev)
+    planes = [t(a) for a in random_stores(plan, tnf, D, rng, None) * 2]
+    mine = [p.clone() for p in planes]
+    kernels.embed.refill(*tab, idx, refill, *mine)
+    table_refill_plain(*tab, idx, refill, *planes)
+    exact("embed.refill", mine, planes)
+    refill_ms = (median_ms(lambda: kernels.embed.refill(*tab, idx, refill,
+                                                        *mine)),
+                 median_ms(lambda: table_refill_plain(*tab, idx, refill,
+                                                      *planes)))
+    dec_cur = t(rng.integers(0, 2, (D, MAXD)))
+    depth = t(rng.integers(0, MAXD + 1, D))
+    phase = t(rng.integers(0, 3, D))
+    err = exact("open_count", kernels.open_count(dec_cur, depth, phase),
+                open_branch_count_plain(dec_cur, depth, phase))
+    out["open_count"] = (err,) + (
+        median_ms(lambda: kernels.open_count(dec_cur, depth, phase)),
+        median_ms(lambda: open_branch_count_plain(dec_cur, depth, phase)))
+    log(f"  golomb(12) shapes: W=D={D} V={plan.V} n_pad={n_pad} MAXD={MAXD}:"
+        f" embed/refill/open_count exact; ms embed {out['embed'][1]:.4f} "
+        f"(plain {out['embed'][2]:.4f}), table_refill {refill_ms[0]:.4f} "
+        f"(plain {refill_ms[1]:.4f}), open_count {out['open_count'][1]:.4f}"
+        f" (plain {out['open_count'][2]:.4f})")
+    return out
+
+
+def launch_counts():
+    from turbo_tpu_torch import kernels
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    counts.update({f"embed.{e}": n
+                   for e, n in kernels.embed.entry_launches.items()})
+    return counts
+
+
+def counted(label, fn, required=()):
+    """Drive one path: every launch count is set to 0 just before ``fn``
+    and read just after; fails unless each kernel (or ``embed.<entry>``)
+    in ``required`` was launched. Returns the counts."""
+    from turbo_tpu_torch import kernels
+    kernels.reset_launches()
+    fn()
+    counts = launch_counts()
+    log(f"  launches on {label}: " + ", ".join(f"{k} {n}"
+                                               for k, n in counts.items()))
+    missing = [k for k in required if counts[k] <= 0]
+    if missing:
+        fail(f"{label}: {missing} not launched on this path")
+    return counts
+
+
+def run_path(torch, dev, big=12):
+    """Phases 4-8: the port's paths on ``dev``; ``big`` is the golomb
+    ruler of phases 6-8 (12: full width). Returns the launch counts of
+    each driven path, by label."""
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.host.solver import oracle
+    from turbo_tpu_torch.instances import GOLOMB_OPT, golomb, random_model
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+    all_kernels = ("fixpoint", "classify", "select", "embed", "open_count",
+                   "embed.embed", "embed.table_refill")
+    paths = {}
+
+    def no_tail(solver):
+        solver._steal_open_branches = lambda *a, **k: None
+        solver._tail_resplit = lambda *a, **k: None
+        return solver
+
+    models = [random_model(200 + seed, n_vars=8, n_cons=24)
+              for seed in range(6)]
+    pinned = (("4a", "table mode, pinned cap 4", True, 4),
+              ("4b", "table off, cap 10000", False, 0))
+    for ph, label, use_table, fp_cap in pinned:
+        log(f"[{ph}] {label}: card vs the port's CPU engine")
+        for seed, text in enumerate(models):
+            tnf = compile_model(parse_fzn_text(text))
+            cfg = EngineConfig(num_dives=64, subproblems_power=8,
+                               use_table=use_table, fp_cap_auto=False)
+            solvers = {d: no_tail(BatchedSolver(tnf, cfg, device=d))
+                       for d in (dev, "cpu")}
+            res = {d: s.solve(fp_cap=fp_cap) for d, s in solvers.items()}
+            gpu, cpu = ((r.status, r.objective, r.nodes, r.fails,
+                         r.solutions, r.fixpoint_iterations)
+                        for r in res.values())
+            log(f"  model {seed}: status/obj/nodes/fails/sols/fp_iters card "
+                f"{gpu} cpu {cpu}; table_build_time card "
+                f"{res[dev].table_build_time:.3f} s")
+            if gpu != cpu:
+                fail(f"[{ph}] model {seed}: card statistics {gpu} != CPU "
+                     f"engine {cpu}")
+            built = res[dev].table_build_time > 0
+            if use_table and not solvers[dev].plan.root_unsat and not built:
+                fail(f"[{ph}] model {seed}: no table was built")
+            if not use_table and built:
+                fail(f"[{ph}] model {seed}: a table was built")
+
+    log("[4c] default CLI vs the oracle")
+
+    def small_models():
+        for seed, text in enumerate(models):
+            tnf = compile_model(parse_fzn_text(text))
+            ro = oracle.solve(tnf, timeout_s=120)
+            out, _, stats = run_cli([write_model(f"rand{seed}", text), "-s",
+                                     "-or", "64", "-sub", "6", "-t",
+                                     "120000"])
+            st = status_of(out, tnf.obj_var >= 0)
+            obj = int(stats["objective"]) if "objective" in stats else None
+            log(f"  model {seed}: port {st} {obj}, oracle {ro.status} "
+                f"{ro.objective}; nodes {stats['nodes']}, table_build_time "
+                f"{stats.get('table_build_time', 'absent')}")
+            if st != ro.status or obj != ro.objective:
+                fail(f"model {seed}: port ({st}, {obj}) != oracle "
+                     f"({ro.status}, {ro.objective})")
+    paths["default CLI, 6 small models"] = counted(
+        "the default CLI, 6 small models", small_models)
+
+    def golomb8_proof():
+        out, _, stats = run_cli([write_model("golomb8", golomb(8)), "-s"])
+        if "==========" not in out or int(stats.get("objective", -1)) != 34:
+            fail(f"golomb(8): expected optimal 34, got "
+                 f"{stats.get('objective')}")
+        log(f"  optimal 34: nodes {stats['nodes']}, solveTime "
+            f"{float(stats['solveTime']):.3f} s, nodes/s "
+            f"{int(stats['nodes']) / float(stats['solveTime']):.0f}, "
+            f"num_blocks {stats['num_blocks']}, table_build_time "
+            f"{stats.get('table_build_time')}")
+
+    log("[5] golomb(8) proof, default CLI")
+    paths["default CLI, golomb(8)"] = counted("the default CLI, golomb(8)",
+                                              golomb8_proof)
+
+    text = golomb(big)
+    model = parse_fzn_text(text)
+
+    def golomb_big():
+        out, err, stats = run_cli([write_model(f"golomb{big}", text), "-s",
+                                   "-or", "0", "-t", "60000", "-v", "-v"])
+        blocks = [b for b in out.split("----------\n")[:-1]]
+        if not blocks:
+            fail(f"golomb({big}): no solution printed")
+        for b in blocks:
+            check_solution(model, b)
+        dk = re.search(r"% D=(\d+) k=(\d+)", err)
+        tbl = re.search(r"% eps table: (.*)", err)
+        cal = re.findall(r"^% auto fp_cap=.*$", out, re.M)
+        nodes, solve_t = int(stats["nodes"]), float(stats["solveTime"])
+        log(f"  {len(blocks)} solution(s) checked; objective "
+            f"{stats.get('objective')} (optimum {GOLOMB_OPT[big]}); nodes "
+            f"{nodes}, nodes/s {nodes / solve_t:.0f}, solveTime "
+            f"{solve_t:.3f} s, fixpoint_iterations "
+            f"{stats['fixpoint_iterations']}, D "
+            f"{dk.group(1) if dk else '?'}, k {dk.group(2) if dk else '?'}")
+        log(f"  table_build_time {stats.get('table_build_time')} s; "
+            f"{tbl.group(1) if tbl else 'no table line'}; calibration: "
+            f"{cal or 'none'}; steal rounds "
+            f"{len(re.findall('^% stack steal #', out, re.M))}, resplit "
+            f"rounds {len(re.findall('^% tail resplit #', out, re.M))}, "
+            f"eps_redistributions {stats.get('eps_redistributions')}")
+
+    # The main path: the default CLI at full width, which builds the
+    # table, refills from it, drains the range and reaches the steal gate.
+    log(f"[6] golomb({big}), default CLI, -or 0, -t 60000")
+    paths[MAIN] = counted(f"the default CLI, golomb({big})", golomb_big,
+                          required=all_kernels)
+
+    tnf_big = compile_model(model)
+
+    def table_off():
+        s = BatchedSolver(tnf_big, EngineConfig(num_dives=512,
+                                                use_table=False,
+                                                fp_cap_auto=False),
+                          device=dev)
+        r = s.solve(timeout_s=15)
+        if r.best_lb is None:
+            fail(f"table-off golomb({big}): no solution")
+        from turbo_tpu_torch.host.utils.output import print_solution
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            print_solution(tnf_big, r.best_lb)
+        check_solution(model, buf.getvalue())
+        log(f"  objective {r.objective}, checker-valid; nodes {r.nodes}, "
+            f"nodes/s {r.nodes / r.solve_time:.0f}, solveTime "
+            f"{r.solve_time:.3f} s, k {s.k}, fixpoint_iterations "
+            f"{r.fixpoint_iterations}")
+
+    log(f"[7] table-off path: golomb({big}), D=512, solver API, 15 s")
+    paths[f"table off, golomb({big})"] = counted(
+        f"the table-off path, golomb({big})", table_off,
+        required=("fixpoint", "classify", "select"))
+
+    def drain():
+        s = BatchedSolver(compile_model(parse_fzn_text(golomb(8))),
+                          EngineConfig(num_dives=64, subproblems_power=4),
+                          device=dev)
+        r = s.solve()
+        if (r.status, r.objective) != ("optimal", 34):
+            fail(f"drain case: expected optimal 34, got {r.status} "
+                 f"{r.objective}")
+        log(f"  optimal 34: nodes {r.nodes}, solveTime {r.solve_time:.3f} s,"
+            f" eps_redistributions {r.eps_redistributions}, auto cap "
+            f"{s.last_auto_cap}")
+
+    log("[8] drain-forcing case: golomb(8), D=64 over 2^4 subproblems")
+    paths["drain-forcing, golomb(8)"] = counted(
+        "the drain-forcing case, golomb(8)", drain, required=all_kernels)
+    steal_round_trip(torch, dev, big, tnf_big)
+    return paths
+
+
+def steal_round_trip(torch, dev, big, tnf):
+    """The host round trip of a golomb(big) table-mode state (D=512) and
+    one steal round on it, timed."""
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.convert import (search_state_from_numpy,
+                                                search_state_to_numpy)
+    from turbo_tpu_torch.solver.engine import IDLE, SOLVE, BatchedSolver
+    s = BatchedSolver(tnf, EngineConfig(num_dives=512), device=dev)
+    st, _ = s.run_steps(s.init_state(), 30, 4)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fields = search_state_to_numpy(st)
+    search_state_from_numpy(fields, dev)
+    torch.cuda.synchronize()
+    rt_s = time.monotonic() - t0
+    fields["phase"][::2] = IDLE  # half the lanes as thieves
+    thieves = search_state_from_numpy(fields, dev)
+    t0 = time.monotonic()
+    res = s._steal_open_branches(thieves, fields["phase"])
+    torch.cuda.synchronize()
+    steal_s = time.monotonic() - t0
+    nbytes = sum(a.nbytes for a in fields.values())
+    log(f"  golomb({big}) table-mode state ({nbytes / 1e6:.1f} MB, MAXD "
+        f"{s.cfg.max_depth}, {int((st.phase == SOLVE).sum())} SOLVE lanes): "
+        f"host round trip {rt_s:.3f} s; one steal round "
+        f"{steal_s:.3f} s ({res[1] if res else 0} branches reseeded)")
 
 
 def main():
@@ -217,11 +539,6 @@ def main():
     except ImportError as e:
         fail(f"turbo_tpu_torch not found next to chip_smoke.py: {e}")
     from turbo_tpu_torch import kernels
-    from turbo_tpu_torch.host.compile.model import compile_model
-    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
-    from turbo_tpu_torch.host.solver import oracle
-    from turbo_tpu_torch.host.utils.checker import Checker
-    from turbo_tpu_torch.instances import GOLOMB_OPT, golomb, random_model
     from turbo_tpu_torch.kernels import build as kbuild
 
     dev = torch.device("cuda:0")
@@ -244,77 +561,20 @@ def main():
         log("--kernels-only: stopping after phase 3")
         sys.exit(0)
 
-    kernels.reset_launches()
-    log("[4] main path vs oracle, and vs the port's CPU engine")
-    from turbo_tpu_torch.solver.config import EngineConfig
-    from turbo_tpu_torch.solver.engine import BatchedSolver
-    for seed in range(6):
-        text = random_model(200 + seed, n_vars=8, n_cons=24)
-        tnf = compile_model(parse_fzn_text(text))
-        ro = oracle.solve(tnf, timeout_s=120)
-        out, _, stats = run_cli([write_model(f"rand{seed}", text), "-s",
-                                 "-or", "64", "-sub", "6", "-t", "120000"])
-        st = status_of(out, tnf.obj_var >= 0)
-        obj = int(stats["objective"]) if "objective" in stats else None
-        # The same configuration with the plain torch versions on the
-        # CPU walks the same tree: the statistics must be equal.
-        rc = BatchedSolver(tnf, EngineConfig(num_dives=64, subproblems_power=6),
-                           device="cpu").solve()
-        cpu = (rc.nodes, rc.fails, rc.solutions, rc.fixpoint_iterations)
-        gpu = tuple(int(stats.get(k, -1)) for k in (
-            "nodes", "failures", "num_solutions", "fixpoint_iterations"))
-        log(f"  model {seed}: port {st} {obj}, oracle {ro.status} "
-            f"{ro.objective}; nodes/fails/sols/fp_iters card {gpu} cpu {cpu}")
-        if st != ro.status or obj != ro.objective:
-            fail(f"model {seed}: port ({st}, {obj}) != oracle "
-                 f"({ro.status}, {ro.objective})")
-        if gpu != cpu:
-            fail(f"model {seed}: card statistics {gpu} != CPU engine {cpu}")
-
-    log("[5] golomb(8) proof")
-    out, _, stats = run_cli([write_model("golomb8", golomb(8)), "-s"])
-    if "==========" not in out or int(stats.get("objective", -1)) != 34:
-        fail(f"golomb(8): expected optimal 34, got {stats.get('objective')}")
-    log(f"  optimal 34: nodes {stats['nodes']}, solveTime "
-        f"{float(stats['solveTime']):.3f} s, nodes/s "
-        f"{int(stats['nodes']) / float(stats['solveTime']):.0f}, "
-        f"num_blocks {stats['num_blocks']}")
-
-    log("[6] golomb(12), -or 0, -t 60000")
-    text = golomb(12)
-    path = write_model("golomb12", text)
-    out, err, stats = run_cli([path, "-s", "-or", "0", "-t", "60000", "-v"])
-    blocks = [b for b in out.split("----------\n")[:-1]]
-    if not blocks:
-        fail("golomb(12): no solution printed")
-    model = parse_fzn_text(text)
-    for b in blocks:
-        values = {k: int(v) for k, v in
-                  re.findall(r"^(\w+) = (-?\d+);$", b, re.M)}
-        ck = Checker(model, values)
-        bad = [c.name for c in model.constraints if not ck.holds(c)]
-        if bad:
-            fail(f"golomb(12): printed solution violates {bad[:5]}")
-    dk = re.search(r"% D=(\d+) k=(\d+)", err)
-    nodes, solve_t = int(stats["nodes"]), float(stats["solveTime"])
-    log(f"  {len(blocks)} solution(s) checked; objective "
-        f"{stats.get('objective')} (optimum {GOLOMB_OPT[12]}); nodes {nodes}, "
-        f"nodes/s {nodes / solve_t:.0f}, solveTime {solve_t:.3f} s, "
-        f"fixpoint_iterations {stats['fixpoint_iterations']}, "
-        f"D {dk.group(1) if dk else '?'}, k {dk.group(2) if dk else '?'}")
-
-    log("[7] launches over phases 4-6: " + ", ".join(
-        f"{k.name} {k.launches}" for k in kernels.KERNELS))
-    for k in kernels.KERNELS:
-        if k.launches <= 0:
-            fail(f"kernel {k.name} was not launched on the main path")
+    paths = run_path(torch, dev)
+    main_counts = paths[MAIN]
+    log("[9] launches by path: " + "; ".join(
+        f"{p}: " + ", ".join(f"{k} {n}" for k, n in c.items())
+        for p, c in paths.items()))
     if "jax" in sys.modules or "turbo_tpu" in sys.modules:
         fail("jax or the turbo_tpu package was imported")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": k.launches,
+         "replaces": k.replaces, "launches": main_counts[k.name],
+         "launches_by_path": {p: c[k.name] for p, c in paths.items()},
          "max_abs_err": kres[k.name][0], "ms": kres[k.name][1],
-         "plain_ms": kres[k.name][2]} for k in kernels.KERNELS]}))
+         "plain_ms": kres[k.name][2]} for k in kernels.KERNELS],
+        "main_path": MAIN}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

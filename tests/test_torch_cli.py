@@ -1,9 +1,9 @@
 """The port's CLI against ``turbo_tpu.cli`` on in-line models.
 
-Each model has a unique optimal solution, so both CLIs must print the
-same solution block and the same final separator; the ``%%%mzn-stat``
-keys must be the same set, except ``table_build_time``, which the JAX
-CLI prints only in its EPS-table mode (not ported).
+Both CLIs run their defaults (EPS table, live cap calibration). Each
+model has a unique optimal solution, so both must print the same
+solution block and the same final separator, and the same set of
+``%%%mzn-stat`` keys.
 """
 import re
 
@@ -34,7 +34,6 @@ constraint int_lin_eq([1, 1, -1], [x, y, s], 0);
 solve :: int_search([x, y], first_fail, indomain_split, complete) maximize s;
 """,
 }
-JAX_ONLY_KEYS = {"table_build_time"}
 
 
 def _run(main, path, capsys, extra):
@@ -54,7 +53,7 @@ def test_cli_output_matches_jax_cli(name, tmp_path, capsys):
     sol_t, tail_t, keys_t = _run(port_cli.main, path, capsys, [])
     assert sol_t == sol_j
     assert tail_t == tail_j == ["=========="]
-    assert keys_t == keys_j - JAX_ONLY_KEYS
+    assert keys_t == keys_j
 
 
 def test_unported_options_raise(tmp_path):

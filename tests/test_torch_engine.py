@@ -4,8 +4,8 @@ Both engines get the same configuration: table off, no cap calibration,
 the (D, V) layout, a pinned subproblem power and stack depth, a cap high
 enough that no lane is held. After ``init_state`` and after 1, 7 and 40
 steps every ``SearchState`` field the port carries must be equal
-(tolerance zero; the JAX table and solution-ring placeholders are not
-carried). ``lb``/``ub`` are compared on lanes whose store is not bot
+(tolerance zero; ``JAX_ONLY`` lists the JAX fields the port does not
+carry). ``lb``/``ub`` are compared on lanes whose store is not bot
 only: the JAX fixpoint keeps sweeping a lane after it went bot while
 other lanes converge, the port freezes it; the engine never reads a bot
 store (the lane backtracks, refills or idles).
@@ -35,6 +35,9 @@ CASES = {"rand10": (random_model(10, n_vars=8, n_cons=22), 0),
          "rand12": (random_model(12, n_vars=9, n_cons=26), 3),
          "rand13": (random_model(13, n_vars=8, n_cons=22), 0),
          "golomb6": (golomb(6), 0)}
+# The port keeps the objective and its kind in the plan, the fixpoint
+# cap as a host int, and has no solution ring.
+JAX_ONLY = {"obj", "is_opt", "fp_cap", "sol_ring", "sol_w"}
 STATS = ("status", "objective", "exhaustive", "nodes", "fails", "solutions",
          "depth_max", "fixpoint_iterations", "num_deductions",
          "eps_solved_subproblems", "eps_skipped_subproblems")
@@ -51,16 +54,20 @@ def _pair(name):
     js = JaxSolver(jax_compile(jax_parse(text)),
                    JaxConfig(use_table=False, fp_cap_auto=False,
                              fp_layout="dv", **kw))
-    # The port's host loop has no stack steal or tail resplit.
-    js._steal_open_branches = lambda *a, **k: None
-    js._tail_resplit = lambda *a, **k: None
-    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw))
+    # Stack steal and tail resplit are timed by the wall clock: off on
+    # both sides, so that both walk the same steps.
+    ts = BatchedSolver(compile_model(parse_fzn_text(text)),
+                       EngineConfig(use_table=False, fp_cap_auto=False, **kw))
+    for s in (js, ts):
+        s._steal_open_branches = lambda *a, **k: None
+        s._tail_resplit = lambda *a, **k: None
     return js, ts
 
 
 def _assert_same_state(jst, tst, where):
     want = {k: np.asarray(v) for k, v in jax.device_get(jst)._asdict().items()}
     got = search_state_to_numpy(tst)
+    assert set(want) - set(got) == JAX_ONLY, where
     ok = ~(want["lb"] > want["ub"]).any(axis=1)
     assert np.array_equal(ok, ~(got["lb"] > got["ub"]).any(axis=1)), where
     for f in dataclasses.fields(SearchState):

@@ -131,3 +131,14 @@ def test_random_strategies_shuffle_like_the_original():
     jax_engine.apply_strategy_config(pj, jax_engine.EngineConfig(seed=11))
     port_config.apply_strategy_config(pt, port_config.EngineConfig(seed=11))
     _same(pj.strategies, pt.strategies)
+
+
+def test_engine_config_defaults_are_the_jax_defaults():
+    """The port's EngineConfig carries the JAX defaults for every field
+    it has (the EPS table and cap calibration on), so the port's CLI
+    runs the JAX CLI's default search."""
+    jax_cfg, port_cfg = jax_engine.EngineConfig(), port_config.EngineConfig()
+    fields = [f.name for f in dataclasses.fields(port_cfg)]
+    assert {"use_table", "fp_cap_auto"} <= set(fields)
+    for f in fields:
+        assert getattr(port_cfg, f) == getattr(jax_cfg, f), f

@@ -297,7 +297,8 @@ def _case(seed):
     text = golomb(4) if seed < 0 else random_model(seed, n_vars=7, n_cons=18)
     tnf = compile_model(parse_fzn_text(text))
     s = BatchedSolver(tnf, EngineConfig(num_dives=12, subproblems_power=3,
-                                        max_depth=64))
+                                        max_depth=64, use_table=False,
+                                        fp_cap_auto=False))
     rng = np.random.default_rng(seed + 10)
     plan, D = s.plan, 12
     lb = np.tile(plan.lb0, (D, 1)).astype(np.int32)
@@ -366,12 +367,17 @@ def test_cuda_kernels_match_plain(seed):
 @pytest.mark.parametrize("seed", [-1, 0, 1])
 def test_cuda_engine_matches_cpu_engine(seed):
     """The engine on the card (kernels) walks the same tree as on the CPU
-    (plain versions): equal state after 30 steps, equal statistics."""
+    (plain versions): equal state after 30 steps, equal statistics.
+    Steal and resplit are gated by the wall clock, so both are off."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from turbo_tpu_torch.solver.convert import search_state_to_numpy
     s, _, _, _ = _case(seed)
+    s = BatchedSolver(s.tnf, s.cfg)
     sc = BatchedSolver(s.tnf, s.cfg, device="cuda:0")
+    for solver in (s, sc):
+        solver._steal_open_branches = lambda *a, **k: None
+        solver._tail_resplit = lambda *a, **k: None
     a, _ = s.run_steps(s.init_state(), 30)
     b, _ = sc.run_steps(sc.init_state(), 30)
     want, got = search_state_to_numpy(a), search_state_to_numpy(b)
@@ -381,3 +387,40 @@ def test_cuda_engine_matches_cpu_engine(seed):
     for k in ("status", "objective", "nodes", "fails", "solutions",
               "fixpoint_iterations", "depth_max"):
         assert getattr(rb, k) == getattr(ra, k), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_embed_refill_open_count_match_plain(seed):
+    """K4 (both entry points) and K5 against their plain versions on the
+    same CUDA tensors, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.solver.engine import (open_branch_count_plain,
+                                               table_refill_plain)
+    from turbo_tpu_torch.solver.eps_table import embed_plain
+    dev = torch.device("cuda:0")
+    g = torch.Generator().manual_seed(seed)
+    W, V, n_pad, MAXD = 96, 300, 64, 500
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             dtype=torch.int32).to(dev)
+
+    args = (ri(-50, 50, W, V), ri(-50, 50, W, V), ri(0, 4, W), ri(0, V, W),
+            ri(-60, 60, W), ri(-60, 60, W), ri(-60, 60, W), ri(-60, 60, W),
+            ri(0, W, W), ri(0, 2, W))
+    for a, b in zip(kernels.embed(*args), embed_plain(*args)):
+        assert torch.equal(a, b)
+    tab = (ri(-9, 9, n_pad, V), ri(-9, 9, n_pad, V))
+    idx, refill = ri(-5, n_pad + 5, W), ri(0, 2, W) == 1
+    planes = [ri(-9, 9, W, V) for _ in range(4)]
+    mine = [p.clone() for p in planes]
+    kernels.embed.refill(*tab, idx, refill, *mine)
+    table_refill_plain(*tab, idx, refill, *planes)
+    for a, b in zip(mine, planes):
+        assert torch.equal(a, b)
+    dec_cur, depth, phase = ri(0, 2, W, MAXD), ri(0, MAXD + 1, W), ri(0, 3, W)
+    assert int(kernels.open_count(dec_cur, depth, phase)) == int(
+        open_branch_count_plain(dec_cur, depth, phase))

@@ -66,7 +66,8 @@ def _pair(seed, **cfg):
     js = JaxSolver(jax_compile(jax_parse(text)),
                    JaxConfig(use_table=False, fp_cap_auto=False,
                              fp_layout="dv", **kw))
-    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw))
+    ts = BatchedSolver(compile_model(parse_fzn_text(text)),
+                       EngineConfig(use_table=False, fp_cap_auto=False, **kw))
     return js, ts
 
 

@@ -4,7 +4,10 @@
 ``turbo_tpu.cli`` (shared ``parse_args``), the same solution blocks,
 separators and ``%%%mzn-stat`` lines. ``-arch tpu|gpu|barebones`` run
 the batched engine on the CUDA card (``-platform cpu``: the plain torch
-versions on the CPU); ``-arch cpu`` runs the shared numpy oracle.
+versions on the CPU) with the JAX CLI's defaults: the EPS subproblem
+table and live fixpoint-cap calibration; ``-arch cpu`` runs the shared
+numpy oracle. ``-v -v`` prints the calibrator's choice, the steal and
+resplit rounds and a line per chunk.
 """
 from __future__ import annotations
 
@@ -119,8 +122,16 @@ def run(cfg: Configuration) -> int:
               f"(kernel build {solver.build_time:.2f}s)", file=sys.stderr)
     r = solver.solve(timeout_s=timeout_s,
                      stop_after_n_solutions=cfg.stop_after_n_solutions,
-                     node_limit=cfg.stop_after_n_nodes)
+                     node_limit=cfg.stop_after_n_nodes,
+                     verbose=cfg.verbose >= 2)
     r.init_time = round(init_time + setup, 3)
+    if cfg.verbose:
+        tb = solver._table
+        print("% eps table: " + (f"n_live={tb.n_live} of {solver.num_sub_total}"
+                                  f" subproblems, n_pad={tb.n_pad}"
+                                  if tb is not None else "off")
+              + f"; fp_cap={solver.last_auto_cap or 'not calibrated'}",
+              file=sys.stderr)
     if r.best_lb is not None:
         print_solution(tnf, r.best_lb)
     print_final_separator(r.status, tnf.obj_var >= 0,

@@ -1,18 +1,21 @@
 """The solver's CUDA kernels for Hopper and their wrappers.
 
-Three kernels, each one thread block per dive on PyTorch's current
-stream (``csrc/*.cu``):
+Five kernels, each one thread block per dive (or table row) on
+PyTorch's current stream (``csrc/*.cu``):
 
 - ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap;
 - ``classify`` (K2): per dive, some domain empty / every propagator
   entailed;
-- ``select`` (K3): branch variable and the two children.
+- ``select`` (K3): branch variable and the two children;
+- ``embed`` (K4): the EPS table build's parent-row gather with the child
+  bound, and (``embed.refill``) the step's table-row refill, in place;
+- ``open_count`` (K5): open right branches on the SOLVE-phase stacks.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, raises when the launch fails,
 and counts its launches in ``launches``. The plain torch versions live
-in ``solver/propagate.py`` and ``solver/engine.py``; nothing here falls
-back to them.
+in ``solver/propagate.py``, ``solver/engine.py`` and
+``solver/eps_table.py``; nothing here falls back to them.
 """
 from __future__ import annotations
 
@@ -233,12 +236,89 @@ class _Select(_Kernel):
         return (found, *outs)
 
 
+class _Embed(_Kernel):
+    name = "embed"
+    source = "turbo_tpu_torch/kernels/csrc/embed.cu"
+    replaces = "turbo_tpu/solver/eps_table.py:109"
+    ENTRIES = ("embed", "table_refill")
+
+    def __init__(self):
+        super().__init__()
+        self.entry_launches = dict.fromkeys(self.ENTRIES, 0)
+
+    def __call__(self, lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l,
+                 c1u, pidx, pbit):
+        """(lbp, ubp, stp): row r is parent row pidx[r] met at the
+        parent's branch variable with child pbit[r]; see csrc/embed.cu."""
+        W, V = lb_par.shape
+        _check(lb_par, "lb_par", (W, V))
+        _check(ub_par, "ub_par", (W, V))
+        vecs = dict(strat_par=strat_par, var_par=var_par, c0l=c0l, c0u=c0u,
+                    c1l=c1l, c1u=c1u, pidx=pidx, pbit=pbit)
+        for n, t in vecs.items():
+            _check(t, n, (W,))
+        lbp = torch.empty_like(lb_par)
+        ubp = torch.empty_like(ub_par)
+        stp = torch.empty_like(strat_par)
+        with torch.cuda.device(lb_par.device):
+            self._launch(lambda lib: lib.tt_embed, lb_par.data_ptr(),
+                         ub_par.data_ptr(),
+                         *(t.data_ptr() for t in vecs.values()),
+                         lbp.data_ptr(), ubp.data_ptr(), stp.data_ptr(), W,
+                         V, _stream(lb_par))
+        self.entry_launches["embed"] += 1
+        return lbp, ubp, stp
+
+    def refill(self, tab_lb, tab_ub, idx, refill, lb, ub, root_lb, root_ub):
+        """In place: every lane d with refill[d] takes table row
+        clip(idx[d], 0, n_pad - 1) into lb, ub, root_lb and root_ub."""
+        n_pad, V = tab_lb.shape
+        D = lb.shape[0]
+        _check(tab_lb, "tab_lb", (n_pad, V))
+        _check(tab_ub, "tab_ub", (n_pad, V))
+        _check(idx, "idx", (D,))
+        _check(refill, "refill", (D,), torch.bool)
+        for n, t in (("lb", lb), ("ub", ub), ("root_lb", root_lb),
+                     ("root_ub", root_ub)):
+            _check(t, n, (D, V))
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: lib.tt_table_refill, tab_lb.data_ptr(),
+                         tab_ub.data_ptr(), idx.data_ptr(),
+                         refill.data_ptr(), lb.data_ptr(), ub.data_ptr(),
+                         root_lb.data_ptr(), root_ub.data_ptr(), D, n_pad, V,
+                         _stream(lb))
+        self.entry_launches["table_refill"] += 1
+
+
+class _OpenCount(_Kernel):
+    name = "open_count"
+    source = "turbo_tpu_torch/kernels/csrc/open_count.cu"
+    replaces = "turbo_tpu/solver/engine.py:1185"
+
+    def __call__(self, dec_cur, depth, phase):
+        """0-dim int64 tensor on the card: the open right branches of
+        the SOLVE-phase stacks; see csrc/open_count.cu."""
+        D, MAXD = dec_cur.shape
+        _check(dec_cur, "dec_cur", (D, MAXD))
+        _check(depth, "depth", (D,))
+        _check(phase, "phase", (D,))
+        out = torch.zeros((), dtype=torch.int64, device=dec_cur.device)
+        with torch.cuda.device(dec_cur.device):
+            self._launch(lambda lib: lib.tt_open_count, dec_cur.data_ptr(),
+                         depth.data_ptr(), phase.data_ptr(), out.data_ptr(),
+                         D, MAXD, _stream(dec_cur))
+        return out
+
+
 fixpoint = _Fixpoint()
 classify = _Classify()
 select = _Select()
-KERNELS = (fixpoint, classify, select)
+embed = _Embed()
+open_count = _OpenCount()
+KERNELS = (fixpoint, classify, select, embed, open_count)
 
 
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+    embed.entry_launches = dict.fromkeys(embed.ENTRIES, 0)

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc into a shared library and load it.
 
-The sources in ``csrc/`` have a plain C interface; they are compiled for
-Hopper (``sm_90a``) into ``_build/libturbo_kernels_<hash>.so``, keyed by
+The sources in ``csrc/`` have a plain C interface; each is compiled for
+Hopper (``sm_90a``) by its own nvcc, all started together, and the
+objects are linked into ``_build/libturbo_kernels_<hash>.so``, keyed by
 a hash of the sources and flags, and loaded through ``ctypes``. The
 build happens at first use; a failure raises (nothing falls back to the
 plain torch versions).
@@ -17,9 +18,10 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("fixpoint.cu", "classify.cu", "select.cu")
+SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "embed.cu",
+           "open_count.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""
@@ -50,7 +52,11 @@ def _bind(lib):
     lib.tt_fixpoint.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P]
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P]
-    for fn in (lib.tt_fixpoint, lib.tt_classify, lib.tt_select):
+    lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
+    lib.tt_table_refill.argtypes = [P] * 8 + [I, I, I, P]
+    lib.tt_open_count.argtypes = [P, P, P, P, I, I, P]
+    for fn in (lib.tt_fixpoint, lib.tt_classify, lib.tt_select,
+               lib.tt_embed, lib.tt_table_refill, lib.tt_open_count):
         fn.restype = I
     lib.tt_error_string.argtypes = [I]
     lib.tt_error_string.restype = ctypes.c_char_p
@@ -67,13 +73,31 @@ def load():
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = r.stdout + r.stderr
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(o),
+                                   str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs, failed = [], []
+        for s, pr in zip(SOURCES, procs):
+            logs.append(f"== {s}\n{pr.communicate()[0]}")
+            if pr.returncode != 0:
+                failed.append(f"{s} ({pr.returncode})")
+        if not failed:
+            r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                *map(str, objs)], capture_output=True,
+                               text=True)
+            logs.append(f"== link\n{r.stdout}{r.stderr}")
+            if r.returncode != 0:
+                failed.append(f"link ({r.returncode})")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        build_log = "".join(logs)
         (BUILD_DIR / "build.log").write_text(build_log)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
+                               f"{build_log}")
         os.replace(tmp, out)
     _lib = _bind(ctypes.CDLL(str(out)))
     return _lib

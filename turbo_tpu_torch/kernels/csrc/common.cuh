@@ -1,5 +1,6 @@
-// Shared device code of the three solver kernels (fixpoint.cu,
-// classify.cu, select.cu): the plan tables as one struct passed by
+// Shared device code of the solver kernels (fixpoint.cu, classify.cu
+// and select.cu use all of it; embed.cu and open_count.cu only the
+// block size): the plan tables as one struct passed by
 // value, and the per-propagator rules of
 // turbo_tpu/solver/propagate_jax.py written for one thread.
 //

@@ -31,8 +31,11 @@ class EngineConfig:
     enumerate_all: bool = False  # all-solutions mode: not ported
     disable_simplify: bool = False
     shave: bool = False
-    fp_cap_auto: bool = False    # live cap calibration: not ported
-    use_table: bool = False      # EPS subproblem table: not ported
+    # Live fixpoint-cap calibration when solve() gets no fp_cap.
+    fp_cap_auto: bool = True
+    # EPS subproblem-root table (solver/eps_table.py): refills enter
+    # SOLVE phase from a table built once, instead of re-diving.
+    use_table: bool = True
 
 
 def probe_tree_power(tnf, probe_nodes: int = 2000,

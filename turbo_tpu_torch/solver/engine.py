@@ -1,12 +1,21 @@
-"""Batched EPS dive-and-solve engine in PyTorch (table off).
+"""Batched EPS dive-and-solve engine in PyTorch.
 
-Port of ``turbo_tpu/solver/engine.py`` for the configuration
-``use_table=False, fp_cap_auto=False, fp_mode="fixpoint"``: D dives
-advance in lockstep, one search node per ``step``, on (D, ·) tensors on
-one device. Per step the three kernels run the heavy part: the
+Port of ``turbo_tpu/solver/engine.py`` for ``fp_mode="fixpoint"``: D
+dives advance in lockstep, one search node per ``step``, on (D, ·)
+tensors on one device. Per step the kernels run the heavy part: the
 propagation fixpoint and the bot/entailment classification
-(``PropagatorKernels``) and branch selection (``_select``); the rest of
-the step is plain batched torch ops.
+(``PropagatorKernels``), branch selection (``_select``) and, in table
+mode, the table-row refill (``table_refill``); the rest of the step is
+plain batched torch ops.
+
+With ``use_table`` (the default) the EPS subproblem roots come from a
+table built once on the device (``solver/eps_table.py``) and refills
+enter SOLVE phase directly; otherwise lanes re-dive their bit-path from
+the root. ``solve`` calibrates the fixpoint cap live
+(``AutoCapCalibrator``) and, once the subproblem range is drained,
+steals open branches for idle lanes or resplits the stragglers. The
+fixpoint cap is a host integer that ``solve`` owns and passes to
+``step``.
 
 ``step`` consumes its input state: the decision stacks (D, MAXD) are
 updated in place (the JAX step donates its input the same way); every
@@ -15,8 +24,10 @@ other field of the returned state is a new tensor.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
+import numpy as np
 import torch
 
 from ..host.core.ops import INF, NINF
@@ -24,12 +35,14 @@ from ..host.solver import strategy as _strategy
 from ..host.solver.plan import build_plan
 from .config import (EngineConfig, apply_strategy_config, auto_max_depth,
                      choose_subproblems_power)
-from .convert import DevicePlan
+from .convert import DevicePlan, search_state_from_numpy, search_state_to_numpy
 from .propagate import PropagatorKernels
 
 I32 = torch.int32
 F32 = torch.float32
 DIVE, SOLVE, IDLE = 0, 1, 2
+_STACKS = ("dec_var", "dec_l0", "dec_u0", "dec_l1", "dec_u1", "dec_rope1",
+           "dec_cur")
 
 
 @dataclasses.dataclass
@@ -65,11 +78,141 @@ class SearchState:
     dmax: torch.Tensor
     solved_sub: torch.Tensor
     skipped_sub: torch.Tensor
-    kpow: torch.Tensor        # (D,) replicated instance scalars
+    kpow: torch.Tensor        # (D,) per-lane subproblem power
     sub_limit: torch.Tensor
     pscale: torch.Tensor      # (D,) float32 live propagators per sweep
     eps_strat: torch.Tensor
     ext_bound: torch.Tensor   # (D,) INF: one device, no remote incumbent
+    # EPS subproblem-root table (solver/eps_table.py): refills gather a
+    # leaf row and enter SOLVE phase. (1, V) / (1,) placeholders in
+    # dive mode.
+    tab_lb: torch.Tensor      # (n_pad, V) int32
+    tab_ub: torch.Tensor
+    tab_strat: torch.Tensor   # (n_pad,) int32 post-dive strategy cursor
+    tab_path: torch.Tensor    # (n_pad,) int32 subproblem bit-path
+
+
+def table_refill_plain(tab_lb, tab_ub, idx, refill, lb, ub, root_lb,
+                       root_ub):
+    """In place: every lane d with refill[d] takes table row
+    clip(idx[d], 0, n_pad - 1) into lb, ub, root_lb and root_ub."""
+    i = idx.clamp(0, tab_lb.shape[0] - 1).long()
+    m = refill[:, None]
+    tl, tu = tab_lb[i], tab_ub[i]
+    for dst, src in ((lb, tl), (root_lb, tl), (ub, tu), (root_ub, tu)):
+        dst.copy_(torch.where(m, src, dst))
+
+
+def table_refill(tab_lb, tab_ub, idx, refill, lb, ub, root_lb, root_ub):
+    if lb.is_cuda:
+        from ..kernels import embed as k_embed
+        return k_embed.refill(tab_lb, tab_ub, idx, refill, lb, ub, root_lb,
+                              root_ub)
+    if lb.device.type != "cpu":
+        raise RuntimeError(f"no table refill for device {lb.device}")
+    return table_refill_plain(tab_lb, tab_ub, idx, refill, lb, ub,
+                              root_lb, root_ub)
+
+
+def open_branch_count_plain(dec_cur, depth, phase):
+    """0-dim int64: open right branches (dec_cur == 0 below depth) over
+    the SOLVE-phase stacks."""
+    col = torch.arange(dec_cur.shape[1], dtype=I32, device=dec_cur.device)
+    live = (phase == SOLVE)[:, None] & (col[None, :] < depth[:, None])
+    return ((dec_cur == 0) & live).sum()
+
+
+def open_branch_count(dec_cur, depth, phase):
+    if dec_cur.is_cuda:
+        from ..kernels import open_count as k_open_count
+        return k_open_count(dec_cur, depth, phase)
+    if dec_cur.device.type != "cpu":
+        raise RuntimeError(f"no open-branch count for device "
+                           f"{dec_cur.device}")
+    return open_branch_count_plain(dec_cur, depth, phase)
+
+
+class AutoCapCalibrator:
+    """Live fixpoint-cap calibration (``turbo_tpu/solver/engine.py:
+    204-314``): one short sample per candidate cap of an ascending
+    ladder, accumulated to ``TURBO_TPU_CAL_SAMPLE_S`` seconds of device
+    time or 4 chunks; stops early once a candidate falls below 0.7x the
+    best rate, then locks the nodes/s argmax. Sound at any cap (the
+    hold rule keeps the search tree the exact fixpoint tree), so every
+    calibration chunk is real solve progress. The cap is a host int:
+    ``arm`` and ``observe`` return the cap to run next."""
+
+    def __init__(self, cfg, fp_cap_override: int):
+        self.rates = {}
+        self.active = None
+        self.nodes0 = 0
+        self.chosen = None
+        self.min_sample_s = float(os.environ.get(
+            "TURBO_TPU_CAL_SAMPLE_S", "0.4"))
+        self.max_sample_chunks = 4
+        self.acc_dur = 0.0
+        self.acc_chunks = 0
+        if fp_cap_override == 0 and cfg.fp_cap_auto:
+            self.caps = [c for c in (2, 3, 4, 8, 16)
+                         if c <= cfg.fp_max_iters]
+        else:
+            self.caps = []
+        if self.caps:
+            self.active = self.caps[0]
+
+    @property
+    def done(self) -> bool:
+        return not self.caps
+
+    def arm(self, cap: int) -> int:
+        """The first candidate, run from the first chunk on."""
+        return self.active if self.caps else cap
+
+    def observe(self, cap: int, tot_nodes: int, device_dur: float,
+                warmup: bool, skip: bool = False, verbose: bool = False):
+        """Feed one chunk's observation. Returns (cap', chunk_hint):
+        chunk_hint is the suggested trip count for the next chunk (None =
+        the caller's own choice)."""
+        if not self.caps:
+            return cap, None
+        if warmup or skip:
+            # No rate sample: just rebase the counter.
+            self.nodes0 = tot_nodes
+            self.acc_dur = 0.0
+            self.acc_chunks = 0
+            return cap, max(2, 32 // self.active)
+        self.acc_dur += device_dur
+        self.acc_chunks += 1
+        if (self.acc_dur < self.min_sample_s
+                and self.acc_chunks < self.max_sample_chunks):
+            return cap, max(2, 32 // self.active)
+        if self.active is not None:
+            self.rates[self.active] = (
+                (tot_nodes - self.nodes0) / max(self.acc_dur, 1e-6))
+        best_rate = max(self.rates.values(), default=0.0)
+        nxt = next((c for c in self.caps if c not in self.rates), None)
+        declined = (self.active is not None and len(self.rates) >= 2
+                    and self.rates[self.active] < 0.7 * best_rate)
+        if nxt is not None and not declined:
+            self.active = nxt
+            self.nodes0 = tot_nodes
+            self.acc_dur = 0.0
+            self.acc_chunks = 0
+            # Equal-ish wall time per sample: a step costs up to `cap`
+            # sweeps.
+            return nxt, max(2, 32 // nxt)
+        best_cap, best_rate = max(self.rates.items(),
+                                  key=lambda kv: (kv[1], kv[0]))
+        self.chosen = best_cap
+        self.caps = []
+        self.active = None
+        if verbose:
+            print(f"% auto fp_cap={best_cap} ({best_rate:,.0f} nodes/s;"
+                  " swept "
+                  + " ".join(f"{c}:{self.rates[c]:,.0f}"
+                             for c in sorted(self.rates)) + ")",
+                  flush=True)
+        return best_cap, None
 
 
 class _TorchXP:
@@ -87,10 +230,10 @@ class _TorchXP:
 class BatchedSolver:
     def __init__(self, tnf, config: EngineConfig = EngineConfig(),
                  device="cpu"):
-        if config.use_table or config.fp_cap_auto or config.enumerate_all:
+        if config.enumerate_all:
             raise NotImplementedError(
-                "this engine runs use_table=False, fp_cap_auto=False, "
-                "enumerate_all=False only")
+                "enumerate_all needs the on-device solution ring, which is "
+                "not ported (see ROADMAP.md)")
         self.tnf = tnf
         self.cfg = config
         self.device = torch.device(device)
@@ -105,12 +248,40 @@ class BatchedSolver:
         self.opt = self.plan.is_opt
         self.dp = DevicePlan.from_plan(self.plan, self.device)
         self.kernels = PropagatorKernels(self.dp)
+        # EPS subproblem-root table gate (the JAX gate, engine.py:497-506;
+        # this engine runs fp_mode "fixpoint" and refuses enumerate_all).
+        self.use_table = config.use_table
+        if self.use_table:
+            from .eps_table import table_n_pad
+            budget = int(os.environ.get("TURBO_TPU_TABLE_BUDGET",
+                                        str(512 << 20)))
+            if 2 * 4 * table_n_pad(self) * self.plan.V > budget:
+                self.use_table = False
+        self._table = None
+        self._table_deadline = None  # absolute monotonic build deadline
+        self._table_aborted_s = 0.0  # wall time of an abandoned build
+        self.last_auto_cap = None
         self.build_time = 0.0
         if self.device.type == "cuda":
             from .. import kernels
             t0 = time.monotonic()
             kernels.load()
             self.build_time = time.monotonic() - t0
+
+    def get_table(self):
+        """Build (once) the EPS subproblem-root table. Returns None when
+        the build hit its deadline (``_table_deadline``, budgeted from
+        ``-t`` by ``solve``); the caller then falls back to dive-mode
+        refills for the whole run."""
+        if self._table is None:
+            from .eps_table import build_table
+            self._table = build_table(self)
+        return self._table
+
+    def disable_table(self):
+        """Deadline fallback: drop table mode for this solver."""
+        self.use_table = False
+        self._table = None
 
     # -- strategies ---------------------------------------------------
 
@@ -166,11 +337,18 @@ class BatchedSolver:
     # -- state --------------------------------------------------------
 
     def init_state(self) -> SearchState:
-        """Fresh search state (dive mode): lane d takes subproblem d."""
+        """Fresh search state. Table mode: lanes seed from the first D
+        table leaves in SOLVE phase, and the build's counters fold into
+        lane 0. Dive mode: lane d dives to subproblem d."""
         D = self.cfg.num_dives
         MAXD = self.cfg.max_depth
         dev = self.device
         dp = self.dp
+        tb = self.get_table() if self.use_table else None
+        if self.use_table and tb is None:
+            # Build deadline hit: fall back to dive-mode refills (sound:
+            # the dive path re-derives every subproblem root).
+            self.disable_table()
 
         def mat(base):
             return base[None, :].repeat(D, 1)
@@ -178,32 +356,78 @@ class BatchedSolver:
         def full(v, dtype=I32):
             return torch.full((D,), v, dtype=dtype, device=dev)
 
-        limit = self.num_sub_total
-        subp = torch.arange(D, dtype=I32, device=dev)
+        lb, ub = mat(dp.lb0), mat(dp.ub0)
+        root_lb, root_ub = mat(dp.lb0), mat(dp.ub0)
+        best_lb, best_ub = mat(dp.lb0), mat(dp.ub0)
+        best_bound = full(INF)
+        has_best = full(False, torch.bool)
+        nonexh = full(False, torch.bool)
+        cnt = {f: full(0) for f in ("nodes", "fails", "sols", "fpit", "dmax",
+                                    "solved_sub", "skipped_sub")}
+        deds = full(0.0, F32)
         stacks = {f: torch.zeros((D, MAXD), dtype=I32, device=dev)
-                  for f in ("dec_var", "dec_l0", "dec_u0", "dec_l1",
-                            "dec_u1", "dec_rope1", "dec_cur")}
+                  for f in _STACKS}
+        if tb is not None:
+            n_live = tb.n_live
+            tab_lb, tab_ub, tab_strat, tab_path = (
+                torch.from_numpy(a).to(dev)
+                for a in (tb.lb, tb.ub, tb.strat, tb.path))
+            rows0 = torch.arange(D, dtype=I32, device=dev)
+            seeded = rows0 < min(n_live, D)
+            table_refill(tab_lb, tab_ub, rows0, seeded, lb, ub, root_lb,
+                         root_ub)
+            idx0 = rows0.clamp(0, tab_lb.shape[0] - 1).long()
+            strat = torch.where(seeded, tab_strat[idx0], 0)
+            snap_strat = strat.clone()
+            subp = torch.where(seeded, tab_path[idx0], 0)
+            phase = torch.where(seeded, SOLVE, IDLE).to(I32)
+            remaining = full(0)
+            next_sub = full(min(n_live, D))
+            sub_limit = full(n_live)
+            for f, v in (("nodes", tb.nodes), ("fails", tb.fails),
+                         ("fpit", tb.fpit), ("solved_sub", tb.solved),
+                         ("skipped_sub", tb.skipped), ("sols", tb.sols),
+                         ("dmax", tb.dmax)):
+                cnt[f][0] = np.int64(v).astype(np.int32)
+            deds[0] = float(np.float32(np.int64(tb.deds)))
+            nonexh[0] = bool(tb.nonexh)
+            if tb.has_cand:
+                has_best[0] = True
+                best_bound[0] = tb.cand_bound
+                best_lb[0] = torch.from_numpy(tb.cand_lb).to(dev)
+                best_ub[0] = torch.from_numpy(tb.cand_ub).to(dev)
+        else:
+            limit = self.num_sub_total
+            subp = torch.arange(D, dtype=I32, device=dev)
+            phase = torch.where(subp < limit, DIVE, IDLE).to(I32)
+            remaining = full(self.k)
+            strat, snap_strat = full(0), full(0)
+            next_sub = full(min(D, limit))
+            sub_limit = full(limit)
+            tab_lb, tab_ub = dp.lb0[None, :].clone(), dp.ub0[None, :].clone()
+            tab_strat = torch.zeros(1, dtype=I32, device=dev)
+            tab_path = torch.zeros(1, dtype=I32, device=dev)
         return SearchState(
-            lb=mat(dp.lb0), ub=mat(dp.ub0),
-            root_lb=mat(dp.lb0), root_ub=mat(dp.ub0),
-            best_lb=mat(dp.lb0), best_ub=mat(dp.ub0),
-            best_bound=full(INF), has_best=full(False, torch.bool),
+            lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
+            best_lb=best_lb, best_ub=best_ub,
+            best_bound=best_bound, has_best=has_best,
             **stacks,
-            depth=full(0), phase=torch.where(subp < limit, DIVE, IDLE).to(I32),
-            remaining=full(self.k), subp=subp,
-            strat=full(0), snap_strat=full(0),
-            next_sub=full(min(D, limit)), nonexh=full(False, torch.bool),
-            nodes=full(0), fails=full(0), sols=full(0), fpit=full(0),
-            deds=full(0.0, F32), dmax=full(0),
-            solved_sub=full(0), skipped_sub=full(0),
-            kpow=full(self.k), sub_limit=full(limit),
+            depth=full(0), phase=phase, remaining=remaining, subp=subp,
+            strat=strat, snap_strat=snap_strat,
+            next_sub=next_sub, nonexh=nonexh,
+            **cnt, deds=deds,
+            kpow=full(self.k), sub_limit=sub_limit,
             pscale=full(float(dp.num_real_props), F32),
             eps_strat=full(int(self.has_eps)),
-            ext_bound=full(INF))
+            ext_bound=full(INF),
+            tab_lb=tab_lb, tab_ub=tab_ub, tab_strat=tab_strat,
+            tab_path=tab_path)
 
     # -- the step -------------------------------------------------------
 
-    def step(self, st: SearchState) -> SearchState:
+    def step(self, st: SearchState, cap: int = 0) -> SearchState:
+        """One search node per lane; ``cap`` (0: ``fp_max_iters``) bounds
+        the fixpoint sweeps, and lanes still changing at it are held."""
         D = self.cfg.num_dives
         MAXD = self.cfg.max_depth
         dp = self.dp
@@ -234,8 +458,8 @@ class BatchedSolver:
                            ub[:, obj])
 
         # II. Propagate to the fixpoint (capped), classify, hold.
-        lb, ub, iters, unconv = self.kernels.fixpoint(lb, ub,
-                                                     self.cfg.fp_max_iters)
+        lb, ub, iters, unconv = self.kernels.fixpoint(
+            lb, ub, cap or self.cfg.fp_max_iters)
         bot, ent = self.kernels.classify(lb, ub)
         ent = ent & ~bot
         held = unconv & ~bot & ~ent
@@ -368,13 +592,27 @@ class BatchedSolver:
         next_sub = torch.minimum(next_sub + want.sum().to(I32), shard_limit)
         refill = havework
         next_sub = next_sub.expand(D).clone()
-        phase = where(want, where(havework, DIVE, IDLE), phase).to(I32)
-        lb = where(refill[:, None], dp.lb0[None, :], lb)
-        ub = where(refill[:, None], dp.ub0[None, :], ub)
-        depth = where(refill, 0, depth)
-        strat = where(refill, 0, strat)
-        remaining = where(refill, st.kpow, remaining)
-        subp = where(refill, newidx, st.subp)
+        if self.use_table:
+            # Table refill: the leaf row, straight into SOLVE phase; subp
+            # carries the leaf's real bit-path (the tail resplit reads it).
+            phase = where(want, where(havework, SOLVE, IDLE), phase).to(I32)
+            table_refill(st.tab_lb, st.tab_ub, newidx, refill, lb, ub,
+                         root_lb, root_ub)  # in place: all four are new
+            idxc = newidx.clamp(0, st.tab_lb.shape[0] - 1).long()
+            tstr = st.tab_strat[idxc]
+            depth = where(refill, 0, depth)
+            strat = where(refill, tstr, strat)
+            snap_strat = where(refill, tstr, snap_strat)
+            remaining = where(refill, 0, remaining)
+            subp = where(refill, st.tab_path[idxc], st.subp)
+        else:
+            phase = where(want, where(havework, DIVE, IDLE), phase).to(I32)
+            lb = where(refill[:, None], dp.lb0[None, :], lb)
+            ub = where(refill[:, None], dp.ub0[None, :], ub)
+            depth = where(refill, 0, depth)
+            strat = where(refill, 0, strat)
+            remaining = where(refill, st.kpow, remaining)
+            subp = where(refill, newidx, st.subp)
 
         return dataclasses.replace(
             st, lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
@@ -387,50 +625,229 @@ class BatchedSolver:
             nodes=nodes, fails=fails, sols=sols, fpit=fpit, deds=deds,
             dmax=dmax, solved_sub=solved_sub, skipped_sub=skipped_sub)
 
-    def run_steps(self, st: SearchState, n: int):
-        """Up to n steps, stopping early once every lane is IDLE (the
-        JAX ``make_step_budget`` loop). Returns (state, steps run)."""
+    def run_steps(self, st: SearchState, n: int, cap: int = 0):
+        """Up to n steps at fixpoint cap ``cap``, stopping early once
+        every lane is IDLE (the JAX ``make_step_budget`` loop). Returns
+        (state, steps run)."""
         i = 0
         while i < n and bool((st.phase != IDLE).any()):
-            st = self.step(st)
+            st = self.step(st, cap)
             i += 1
         return st, i
 
+    # -- EPS tail: resplit and stack steal (host numpy surgery) ---------
+
+    def _tail_resplit(self, st, phase, max_new_kpow: int = 28):
+        """EPS tail refinement (``turbo_tpu/solver/engine.py:1121-1183``):
+        once the range is drained and at most D/4 lanes still work,
+        re-split each unfinished subproblem 2^j ways (extending its
+        bit-path) and reseed the lane batch over the refined space; the
+        2^j paths partition the straggler's subproblem exactly. Returns
+        (state, number of stragglers) or None."""
+        D = self.cfg.num_dives
+        active = np.nonzero(phase != IDLE)[0]
+        if len(active) == 0 or len(active) > D // 4:
+            return None
+        j = int(np.floor(np.log2(D / len(active))))
+        j = min(j, 8)
+        if j < 2:
+            return None
+        host = search_state_to_numpy(st)
+        pairs = [(int(host["subp"][i]), int(host["kpow"][i])) for i in active]
+        pairs = sorted(set(pairs))
+        j = min(j, max_new_kpow - max(kp for _, kp in pairs))
+        if j < 2:
+            return None
+        new_subp = []
+        new_kpow = []
+        for sp, kp in pairs:
+            for suf in range(1 << j):
+                new_subp.append((sp << j) | suf)
+                new_kpow.append(kp + j)
+        n_new = len(new_subp)
+        if n_new > D:  # cannot happen with j from the formula
+            return None
+        out = {f: host[f].copy()
+               for f in ("phase", "subp", "kpow", "remaining", "depth",
+                         "strat", "snap_strat", "next_sub", "sub_limit",
+                         "lb", "ub", "root_lb", "root_ub")}
+        out["phase"][:] = IDLE
+        out["phase"][:n_new] = DIVE
+        out["subp"][:n_new] = new_subp
+        out["kpow"][:n_new] = new_kpow
+        out["remaining"][:n_new] = new_kpow
+        out["depth"][:] = 0
+        out["strat"][:] = 0
+        out["snap_strat"][:] = 0
+        out["next_sub"][:] = 0   # every refined subproblem is lane-
+        out["sub_limit"][:] = 0  # resident; no counter refills
+        lb0 = self.plan.lb0[None, :]
+        ub0 = self.plan.ub0[None, :]
+        out["lb"][:] = lb0
+        out["ub"][:] = ub0
+        out["root_lb"][:] = lb0
+        out["root_ub"][:] = ub0
+        host.update(out)
+        return search_state_from_numpy(host, self.device), len(pairs)
+
+    def _steal_open_branches(self, st, phase):
+        """Post-drain work stealing from decision stacks
+        (``turbo_tpu/solver/engine.py:1203-1314``). Every entry d of a
+        SOLVE-phase stack with dec_cur[d] == 0 is an unexplored right
+        subtree; an idle lane takes the shallowest one and the victim
+        closes it, which partitions the victim's remaining work exactly.
+
+        Per steal (victim v, open depth d0, thief lane t):
+          - thief stack = victim prefix [0, d0] with cur[d0]=1 and
+            rope1[d0]=-1: exhausting the stolen subtree ropes to -1 ->
+            done_sub -> the lane idles;
+          - thief store = victim root snapshot met with decisions
+            [0..d0] at their current child (d0 at the right child);
+          - victim cur[d0]=1, its right child rewritten to the left one,
+            and the rope chain above d0 recomputed.
+
+        Returns (new_state, n_steals) or None."""
+        idle = np.nonzero(phase == IDLE)[0]
+        if len(idle) == 0:
+            return None
+        host = search_state_to_numpy(st)
+        out = {f: host[f].copy()
+               for f in ("phase", "subp", "kpow", "remaining", "depth",
+                         "strat", "snap_strat", "lb", "ub",
+                         "root_lb", "root_ub") + _STACKS}
+        # All open entries across SOLVE-phase lanes, shallowest first.
+        opens = []
+        for v in np.nonzero(host["phase"] == SOLVE)[0]:
+            dep = int(host["depth"][v])
+            for d in range(dep):
+                if out["dec_cur"][v, d] == 0:
+                    opens.append((d, int(v)))
+        if not opens:
+            return None
+        opens.sort()
+        n_steals = 0
+        for t in idle:
+            if not opens:
+                break
+            d0, v = opens.pop(0)
+            # Close the branch on the victim; cur[d0]=1 alone would
+            # corrupt its future rebuilds (it is inside d0's LEFT
+            # subtree), so the right-child interval is rewritten to the
+            # left child's below. Stored rope1 values above d0 are
+            # push-time snapshots: recompute them with the current cur.
+            out["dec_cur"][v, d0] = 1
+            for d in range(d0 + 1, int(host["depth"][v])):
+                out["dec_rope1"][v, d] = (
+                    d if out["dec_cur"][v, d - 1] == 0
+                    else out["dec_rope1"][v, d - 1])
+            # Seed the thief BEFORE the victim's l1/u1 rewrite so it
+            # copies the true right child at d0.
+            for f in _STACKS:
+                out[f][t, :d0 + 1] = out[f][v, :d0 + 1]
+            out["dec_cur"][t, d0] = 1
+            out["dec_rope1"][t, d0] = -1
+            out["dec_l1"][v, d0] = out["dec_l0"][v, d0]
+            out["dec_u1"][v, d0] = out["dec_u0"][v, d0]
+            lb = host["root_lb"][v].copy()
+            ub = host["root_ub"][v].copy()
+            for d in range(d0 + 1):
+                var = out["dec_var"][t, d]
+                right = out["dec_cur"][t, d] == 1
+                lb[var] = max(lb[var],
+                              out["dec_l1" if right else "dec_l0"][t, d])
+                ub[var] = min(ub[var],
+                              out["dec_u1" if right else "dec_u0"][t, d])
+            out["lb"][t] = lb
+            out["ub"][t] = ub
+            out["root_lb"][t] = host["root_lb"][v]
+            out["root_ub"][t] = host["root_ub"][v]
+            out["depth"][t] = d0 + 1
+            out["phase"][t] = SOLVE
+            out["remaining"][t] = 0
+            out["subp"][t] = host["subp"][v]
+            out["kpow"][t] = host["kpow"][v]
+            out["strat"][t] = host["snap_strat"][v]
+            out["snap_strat"][t] = host["snap_strat"][v]
+            n_steals += 1
+        if n_steals == 0:
+            return None
+        host.update(out)
+        return search_state_from_numpy(host, self.device), n_steals
+
     # -- host loop ------------------------------------------------------
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def solve(self, timeout_s: float = 1e18, chunk: int = 16,
               stop_after_n_solutions: int = 1, max_steps: int = 1 << 60,
-              node_limit: int = 0, on_improve=None):
-        """Single-device host loop: chunks of ``step`` until every lane
-        is IDLE, the timeout, ``node_limit``, ``max_steps`` or (on
-        satisfaction problems) ``stop_after_n_solutions``. Kernels were
-        built in ``__init__``: the solve clock starts here."""
+              node_limit: int = 0, verbose: bool = False, on_improve=None,
+              fp_cap: int = 0):
+        """Single-device host loop (``turbo_tpu/solver/engine.py:
+        1417-1818`` without checkpoint, solution ring, profiler split,
+        heartbeat and hard wall): chunks of ``step`` until every lane is
+        IDLE, the timeout, ``node_limit``, ``max_steps`` or (on
+        satisfaction problems) ``stop_after_n_solutions``. The table
+        build runs inside the ``-t`` window with a deadline at half of
+        it; ``fp_cap`` > 0 pins the fixpoint cap, else the calibrator
+        sweeps it (``fp_cap_auto``). Once the range is drained, idle
+        lanes steal open branches or the stragglers are resplit.
+        Kernels were built in ``__init__``: the solve clock starts
+        here."""
         from ..host.solver.timers import PhaseTimers
         from .result import EngineResult
         t0 = time.monotonic()
         if self.plan.root_unsat:
             return EngineResult.unsat(self)
-        timers = PhaseTimers(num_lanes=self.cfg.num_dives)
+        D = self.cfg.num_dives
+        timers = PhaseTimers(num_lanes=D)
         tt = time.monotonic()
+        if self.use_table and self._table is None and timeout_s < 1e17:
+            # Budget the table build inside -t: at most half of it; a
+            # tighter deadline set by the caller stays binding.
+            dl = time.monotonic() + max(2.0, 0.5 * timeout_s)
+            prev = self._table_deadline
+            self._table_deadline = dl if prev is None else min(prev, dl)
         st = self.init_state()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._table_deadline = None  # consumed; don't leak to re-solves
+        cap = fp_cap if fp_cap > 0 else self.cfg.fp_max_iters
+        cal = AutoCapCalibrator(self.cfg, fp_cap)
+        cap = cal.arm(cap)
+        self._sync()
         timers.transfer_c2g = time.monotonic() - tt
+        # The table build (or an abandoned one) counts in the solve
+        # window and in dive_time / table_build_time.
+        dive_dur = self._table.build_time if self._table is not None else 0.0
+        dive_dur += self._table_aborted_s
+        resplit_rounds = 0
+        resplit_base = None
+        steal_rounds = 0
+        cur_chunk = chunk
         steps = 0
         stopped = False
-        best_obj_time = 0.0
+        first_call = True
         best_seen = None
+        best_obj_time = 0.0
         last_best = INF + 1
+        last_steal = 0.0
+        steal_wait = 1.0
+        # One-shot re-calibration once the range drains, armed only
+        # after the loop has seen the undrained phase.
+        recal_armed = False
+        recal_done = False
         while True:
             td = time.monotonic()
-            st, ndone = self.run_steps(st, chunk)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            st, ndone = self.run_steps(st, cur_chunk, cap)
+            self._sync()
             device_dur = time.monotonic() - td
+            warmup = first_call
+            first_call = False
             tg = time.monotonic()
-            phase, sols, fpit, bbs, nodes_v = (
-                x.cpu().numpy() for x in (st.phase, st.sols, st.fpit,
-                                          st.best_bound, st.nodes))
+            # One host read per chunk.
+            phase, sols, fpit, bbs, nsub, slim, nodes_v = torch.stack(
+                [st.phase, st.sols, st.fpit, st.best_bound, st.next_sub,
+                 st.sub_limit, st.nodes]).cpu().numpy()
             steps += ndone
             timers.transfer_g2c += time.monotonic() - tg
             timers.record_chunk(device_dur, int(fpit.sum()), phase, ndone,
@@ -451,11 +868,114 @@ class BatchedSolver:
             if time.monotonic() - t0 > timeout_s or steps >= max_steps:
                 stopped = True
                 break
-            if node_limit and int(nodes_v.sum()) >= node_limit:
+            # Adapt the chunk to the remaining budget.
+            if not warmup and ndone > 0 and timeout_s < 1e17:
+                step_cost = device_dur / ndone
+                remaining = timeout_s - (time.monotonic() - t0)
+                cur_chunk = int(max(1, min(
+                    chunk, remaining / max(step_cost, 1e-9))))
+            if not cal.done:
+                cap, hint = cal.observe(cap, int(nodes_v.sum()), device_dur,
+                                        warmup, verbose=verbose)
+                if hint is not None:
+                    cur_chunk = min(cur_chunk, hint)
+                else:
+                    self.last_auto_cap = cal.chosen
+                    cur_chunk = chunk
+            # EPS tail: once the range is drained, idle lanes can only
+            # get work from the stragglers. Stack stealing first (no
+            # re-exploration); resplit when there is nothing to steal.
+            drained = nsub[0] >= slim[0]
+            if not drained:
+                recal_armed = True
+            elif (recal_armed and not recal_done and cal.done
+                    and fp_cap == 0 and self.cfg.fp_cap_auto
+                    and timeout_s - (time.monotonic() - t0) > 10.0):
+                recal_done = True
+                cal = AutoCapCalibrator(self.cfg, fp_cap)
+                if not cal.done:
+                    cal.nodes0 = int(nodes_v.sum())
+                    cap = cal.arm(cap)
+                    if verbose:
+                        print("% range drained: re-calibrating fp_cap",
+                              flush=True)
+            idle_n = int((phase == IDLE).sum())
+            # idle_n >= D/8: a steal round moves the whole state through
+            # the host, worth it only for a large idle pool.
+            if (drained and idle_n >= max(1, len(phase) // 8)
+                    and not (phase == IDLE).all()
+                    and timeout_s - (time.monotonic() - t0) > 2.0
+                    and time.monotonic() - last_steal > steal_wait):
+                last_steal = time.monotonic()
+
+                def _freeze_accounting():
+                    # Coarse (2^k) accounting from here on: counter
+                    # deltas of refined / stolen units are credited as
+                    # the not-yet-accounted coarse subproblems when the
+                    # run exhausts (post-fix below).
+                    nonlocal resplit_base
+                    if resplit_base is None:
+                        s0 = int(st.solved_sub.sum())
+                        k0 = int(st.skipped_sub.sum())
+                        resplit_base = (
+                            s0, k0, max(0, self.num_sub_total - s0 - k0))
+                # Cheap precheck on the card: a zero count spares the
+                # full-state round trip.
+                n_open = int(open_branch_count(st.dec_cur, st.depth,
+                                               st.phase))
+                res3 = None
+                if n_open > 0:
+                    res3 = self._steal_open_branches(st, phase)
+                if res3 is not None:
+                    _freeze_accounting()  # reads the pre-steal counters
+                    st, n_steals = res3
+                    steal_rounds += 1
+                    steal_wait = 1.0
+                    if verbose:
+                        print(f"% stack steal #{steal_rounds}: "
+                              f"{n_steals} open branches reseeded")
+                elif resplit_rounds < 8 and idle_n >= (3 * len(phase)) // 4:
+                    res2 = self._tail_resplit(st, phase)
+                    if res2 is not None:
+                        _freeze_accounting()
+                        st, n_coarse = res2
+                        resplit_rounds += 1
+                        steal_wait = 1.0
+                        if verbose:
+                            print(f"% tail resplit #{resplit_rounds}: "
+                                  f"{n_coarse} stragglers refined")
+                    else:
+                        steal_wait = min(steal_wait * 2, 8.0)
+                else:
+                    # Nothing to steal or refine: back off so retries do
+                    # not starve the stragglers' chunks.
+                    steal_wait = min(steal_wait * 2, 8.0)
+            if node_limit and int(st.nodes.sum()) >= node_limit:
                 stopped = True
                 break
+            if verbose:
+                bb = int(bbs.min())
+                print(f"% t={time.monotonic()-t0:6.1f}s steps={steps} "
+                      f"chunk_s={device_dur:.2f} nodes={int(st.nodes.sum())} "
+                      f"best={bb if bb < INF else None} "
+                      f"dive={(phase == DIVE).sum()} "
+                      f"solve={(phase == SOLVE).sum()} "
+                      f"idle={(phase == IDLE).sum()}/{len(phase)} "
+                      f"next_sub={int(nsub[0])}/{int(slim[0])}",
+                      flush=True)
         res = EngineResult.from_state(self, st, stopped,
                                       time.monotonic() - t0)
+        if resplit_base is not None:
+            # Subproblem accounting in coarse (2^k) units: refined-unit
+            # deltas after the first resplit or steal collapse back into
+            # the stragglers they partition.
+            solved0, skipped0, n_coarse = resplit_base
+            res.eps_solved_subproblems = solved0 + (
+                n_coarse if res.exhaustive else 0)
+            res.eps_skipped_subproblems = skipped0
+            res.eps_redistributions += resplit_rounds + steal_rounds
         res.best_obj_time = best_obj_time
         timers.fill_result(res, res.solve_time)
+        res.dive_time += dive_dur
+        res.table_build_time = dive_dur
         return res

@@ -1,0 +1,331 @@
+"""EPS subproblem-root table for the batched engine in PyTorch.
+
+Port of ``turbo_tpu/solver/eps_table.py``: the 2^k-leaf dive tree is
+expanded once, level by level, by ``dive_level`` (embed the children of
+the previous frontier -> propagate to the true fixpoint -> classify ->
+select), sharing every prefix. The surviving leaves (stores, strategy
+cursors, bit-paths) become the table that ``BatchedSolver.init_state``
+puts on the device; a refill is then one row gather that drops the lane
+straight into SOLVE phase.
+
+Dead prefixes (bot / entailed / no splittable var) are accounted like
+the engine's dive-leaf subtree skip: a dead node at level l covers
+2^(k-l) subproblems -> 1 solved + (2^(k-l) - 1) skipped. Entailed
+prefixes seed the incumbent. The host bookkeeping is the JAX module's,
+with its semantics unchanged (that module imports jax at its top, so
+none of it can be imported here).
+
+``embed`` dispatches by device: a CPU tensor runs ``embed_plain``, a
+CUDA tensor launches K4 (``kernels/csrc/embed.cu``) or raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..host.core.ops import INF, NINF
+
+I32 = torch.int32
+_BIG_CAP = 1 << 30  # the build propagates to the true fixpoint
+
+
+class TableBuildTimeout(Exception):
+    """Raised internally when the build passes its wall-clock deadline
+    (``solver._table_deadline``, set by ``solve()`` from ``-t``); the
+    caller falls back to dive-mode refills."""
+
+
+@dataclasses.dataclass
+class SubTable:
+    """Host-side build result; ``init_state`` puts it on the device."""
+    lb: np.ndarray       # (n_pad, V) int32 leaf stores (plan space)
+    ub: np.ndarray
+    strat: np.ndarray    # (n_pad,) int32 post-dive strategy cursor
+    path: np.ndarray     # (n_pad,) int32 bit-path (for resplit / stats)
+    n_live: int
+    n_pad: int
+    # Build statistics, seeded into the engine's counters so the
+    # reported nodes/fails/fixpoint work include the dive tree.
+    nodes: int = 0
+    fails: int = 0
+    fpit: int = 0
+    deds: float = 0.0
+    solved: int = 0      # subproblems completed by dead prefixes
+    skipped: int = 0     # subproblems skipped by dead prefixes
+    sols: int = 0
+    dmax: int = 0        # deepest level classified (peakDepth seed)
+    nonexh: bool = False
+    has_cand: bool = False
+    cand_bound: int = INF
+    cand_lb: Optional[np.ndarray] = None  # (V,)
+    cand_ub: Optional[np.ndarray] = None
+    build_time: float = 0.0
+
+
+def table_n_pad(solver) -> int:
+    """Static table row count (one device: the whole range), padded."""
+    from ..host.solver.plan import quantize
+    return quantize(max(solver.num_sub_total, 1))
+
+
+def embed_plain(lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l, c1u,
+                pidx, pbit):
+    """Row r: parent row pidx[r], met at the parent's branch variable
+    with the child interval pbit[r] selects. Returns (lbp, ubp, stp)."""
+    p = pidx.long()
+    lbp, ubp, stp = lb_par[p], ub_par[p], strat_par[p]
+    vp = var_par[p].long()[:, None]
+    right = pbit == 1
+    cl = torch.where(right, c1l[p], c0l[p])[:, None]
+    cu = torch.where(right, c1u[p], c0u[p])[:, None]
+    lbp.scatter_(1, vp, torch.maximum(lbp.gather(1, vp), cl))
+    ubp.scatter_(1, vp, torch.minimum(ubp.gather(1, vp), cu))
+    return lbp, ubp, stp
+
+
+def embed(*args):
+    if args[0].is_cuda:
+        from ..kernels import embed as k_embed
+        return k_embed(*args)
+    if args[0].device.type != "cpu":
+        raise RuntimeError(f"no embed for device {args[0].device}")
+    return embed_plain(*args)
+
+
+def dive_level(solver, lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l,
+               c1u, pidx, pbit):
+    """One frontier chunk of W rows: embed -> fixpoint (true fixpoint)
+    -> classify -> select. Returns the 13 outputs of the JAX program
+    (lb, ub, strat, var, c0l, c0u, c1l, c1u, bot, ent, found, iters,
+    objlb)."""
+    lbp, ubp, stp = embed(lb_par, ub_par, strat_par, var_par, c0l, c0u,
+                          c1l, c1u, pidx, pbit)
+    lb2, ub2, iters, _ = solver.kernels.fixpoint(lbp, ubp, _BIG_CAP)
+    bot, ent = solver.kernels.classify(lb2, ub2)
+    ent = ent & ~bot
+    found, var2, nstrat, _, d0l, d0u, d1l, d1u = solver._select(lb2, ub2,
+                                                                stp)
+    strat2 = torch.where(found, nstrat, stp)
+    return (lb2, ub2, strat2, var2, d0l, d0u, d1l, d1u, bot, ent, found,
+            iters, lb2[:, solver.dp.obj])
+
+
+class _Chunk:
+    """One frontier chunk: device outputs of a dive_level call plus the
+    host bookkeeping needed to expand it."""
+    __slots__ = ("lb", "ub", "strat", "var", "c0l", "c0u", "c1l", "c1u",
+                 "rows", "paths")
+
+    def __init__(self, dev, rows, paths):
+        (self.lb, self.ub, self.strat, self.var,
+         self.c0l, self.c0u, self.c1l, self.c1u) = dev
+        self.rows = rows      # np int64: live row indices in this chunk
+        self.paths = paths    # np int64: bit-path per live row
+
+
+def build_table(solver) -> Optional[SubTable]:
+    """Expand the dive tree and return its leaf table.
+
+    Returns None when the build overruns ``solver._table_deadline`` (an
+    absolute ``time.monotonic()`` deadline budgeted from ``-t`` by
+    ``solve()``); the wasted wall time is recorded in
+    ``solver._table_aborted_s`` so the solve budget still charges it.
+    Progress goes to stderr as ``%`` lines once the build runs longer
+    than ~2 s."""
+    cfg, plan = solver.cfg, solver.plan
+    W = cfg.num_dives
+    k = solver.k
+    dev = solver.device
+    base, limit = 0, solver.num_sub_total  # one device owns the range
+    t_start = time.monotonic()
+    deadline = solver._table_deadline
+    last_progress = [t_start]
+
+    def checkpoint(level, n_chunks):
+        """Deadline check + throttled progress, called between device
+        calls (the build's only preemption points)."""
+        now = time.monotonic()
+        if now - last_progress[0] > 5.0 and now - t_start > 2.0:
+            last_progress[0] = now
+            print(f"% table build: level {level}/{k} "
+                  f"({n_chunks} frontier chunks, "
+                  f"{now - t_start:.0f}s elapsed)",
+                  file=sys.stderr, flush=True)
+        if deadline is not None and now > deadline:
+            raise TableBuildTimeout()
+    eps_skip = 1 if solver.has_eps else 0
+    pscale = float(plan.num_real_props)
+    is_opt = bool(plan.is_opt)
+
+    acc = SubTable(lb=None, ub=None, strat=None, path=None,
+                   n_live=0, n_pad=table_n_pad(solver))
+
+    def classify(raw, rows, paths, level):
+        """Account a freshly-propagated chunk (one host read); return the
+        expandable subset (rows, paths) with the chunk's device arrays."""
+        dvc = raw[:8]
+        bot, ent, found, iters, objlb = torch.stack(
+            [raw[8].to(I32), raw[9].to(I32), raw[10].to(I32), raw[11],
+             raw[12]]).cpu().numpy()
+        bot, ent, found = bot != 0, ent != 0, found != 0
+        n = len(rows)
+        acc.nodes += n
+        acc.fpit += int(iters[rows].sum())
+        acc.deds += float(iters[rows].sum()) * pscale
+        if n:
+            acc.dmax = max(acc.dmax, level)
+        keep_rows, keep_paths = [], []
+        shift = k - level
+        for r, p in zip(rows, paths):
+            lo_cov = int(p) << shift
+            hi_cov = (int(p) + 1) << shift
+            cov = min(hi_cov, limit) - max(lo_cov, base)
+            if bot[r]:
+                acc.fails += 1
+                if cov >= 1:
+                    acc.solved += 1
+                    acc.skipped += cov - 1
+            elif ent[r]:
+                objv = int(objlb[r])
+                better = (objv < acc.cand_bound) if is_opt \
+                    else (not acc.has_cand)
+                if better:
+                    acc.sols += 1
+                    acc.has_cand = True
+                    acc.cand_bound = objv if is_opt else 0
+                    acc.cand_lb = dvc[0][int(r)].cpu().numpy()
+                    acc.cand_ub = dvc[1][int(r)].cpu().numpy()
+                if cov >= 1:
+                    acc.solved += 1
+                    acc.skipped += cov - 1
+            elif not found[r]:
+                # No splittable var but not entailed: unbounded vars
+                # remain (engine: incomplete -> exhaustive=false).
+                acc.nonexh = True
+                if cov >= 1:
+                    acc.solved += 1
+                    acc.skipped += cov - 1
+            else:
+                keep_rows.append(int(r))
+                keep_paths.append(int(p))
+        return _Chunk(dvc, np.asarray(keep_rows, dtype=np.int64),
+                      np.asarray(keep_paths, dtype=np.int64))
+
+    # Level 0: the root, W copies of the root box with neutral children.
+    V = plan.V
+    lb_r = solver.dp.lb0[None, :].repeat(W, 1)
+    ub_r = solver.dp.ub0[None, :].repeat(W, 1)
+    z = torch.zeros(W, dtype=I32, device=dev)
+    neu0l = torch.full((W,), NINF, dtype=I32, device=dev)
+    neu0u = torch.full((W,), INF, dtype=I32, device=dev)
+    raw = dive_level(solver, lb_r, ub_r, z, z, neu0l, neu0u, neu0l, neu0u,
+                     z, z)
+    parents = [classify(raw, np.asarray([0]), np.asarray([0]), 0)]
+
+    def expand(level):
+        """Propagate the level-`level` children of `parents`."""
+        out = []
+        shift = k - level
+        for ch in parents:
+            kids = []  # (parent_row, bit, path)
+            for r, p in zip(ch.rows, ch.paths):
+                for bit in (0, 1):
+                    cp = int(p) * 2 + bit
+                    lo_cov = cp << shift
+                    hi_cov = (cp + 1) << shift
+                    if min(hi_cov, limit) - max(lo_cov, base) >= 1:
+                        kids.append((int(r), bit, cp))
+            for g0 in range(0, len(kids), W):
+                checkpoint(level, len(parents))
+                grp = kids[g0:g0 + W]
+                pidx = np.zeros(W, dtype=np.int32)
+                pbit = np.zeros(W, dtype=np.int32)
+                pidx[:len(grp)] = [g[0] for g in grp]
+                pbit[:len(grp)] = [g[1] for g in grp]
+                res = dive_level(solver, ch.lb, ch.ub, ch.strat, ch.var,
+                                 ch.c0l, ch.c0u, ch.c1l, ch.c1u,
+                                 torch.from_numpy(pidx).to(dev),
+                                 torch.from_numpy(pbit).to(dev))
+                out.append((res, np.arange(len(grp)),
+                            np.asarray([g[2] for g in grp])))
+        return out
+
+    try:
+        for level in range(1, k):
+            parents = [classify(raw, rows, paths, level)
+                       for raw, rows, paths in expand(level)]
+            parents = [c for c in parents if len(c.rows)]
+            if not parents:
+                break
+    except TableBuildTimeout:
+        solver._table_aborted_s = time.monotonic() - t_start
+        print(f"% table build deadline exceeded at level<= {k}: "
+              f"abandoning after {solver._table_aborted_s:.1f}s; "
+              f"falling back to dive-mode refills",
+              file=sys.stderr, flush=True)
+        return None
+
+    # Leaf level k: embed-only, in numpy (the lane's first step
+    # propagates the leaf anyway).
+    leaf_lb, leaf_ub, leaf_st, leaf_paths = [], [], [], []
+    for ch in parents:
+        if not len(ch.rows):
+            continue
+        lbh, ubh = ch.lb.cpu().numpy(), ch.ub.cpu().numpy()
+        sth, vrh, c0lh, c0uh, c1lh, c1uh = torch.stack(
+            [ch.strat, ch.var, ch.c0l, ch.c0u, ch.c1l, ch.c1u]).cpu().numpy()
+        for bit in (0, 1):
+            cps = ch.paths * 2 + bit
+            inr = (cps >= base) & (cps < limit)
+            rs = ch.rows[inr]
+            if not len(rs):
+                continue
+            lbn = lbh[rs].copy()
+            ubn = ubh[rs].copy()
+            v = vrh[rs]
+            cl = (c1lh if bit else c0lh)[rs]
+            cu = (c1uh if bit else c0uh)[rs]
+            ar = np.arange(len(rs))
+            lbn[ar, v] = np.maximum(lbn[ar, v], cl)
+            ubn[ar, v] = np.minimum(ubn[ar, v], cu)
+            leaf_lb.append(lbn)
+            leaf_ub.append(ubn)
+            leaf_st.append(sth[rs])
+            leaf_paths.append(cps[inr])
+
+    n_pad = acc.n_pad
+    if leaf_lb:
+        tlb = np.concatenate(leaf_lb, axis=0).astype(np.int32)
+        tub = np.concatenate(leaf_ub, axis=0).astype(np.int32)
+        tst = np.maximum(np.concatenate(leaf_st), eps_skip).astype(np.int32)
+        tpa = np.concatenate(leaf_paths).astype(np.int32)
+    else:
+        tlb = np.zeros((0, V), dtype=np.int32)
+        tub = np.zeros((0, V), dtype=np.int32)
+        tst = np.zeros((0,), dtype=np.int32)
+        tpa = np.zeros((0,), dtype=np.int32)
+    if len(tlb):
+        # Deterministic live ordering: sort leaves by bit-path (chunk
+        # emission order interleaves left/right children).
+        order = np.argsort(tpa, kind="stable")
+        tlb, tub, tst, tpa = tlb[order], tub[order], tst[order], tpa[order]
+    n_live = len(tlb)
+    pad = n_pad - n_live
+    if pad > 0:
+        # Padding rows are never gathered (refill guards newidx <
+        # sub_limit == n_live); root copies keep them harmless.
+        tlb = np.concatenate(
+            [tlb, np.tile(plan.lb0[None, :], (pad, 1))]).astype(np.int32)
+        tub = np.concatenate(
+            [tub, np.tile(plan.ub0[None, :], (pad, 1))]).astype(np.int32)
+        tst = np.concatenate([tst, np.zeros(pad, dtype=np.int32)])
+        tpa = np.concatenate([tpa, np.zeros(pad, dtype=np.int32)])
+    acc.lb, acc.ub, acc.strat, acc.path = tlb, tub, tst, tpa
+    acc.n_live = n_live
+    acc.build_time = time.monotonic() - t_start
+    return acc

@@ -46,6 +46,9 @@ class EngineResult:
     first_block_idle_time: float = 0.0
     cumulative_time_block_sec: float = 0.0
     deductions_per_block_second: float = 0.0
+    # EPS table build wall time (solver/eps_table.py): inside dive_time
+    # and the solve window, broken out in the statistics.
+    table_build_time: float = 0.0
 
     @classmethod
     def unsat(cls, solver):
