@@ -2,7 +2,7 @@
 """Smoke test of turbo_tpu_torch on one CUDA card: ``python3 chip_smoke.py``.
 
 Run from the root of the repository (``--kernels-only`` stops after
-phase 3). Phases (any failure exits non-zero):
+phase 3c). Phases (any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernel build with nvcc (one per source, in parallel) from a cold
@@ -15,6 +15,20 @@ phase 3). Phases (any failure exits non-zero):
    random stores, table rows, masks and stacks at golomb(12)'s shapes
    (W=D=512, V=2560, 2048 table rows, MAXD=10000). The golomb(12) times
    go into the JSON line;
+3b. K6 and K7 (the step's own kernels) against the plain step on the
+   same CUDA state, every SearchState field exactly equal after 1, 7 and
+   40 steps, and the kernels' step counter equal to the plain steps
+   that found a live lane: golomb(12) at D=512 with the table on, the 6
+   random models of phase 4 with the table off, queens(8) with
+   enumerate_all and the solution ring; then, on golomb(12)'s state, the
+   time of each kernel entry inside real steps (CUDA events between the
+   launches) against the plain step's three parts;
+3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
+   steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
+   sync inside a chunk fails the phase), launches per step, wall time
+   per step, and from ``torch.profiler`` the device kernels and busy
+   time per step, for the kernel route and for the plain step; then the
+   same chunk captured once in a CUDA graph and replayed;
 4. the solver API on the card against the port's engine on the CPU with
    the plain versions, on 6 small seeded models, steal and resplit
    stubbed out on both: nodes, failures, solutions and fixpoint
@@ -35,13 +49,21 @@ phase 3). Phases (any failure exits non-zero):
    default configuration) proven optimal at 34, so that the steal gate
    and K5 run; then the host round trip of a golomb(12) table-mode state
    (D=512, MAXD=10000) and one steal round on it, timed;
-9. the launch counts of each path driven in phases 4c-8, each set to 0
-   just before the path and read just after it: all five kernels (and
-   both entry points of K4) on the main path (6) and on the drain case
-   (8), K1-K3 on the table-off path (7).
+9. ``-a`` on queens(8) through the card CLI: 92 distinct checker-valid
+   solution blocks and the final separator;
+10. ``-i -t 30000`` on golomb(9) through the card CLI: every streamed
+   block checker-valid, the last one at the final objective (44 when
+   the run closes);
+11. the launch counts of each path driven in phases 4c-10, each set to 0
+   just before the path and read just after it: all seven kernels (and
+   every entry point of K4, K6 and K7) on the main path (6) and on the
+   drain case (8), K1-K3, K6 and K7 on the table-off path (7) and on
+   ``-a``, and K4 too on ``-i``.
 
-It prints a JSON line of the kernels, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+It prints a JSON line of the kernels (with each one's bound: the larger
+of the bytes it must move over 3.35 TB/s and its int32 operations over
+67 T/s, at the timed shapes and this run's data), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import io
@@ -95,6 +117,32 @@ def median_ms(fn, reps=15):
     return times[len(times) // 2]
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+INT_OPS_PER_S = 67e12      # CUDA-core rate (the float32 figure; int32's
+                           # is lower, so the bound stays a lower bound)
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    int32 operations over the CUDA-core rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def plan_bytes(kp):
+    return sum(t.numel() * t.element_size() for t in kp.tensors.values())
+
+
+def sweep_ops(dp):
+    """int32 operations of one AC-1 sweep of one dive (K1): about 15 per
+    TNF propagator, 6 per element-table entry, 20 per membership row, 15
+    per linear term, 2 per incidence slot and 8 per variable."""
+    terms = sum(b.coef.numel() for b in dp.lin)
+    slots = sum(idx.numel() for _, _, idx in dp.buckets)
+    return (15 * dp.P + 6 * dp.E * int(dp.e_tab.shape[1]) + 20 * dp.M
+            + 15 * terms + 2 * slots + 8 * dp.V)
+
+
 def run_cli(args):
     """Run the port's CLI in-process; returns (stdout, stderr, stats)."""
     from turbo_tpu_torch import cli
@@ -112,6 +160,12 @@ def check_solution(model, block):
     from turbo_tpu_torch.host.utils.checker import Checker
     values = {k: int(v) for k, v in
               re.findall(r"^(\w+) = (-?\d+);$", block, re.M)}
+    arrays = {a.name: a for a in model.arrays}
+    for name, vals in re.findall(r"^(\w+) = array\d+d\([^\[]*\[([^\]]*)\]\);$",
+                                 block, re.M):
+        for e, v in zip(arrays[name].elems, vals.split(",")):
+            if isinstance(e, str):
+                values[e] = int(v)
     ck = Checker(model, values)
     bad = [c.name for c in model.constraints if not ck.holds(c)]
     if bad:
@@ -171,6 +225,7 @@ def phase_kernels(torch, dev):
     errs = {k.name: 0 for k in (kernels.fixpoint, kernels.classify,
                                 kernels.select)}
     times = {}
+    sweeps = {}
     # Exactness on 4 random models at D=1024; exactness and the reported
     # times at the main path's full-width shape, golomb(12) at D=512.
     models = [(f"random_model({100 + i})", random_model(100 + i, n_vars=10,
@@ -229,6 +284,8 @@ def phase_kernels(torch, dev):
             if name not in timed:  # time the first case of each kernel
                 timed.add(name)
                 times[label, name] = (median_ms(kern), median_ms(plain, reps=3))
+                if name == "fixpoint":
+                    sweeps[label] = int((got[2].long() - 1).sum())
         n_bot = int(pk.is_bot(fl, fu).sum())
         n_ent = int(pk.all_entailed(fl, fu).sum())
         log(f"  {label}: D={D} V={s.dp.V} P={s.dp.P} lin_fit32="
@@ -236,7 +293,22 @@ def phase_kernels(torch, dev):
             f"entailed lanes={n_ent}: fixpoint/classify/select exact; ms "
             + ", ".join(f"{k} {times[label, k][0]:.4f} (plain "
                         f"{times[label, k][1]:.4f})" for k in errs))
-    kres = {k: (errs[k],) + times["golomb(12)", k] for k in errs}
+    # Bounds at golomb(12), D=512: the planes read and written once, the
+    # plan's tables once; K1's operations for the sweeps this run's
+    # stores needed.
+    dp, D = s.dp, 512
+    planes = 2 * D * dp.V * 4
+    tabs = plan_bytes(kp)
+    bounds = {
+        "fixpoint": bound(2 * planes + tabs + 5 * D,
+                          sweeps["golomb(12)"] * sweep_ops(dp)),
+        "classify": bound(planes + tabs + 2 * D,
+                          D * (10 * dp.P + 4 * sum(b.coef.numel()
+                                                   for b in dp.lin) + dp.V)),
+        "select": bound(planes + 9 * 4 * D,
+                        6 * D * sum(int(t.numel()) for t in dp.strat_ids)),
+    }
+    kres = {k: (errs[k],) + times["golomb(12)", k] + bounds[k] for k in errs}
     kres.update(phase_table_kernels(torch, dev, s, tnf))
     return kres
 
@@ -286,7 +358,9 @@ def phase_table_kernels(torch, dev, s, tnf):
     err = exact("embed", kernels.embed(*args), embed_plain(*args))
     ms = (median_ms(lambda: kernels.embed(*args)),
           median_ms(lambda: embed_plain(*args)))
-    out["embed"] = (err,) + ms
+    # Two parent planes read and two child planes written, per row.
+    out["embed"] = (err,) + ms + bound(4 * D * plan.V * 4 + 11 * 4 * D,
+                                       2 * D * plan.V)
     tlb, tub = random_stores(plan, tnf, n_pad, rng, None)
     tab = (t(tlb), t(tub))
     idx = t(rng.integers(-3, n_pad + 3, D))
@@ -305,23 +379,274 @@ def phase_table_kernels(torch, dev, s, tnf):
     phase = t(rng.integers(0, 3, D))
     err = exact("open_count", kernels.open_count(dec_cur, depth, phase),
                 open_branch_count_plain(dec_cur, depth, phase))
+    # The live prefixes of the SOLVE lanes' stacks, read once.
+    live = int(depth.clamp(max=MAXD)[phase == 1].long().sum())
     out["open_count"] = (err,) + (
         median_ms(lambda: kernels.open_count(dec_cur, depth, phase)),
-        median_ms(lambda: open_branch_count_plain(dec_cur, depth, phase)))
+        median_ms(lambda: open_branch_count_plain(dec_cur, depth, phase))
+    ) + bound(4 * live + 8 * D, live)
+    # A refilled lane reads two table rows and writes four planes.
+    n_refill = int(refill.sum())
+    refill_bound = bound(n_refill * 6 * plan.V * 4 + 5 * D, 0)
     log(f"  golomb(12) shapes: W=D={D} V={plan.V} n_pad={n_pad} MAXD={MAXD}:"
         f" embed/refill/open_count exact; ms embed {out['embed'][1]:.4f} "
-        f"(plain {out['embed'][2]:.4f}), table_refill {refill_ms[0]:.4f} "
-        f"(plain {refill_ms[1]:.4f}), open_count {out['open_count'][1]:.4f}"
-        f" (plain {out['open_count'][2]:.4f})")
+        f"(plain {out['embed'][2]:.4f}, bound {out['embed'][3]:.5f}), "
+        f"table_refill {refill_ms[0]:.4f} (plain {refill_ms[1]:.4f}, bound "
+        f"{refill_bound[0]:.5f} for {n_refill} lanes), open_count "
+        f"{out['open_count'][1]:.4f} (plain {out['open_count'][2]:.4f}, "
+        f"bound {out['open_count'][3]:.5f})")
     return out
 
 
-def launch_counts():
+def clone_state(st):
+    import dataclasses
+    return dataclasses.replace(st, **{f.name: getattr(st, f.name).clone()
+                                      for f in dataclasses.fields(st)})
+
+
+def same_state(label, a, b):
+    """Fails unless every SearchState field of a equals b's; returns the
+    max abs error (0)."""
+    import dataclasses
+    import torch
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            fail(f"{label}: {f.name} {x.dtype}{tuple(x.shape)} vs "
+                 f"{y.dtype}{tuple(y.shape)}")
+        if not torch.equal(x, y):
+            diff = (x.double() - y.double()).abs()
+            rows = diff.reshape(diff.shape[0], -1).amax(dim=1).nonzero()[:, 0]
+            fail(f"{label}: {f.name} differs from the plain step (max abs "
+                 f"err {float(diff.max())}) on {len(rows)} rows, first "
+                 f"{rows[:8].tolist()}")
+    return 0
+
+
+def phase_step_kernels(torch, dev):
+    """3b: K6 + K7 against the plain step on the same CUDA state, and
+    their times inside real golomb(12) steps. Returns the kres entries of
+    step and step_tail."""
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.instances import golomb, queens, random_model
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+    cases = ([("golomb(12), D=512, table on, cap 16", golomb(12),
+               dict(num_dives=512), 16)]
+             + [(f"random_model({200 + i}), table off, cap 4",
+                 random_model(200 + i, n_vars=8, n_cons=24),
+                 dict(num_dives=64, subproblems_power=8, use_table=False), 4)
+                for i in range(6)]
+             + [("queens(8), enumerate_all, ring 256", queens(8),
+                 dict(num_dives=64, subproblems_power=6, enumerate_all=True,
+                      sol_ring_size=256), 10000)])
+    big = None
+    for label, text, kw, cap in cases:
+        s = BatchedSolver(compile_model(parse_fzn_text(text)),
+                          EngineConfig(fp_cap_auto=False, **kw), device=dev)
+        st_k = s.init_state()
+        st_p = clone_state(st_k)
+        done = 0
+        for n in (1, 7, 40):
+            st_k, ran = s.run_steps(st_k, n - done, cap)
+            live = 0
+            for _ in range(n - done):
+                st_p, lv = s.step_plain(st_p, cap)
+                live += int(lv)
+            if int(ran) != live:
+                fail(f"{label}: the kernels counted {int(ran)} steps, the "
+                     f"plain step {live}")
+            done = n
+            same_state(f"{label}, after {n} steps", st_k, st_p)
+        # Three chunks of 8: eager, captured into a CUDA graph and
+        # replayed, replayed again.
+        for _ in range(3):
+            st_k, _ = s.run_steps(st_k, 8, cap)
+            for _ in range(8):
+                st_p, _ = s.step_plain(st_p, cap)
+        same_state(f"{label}, after 64 steps (CUDA graph)", st_k, st_p)
+        if not s._ws.graphs:
+            fail(f"{label}: no chunk was captured into a CUDA graph")
+        log(f"  {label}: K6+K7 equal the plain step after 1, 7, 40 steps "
+            f"and 3 chunks of 8 through a CUDA graph "
+            f"(nodes {int(st_k.nodes.sum())}, solutions "
+            f"{int(st_k.sols.sum())}, idle lanes "
+            f"{int((st_k.phase == 2).sum())}/{kw['num_dives']})")
+        if big is None:
+            big = (s, st_k, cap)
+    return time_step_parts(torch, *big)
+
+
+def time_step_parts(torch, s, st, cap, steps=20):
+    """Each kernel entry's time inside ``steps`` real steps of ``st``:
+    CUDA events between the launches, all steps enqueued before one
+    synchronize (so the card does not wait on the host between them);
+    and the plain step's three parts on a copy of the same state."""
+    import dataclasses
     from turbo_tpu_torch import kernels
-    counts = {k.name: k.launches for k in kernels.KERNELS}
-    counts.update({f"embed.{e}": n
-                   for e, n in kernels.embed.entry_launches.items()})
-    return counts
+    from turbo_tpu_torch.solver import step_cuda
+    dev = st.lb.device
+    ws, kp = s._ws, s.kernels.kernel_plan
+    sv = step_cuda.view(s, st, ws)
+    plain_st = clone_state(st)
+    names = ("step.pre", "fixpoint", "classify", "select", "step.post",
+             "step_tail.scan", "step_tail.copy")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(8)]
+          for _ in range(steps)]
+    n_impr = torch.zeros((), dtype=torch.int64, device=dev)
+    n_refill = torch.zeros((), dtype=torch.int64, device=dev)
+    kernels.step_tail.live(st.phase, ws.live[0], ws.steps)
+    for i in range(steps):
+        cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
+        ev[i][0].record()
+        kernels.step.pre(sv, cur, dev)
+        ev[i][1].record()
+        kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur,
+                         out=(st.lb, st.ub, ws.iters, ws.unconv, ws.cand))
+        ev[i][2].record()
+        kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
+        ev[i][3].record()
+        kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
+        ev[i][4].record()
+        kernels.step.post(sv, cur, dev, kp.smem_limit)
+        ev[i][5].record()
+        kernels.step_tail.scan(sv, cur, nxt, dev)
+        ev[i][6].record()
+        kernels.step_tail.copy(sv, cur, dev)
+        ev[i][7].record()
+        n_impr += ws.impr.sum()
+        n_refill += ws.havework.sum()
+    torch.cuda.synchronize()
+    acc = {n: sum(ev[i][j].elapsed_time(ev[i][j + 1])
+                  for i in range(steps)) / steps
+           for j, n in enumerate(names)}
+    plain = dict.fromkeys(("pre", "post", "tail"), 0.0)
+    for _ in range(steps):
+        pe = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        p = plain_st
+        pe[0].record()
+        phase, strat0, ub = s.step_pre_plain(p)
+        pe[1].record()
+        lb, ub, iters, unconv = s.kernels.fixpoint(p.lb, ub, cap)
+        bot, ent = s.kernels.classify(lb, ub)
+        sel = s._select(lb, ub, strat0)
+        pe[2].record()
+        new, flags = s.step_post_plain(p, phase, strat0, lb, ub, iters,
+                                       unconv, bot, ent, sel)
+        pe[3].record()
+        new = s.step_tail_plain(p, new, *flags)
+        pe[4].record()
+        torch.cuda.synchronize()
+        plain_st = dataclasses.replace(p, **new)
+        plain["pre"] += pe[0].elapsed_time(pe[1]) / steps
+        plain["post"] += pe[2].elapsed_time(pe[3]) / steps
+        plain["tail"] += pe[3].elapsed_time(pe[4]) / steps
+    D, V = s.cfg.num_dives, s.dp.V
+    impr, refill = int(n_impr) / steps, int(n_refill) / steps
+    # K6: about 10 scalar words per lane before K1 and 52 after, the
+    # incumbent rows of improving lanes (two planes read, two written);
+    # snapshot and rebuild rows are not counted (a lower bound). K7: 28
+    # bytes per lane in the scan, six table-row planes per refilled lane
+    # (two read, four written) and a ring row per improvement.
+    k6 = bound(D * 62 * 4 + impr * 16 * V + 4 * D, 100 * D)
+    k7 = bound(28 * D + refill * 24 * V + impr * 8 * V, 30 * D)
+    log(f"  golomb(12) D={D} V={V}, {steps} steps at cap {cap} (per step: "
+        f"{impr:.2f} improving, {refill:.2f} refilled lanes), ms per step: "
+        + ", ".join(f"{n} {acc[n]:.4f}" for n in names)
+        + f"; plain parts: pre {plain['pre']:.4f}, post {plain['post']:.4f},"
+        f" tail {plain['tail']:.4f}; bound ms K6 {k6[0]:.5f} ({k6[1]}), K7 "
+        f"{k7[0]:.5f} ({k7[1]})")
+    return {"step": (0, acc["step.pre"] + acc["step.post"],
+                     plain["pre"] + plain["post"]) + k6,
+            "step_tail": (0, acc["step_tail.scan"] + acc["step_tail.copy"],
+                          plain["tail"]) + k7}
+
+
+def profile_steps(torch, fn, steps):
+    """(device kernels, device busy ms) per step of ``fn`` under
+    torch.profiler, or None when the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        return None
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    return len(dev_events) / steps, busy_us / 1e3 / steps
+
+
+def phase_step_loop(torch, dev, chunk=16, cap=16):
+    """3c: the step loop on golomb(12), D=512, table on: no host sync
+    inside a chunk (sync debug mode "error"), launches, wall and device
+    time per step, for the kernels launched one by one, the same chunk
+    replayed as a CUDA graph (the route ``run_steps`` takes once a chunk
+    repeats), and the plain step."""
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.instances import golomb
+    from turbo_tpu_torch.solver import step_cuda
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+    s = BatchedSolver(compile_model(parse_fzn_text(golomb(12))),
+                      EngineConfig(num_dives=512, fp_cap_auto=False),
+                      device=dev)
+    st = s.init_state()
+    for _ in range(2):  # warm: the second chunk is captured
+        step_cuda.run(s, st, chunk, cap)
+    torch.cuda.synchronize()
+    out = {}
+    for route, graph in (("kernels one by one", False), ("CUDA graph", True),
+                         ("kernels one by one", False), ("CUDA graph", True)):
+        kernels.reset_launches()
+        t0 = time.monotonic()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ran = step_cuda.run(s, st, chunk, cap, graph=graph)
+        except RuntimeError as e:
+            fail(f"a host sync inside a chunk ({route}): {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enq = time.monotonic() - t0
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        n = int(ran)
+        per = sum(kernels.launch_counts()[k.name] for k in kernels.KERNELS)
+        log(f"  {route}: {n} steps, {per / chunk:.2f} kernel launches per "
+            f"step, wall {wall / n * 1e3:.3f} ms per step (enqueue "
+            f"{enq / n * 1e3:.3f}); no host sync")
+        out.setdefault(route, []).append(wall / n * 1e3)
+        out["launches_per_step"] = per / chunk
+    for route, graph in (("kernels one by one", False), ("CUDA graph", True)):
+        prof = profile_steps(
+            torch, lambda: step_cuda.run(s, st, chunk, cap, graph=graph),
+            chunk)
+        log(f"  {route} under torch.profiler: " + (
+            f"{prof[0]:.1f} device kernels and {prof[1]:.3f} ms device busy"
+            " per step" if prof else "no device time (not measured)"))
+    plain = clone_state(st)
+
+    def plain_chunk():
+        nonlocal plain
+        for _ in range(chunk):
+            plain, _ = s.step_plain(plain, cap)
+
+    plain_chunk()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    plain_chunk()
+    torch.cuda.synchronize()
+    wall = (time.monotonic() - t0) / chunk * 1e3
+    pprof = profile_steps(torch, plain_chunk, chunk)
+    log(f"  plain step on the card: wall {wall:.3f} ms per step; " + (
+        f"{pprof[0]:.1f} device kernels and {pprof[1]:.3f} ms device busy "
+        "per step" if pprof else "profiler: no device time"))
+    return out
 
 
 def counted(label, fn, required=()):
@@ -331,7 +656,7 @@ def counted(label, fn, required=()):
     from turbo_tpu_torch import kernels
     kernels.reset_launches()
     fn()
-    counts = launch_counts()
+    counts = kernels.launch_counts()
     log(f"  launches on {label}: " + ", ".join(f"{k} {n}"
                                                for k, n in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
@@ -347,11 +672,15 @@ def run_path(torch, dev, big=12):
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.host.solver import oracle
-    from turbo_tpu_torch.instances import GOLOMB_OPT, golomb, random_model
+    from turbo_tpu_torch.instances import (GOLOMB_OPT, QUEENS_COUNT, golomb,
+                                           queens, random_model)
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
-    all_kernels = ("fixpoint", "classify", "select", "embed", "open_count",
-                   "embed.embed", "embed.table_refill")
+    step_kernels = ("fixpoint", "classify", "select", "step", "step_tail",
+                    "step.pre", "step.post", "step_tail.scan",
+                    "step_tail.copy", "step_tail.live")
+    all_kernels = step_kernels + ("embed", "open_count", "embed.embed",
+                                  "embed.table_refill")
     paths = {}
 
     def no_tail(solver):
@@ -479,7 +808,7 @@ def run_path(torch, dev, big=12):
     log(f"[7] table-off path: golomb({big}), D=512, solver API, 15 s")
     paths[f"table off, golomb({big})"] = counted(
         f"the table-off path, golomb({big})", table_off,
-        required=("fixpoint", "classify", "select"))
+        required=step_kernels)
 
     def drain():
         s = BatchedSolver(compile_model(parse_fzn_text(golomb(8))),
@@ -497,6 +826,59 @@ def run_path(torch, dev, big=12):
     paths["drain-forcing, golomb(8)"] = counted(
         "the drain-forcing case, golomb(8)", drain, required=all_kernels)
     steal_round_trip(torch, dev, big, tnf_big)
+
+    def all_queens():
+        text = queens(8)
+        qmodel = parse_fzn_text(text)
+        out, _, stats = run_cli([write_model("queens8", text), "-a", "-s"])
+        blocks = out.split("----------\n")[:-1]
+        bodies = set()
+        for b in blocks:
+            body = "\n".join(l for l in b.splitlines()
+                             if not l.startswith("%"))
+            check_solution(qmodel, body)
+            bodies.add(body)
+        if len(blocks) != QUEENS_COUNT[8] or len(bodies) != len(blocks):
+            fail(f"queens(8) -a: {len(blocks)} blocks, {len(bodies)} "
+                 f"distinct, expected {QUEENS_COUNT[8]}")
+        if "==========" not in out:
+            fail("queens(8) -a: no final separator")
+        log(f"  {len(blocks)} distinct checker-valid solutions (OEIS A000170:"
+            f" 92); nodes {stats['nodes']}, solveTime "
+            f"{float(stats['solveTime']):.3f} s")
+
+    log("[9] -a on queens(8), card CLI")
+    paths["-a, queens(8)"] = counted("-a, queens(8)", all_queens,
+                                     required=step_kernels)
+
+    def improving_golomb():
+        text = golomb(9)
+        gmodel = parse_fzn_text(text)
+        out, _, stats = run_cli([write_model("golomb9", text), "-i", "-s",
+                                 "-t", "30000"])
+        blocks = out.split("----------\n")[:-1]
+        if not blocks:
+            fail("golomb(9) -i: no solution printed")
+        objs = []
+        for b in blocks:
+            body = "\n".join(l for l in b.splitlines()
+                             if not l.startswith("%"))
+            check_solution(gmodel, body)
+            objs.append(int(re.search(r"^m8 = (-?\d+);$", body, re.M)[1]))
+        closed = "==========" in out
+        final = int(stats["objective"])
+        if objs[-1] != final or (closed and final != GOLOMB_OPT[9]):
+            fail(f"golomb(9) -i: blocks {objs}, objective {final}, closed "
+                 f"{closed}")
+        log(f"  {len(blocks)} checker-valid blocks, objectives {objs}; "
+            f"{'optimal' if closed else 'not closed'} at {final}; nodes "
+            f"{stats['nodes']}, solveTime {float(stats['solveTime']):.3f} s")
+
+    log("[10] -i -t 30000 on golomb(9), card CLI")
+    paths["-i, golomb(9)"] = counted(
+        "-i, golomb(9)", improving_golomb,
+        required=step_kernels + ("embed", "embed.embed",
+                                 "embed.table_refill"))
     return paths
 
 
@@ -557,13 +939,17 @@ def main():
 
     log("[3] kernels vs plain torch (exact)")
     kres = phase_kernels(torch, dev)
+    log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
+    kres.update(phase_step_kernels(torch, dev))
+    log("[3c] step loop, golomb(12), D=512, table on, cap 16")
+    phase_step_loop(torch, dev)
     if "--kernels-only" in sys.argv[1:]:
-        log("--kernels-only: stopping after phase 3")
+        log("--kernels-only: stopping after phase 3c")
         sys.exit(0)
 
     paths = run_path(torch, dev)
     main_counts = paths[MAIN]
-    log("[9] launches by path: " + "; ".join(
+    log("[11] launches by path: " + "; ".join(
         f"{p}: " + ", ".join(f"{k} {n}" for k, n in c.items())
         for p, c in paths.items()))
     if "jax" in sys.modules or "turbo_tpu" in sys.modules:
@@ -573,8 +959,9 @@ def main():
          "replaces": k.replaces, "launches": main_counts[k.name],
          "launches_by_path": {p: c[k.name] for p, c in paths.items()},
          "max_abs_err": kres[k.name][0], "ms": kres[k.name][1],
-         "plain_ms": kres[k.name][2]} for k in kernels.KERNELS],
-        "main_path": MAIN}))
+         "plain_ms": kres[k.name][2], "bound_ms": kres[k.name][3],
+         "bound_by": kres[k.name][4], "library_ms": None}
+        for k in kernels.KERNELS], "main_path": MAIN}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -60,7 +60,6 @@ def test_unported_options_raise(tmp_path):
     path = tmp_path / "m.fzn"
     path.write_text(MODELS["linear"])
     for extra, what in ((["-arch", "hybrid"], "-arch hybrid"),
-                        (["-i"], "solution ring"),
                         (["-checkpoint", str(tmp_path / "c")], "-checkpoint")):
         with pytest.raises(NotImplementedError, match=what):
             port_cli.main([str(path), "-platform", "cpu"] + extra)

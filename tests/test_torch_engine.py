@@ -35,9 +35,9 @@ CASES = {"rand10": (random_model(10, n_vars=8, n_cons=22), 0),
          "rand12": (random_model(12, n_vars=9, n_cons=26), 3),
          "rand13": (random_model(13, n_vars=8, n_cons=22), 0),
          "golomb6": (golomb(6), 0)}
-# The port keeps the objective and its kind in the plan, the fixpoint
-# cap as a host int, and has no solution ring.
-JAX_ONLY = {"obj", "is_opt", "fp_cap", "sol_ring", "sol_w"}
+# The port keeps the objective and its kind in the plan and the fixpoint
+# cap as a host int.
+JAX_ONLY = {"obj", "is_opt", "fp_cap"}
 STATS = ("status", "objective", "exhaustive", "nodes", "fails", "solutions",
          "depth_max", "fixpoint_iterations", "num_deductions",
          "eps_solved_subproblems", "eps_skipped_subproblems")
@@ -57,7 +57,8 @@ def _pair(name):
     # Stack steal and tail resplit are timed by the wall clock: off on
     # both sides, so that both walk the same steps.
     ts = BatchedSolver(compile_model(parse_fzn_text(text)),
-                       EngineConfig(use_table=False, fp_cap_auto=False, **kw))
+                       EngineConfig(use_table=False, fp_cap_auto=False, **kw),
+                       device="cpu")
     for s in (js, ts):
         s._steal_open_branches = lambda *a, **k: None
         s._tail_resplit = lambda *a, **k: None

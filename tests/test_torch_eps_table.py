@@ -54,7 +54,8 @@ def _pair(name):
               fp_cap_auto=False)
     js = JaxSolver(jax_compile(jax_parse(text)),
                    JaxConfig(fp_layout="dv", **kw))
-    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw))
+    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw),
+                       device="cpu")
     assert js.use_table and ts.use_table
     return js, ts
 
@@ -147,7 +148,7 @@ def test_expired_deadline_falls_back_to_dive_mode():
     text = golomb(6)
     s = BatchedSolver(compile_model(parse_fzn_text(text)),
                       EngineConfig(num_dives=8, subproblems_power=5,
-                                   max_depth=96))
+                                   max_depth=96), device="cpu")
     assert s.use_table
     s._table_deadline = time.monotonic() - 1.0
     r = s.solve()
@@ -165,7 +166,8 @@ def test_table_budget_gate(monkeypatch):
     text, kw = CASES["rand10"]
     monkeypatch.setenv("TURBO_TPU_TABLE_BUDGET", "0")
     js = JaxSolver(jax_compile(jax_parse(text)), JaxConfig(**kw))
-    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw))
+    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw),
+                       device="cpu")
     assert not js.use_table and not ts.use_table
     assert ts.init_state().tab_lb.shape == (1, ts.plan.V)
 

@@ -1,10 +1,14 @@
-"""The port's host layer: shared with the JAX package, never loading jax.
+"""The port's host layer: its own copy, never loading jax or the JAX package.
 
-``turbo_tpu_torch.host`` loads the JAX package's numpy modules without
-running ``turbo_tpu/__init__.py``; the copied host functions of
-``turbo_tpu_torch/solver/config.py`` equal the originals.
+``turbo_tpu_torch.host`` is a copy of the JAX package's numpy modules
+(and of ``native/fzn_parser.cpp``); the copies compute what the
+originals compute (TNF, plan, the copied host functions of
+``turbo_tpu_torch/solver/config.py``), and the port's CLI runs no file
+of ``turbo_tpu/`` or ``native/``. The solver API runs on the card unless
+asked for the CPU.
 """
 import dataclasses
+import os
 import pathlib
 import subprocess
 import sys
@@ -78,6 +82,73 @@ def test_port_sources_import_no_jax():
     for f in (ROOT / "turbo_tpu_torch").rglob("*.py"):
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
+
+
+def test_cli_runs_only_port_files(tmp_path):
+    """The port's CLI in a fresh interpreter (the native parser built
+    from a cold build directory): every loaded ``turbo_tpu_torch`` module
+    lies under ``turbo_tpu_torch/``, and no file under ``turbo_tpu/`` or
+    ``native/`` is opened, imported or handed to a compiler."""
+    model = tmp_path / "m.fzn"
+    model.write_text(random_model(0))
+    code = (
+        "import os, sys\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event == 'open' and isinstance(args[0], str):\n"
+        "        seen.append(os.path.abspath(args[0]))\n"
+        "    elif event == 'subprocess.Popen':\n"
+        "        seen.extend(os.path.abspath(str(a)) for a in args[1])\n"
+        "sys.addaudithook(hook)\n"
+        "import turbo_tpu_torch.cli as cli\n"
+        "from turbo_tpu_torch.host.frontend import native\n"
+        f"native._SO = {str(tmp_path / 'build' / 'libfznparser.so')!r}\n"
+        f"rc = cli.main([{str(model)!r}, '-platform', 'cpu', '-s'])\n"
+        "assert rc == 0 and native._lib is not None\n"
+        "for name, m in list(sys.modules.items()):\n"
+        "    if name.startswith('turbo_tpu_torch'):\n"
+        f"        f = getattr(m, '__file__', None) or ''\n"
+        f"        assert f.startswith({str(ROOT / 'turbo_tpu_torch')!r}), (name, f)\n"
+        f"for bad in ({str(ROOT / 'turbo_tpu') + os.sep!r}, "
+        f"{str(ROOT / 'native') + os.sep!r}):\n"
+        "    hit = [f for f in seen if f.startswith(bad)]\n"
+        "    assert not hit, hit[:5]\n"
+        f"assert {str(ROOT / 'turbo_tpu_torch' / 'host' / 'native' / 'fzn_parser.cpp')!r} in seen\n"
+        "print('PORT-ONLY')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "PORT-ONLY" in r.stdout
+
+
+def test_port_sources_name_no_jax_package_path():
+    """No port source reaches into the JAX package's directory or the
+    repository's native/ directory (the host layer used to, through a
+    ``__path__`` pointing at ``turbo_tpu/``)."""
+    for f in (ROOT / "turbo_tpu_torch").rglob("*.py"):
+        text = f.read_text()
+        assert "submodule_search_locations" not in text, f
+        assert "__path__" not in text, f
+        assert 'find_spec("turbo_tpu")' not in text, f
+    from turbo_tpu_torch.host.frontend import native
+    host = ROOT / "turbo_tpu_torch" / "host"
+    assert pathlib.Path(native._SRC).resolve() == host / "native" / "fzn_parser.cpp"
+    assert pathlib.Path(native._SO).resolve().is_relative_to(host / "native")
+    assert (pathlib.Path(native._SRC).read_bytes()
+            == (ROOT / "native" / "fzn_parser.cpp").read_bytes())
+
+
+def test_solver_api_defaults_to_the_card():
+    import torch
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+    tnf = compile_model(parse_fzn_text(golomb(4)))
+    cfg = port_config.EngineConfig(num_dives=4)
+    if torch.cuda.is_available():
+        assert BatchedSolver(tnf, cfg).device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BatchedSolver(tnf, cfg)
+    assert BatchedSolver(tnf, cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("mi", range(len(MODELS)))

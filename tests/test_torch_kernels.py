@@ -4,8 +4,10 @@ The kernels (turbo_tpu_torch/kernels/csrc/*.cu) cannot run here, so
 this file transliterates them line for line into scalar Python over the
 very tables the wrappers upload (``kernel_tables``): one dive at a time,
 phase A then phase B per sweep, CSR combine, conflict fold, block
-argmin. The emulation must equal the plain torch versions, which
-``test_torch_propagate.py`` holds to the JAX package. The real kernels
+argmin; and K6/K7 (the step around K1-K3) one lane at a time over the
+state. The emulation must equal the plain torch versions, which
+``test_torch_propagate.py`` and ``test_torch_engine.py`` hold to the
+JAX package. The real kernels
 are compared with the plain versions on the card (marked ``cuda``, and
 by ``chip_smoke.py``).
 """
@@ -18,7 +20,7 @@ from turbo_tpu_torch.host.core.ops import (INF, NINF, OP_ADD, OP_DIV, OP_EQ,
                                            OP_LE, OP_MAX, OP_MIN, OP_MUL)
 from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
 from turbo_tpu_torch.host.solver import oracle
-from turbo_tpu_torch.instances import golomb, random_model
+from turbo_tpu_torch.instances import golomb, queens, random_model
 from turbo_tpu_torch.kernels import kernel_tables
 from turbo_tpu_torch.solver.config import EngineConfig
 from turbo_tpu_torch.solver.engine import BatchedSolver
@@ -298,7 +300,7 @@ def _case(seed):
     tnf = compile_model(parse_fzn_text(text))
     s = BatchedSolver(tnf, EngineConfig(num_dives=12, subproblems_power=3,
                                         max_depth=64, use_table=False,
-                                        fp_cap_auto=False))
+                                        fp_cap_auto=False), device="cpu")
     rng = np.random.default_rng(seed + 10)
     plan, D = s.plan, 12
     lb = np.tile(plan.lb0, (D, 1)).astype(np.int32)
@@ -373,7 +375,7 @@ def test_cuda_engine_matches_cpu_engine(seed):
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from turbo_tpu_torch.solver.convert import search_state_to_numpy
     s, _, _, _ = _case(seed)
-    s = BatchedSolver(s.tnf, s.cfg)
+    s = BatchedSolver(s.tnf, s.cfg, device="cpu")
     sc = BatchedSolver(s.tnf, s.cfg, device="cuda:0")
     for solver in (s, sc):
         solver._steal_open_branches = lambda *a, **k: None
@@ -424,3 +426,243 @@ def test_cuda_embed_refill_open_count_match_plain(seed):
     dec_cur, depth, phase = ri(0, 2, W, MAXD), ri(0, MAXD + 1, W), ri(0, 3, W)
     assert int(kernels.open_count(dec_cur, depth, phase)) == int(
         open_branch_count_plain(dec_cur, depth, phase))
+
+
+# -- K6 step.cu and K7 step_tail.cu, transliterated --------------------
+
+DIVE, SOLVE, IDLE = 0, 1, 2
+
+
+def emulate_run(s, f, n, cap):
+    """``solver/step_cuda.run`` over the numpy state ``f`` (updated in
+    place): the live flag, then per step K6 pre -> K1-K3 (their plain
+    versions) -> K6 post -> K7 scan -> K7 copy, each lane as one block
+    of csrc/step.cu and csrc/step_tail.cu computes it. Returns the steps
+    that ran."""
+    dp, cfg = s.dp, s.cfg
+    D, V, MAXD, R = cfg.num_dives, dp.V, cfg.max_depth, cfg.sol_ring_size
+    enum, obj, is_opt = cfg.enumerate_all, dp.obj, dp.is_opt
+    lb, ub = f["lb"], f["ub"]
+    n_pad = f["tab_lb"].shape[0]
+    lb0, ub0 = dp.lb0.numpy(), dp.ub0.numpy()
+    live = [int((f["phase"] != IDLE).any()), 0]
+    steps = 0
+    for i in range(n):
+        cur = i % 2
+        if not live[cur]:  # every kernel returns; the scan clears the next
+            live[1 - cur] = 0
+            continue
+        # K6 pre.
+        g = min(int(f["best_bound"].min()), int(f["ext_bound"][0]))
+        strat0 = np.zeros(D, np.int32)
+        for d in range(D):
+            ph, st = int(f["phase"][d]), int(f["strat"][d])
+            promote = ph == DIVE and f["remaining"][d] == 0
+            if promote:
+                ph = f["phase"][d] = SOLVE
+            strat0[d] = max(st, int(f["eps_strat"][d])) if promote else st
+            if is_opt and ph == SOLVE:
+                lim = w32(min(g, int(f["best_bound"][d])) - 1)
+                ub[d, obj] = min(int(ub[d, obj]), lim)
+        # K1-K3, in place.
+        tl, tu = torch.from_numpy(lb.copy()), torch.from_numpy(ub.copy())
+        l2, u2, iters, unconv = s.kernels.fixpoint_plain(tl, tu, cap)
+        lb[:], ub[:] = l2.numpy(), u2.numpy()
+        bot, ent = (x.numpy() for x in s.kernels.classify_plain(l2, u2))
+        found, var, nstrat, _, c0l, c0u, c1l, c1u = (
+            x.numpy() for x in s._select_plain(l2, u2,
+                                               torch.from_numpy(strat0)))
+        iters, unconv = iters.numpy(), unconv.numpy()
+        # K6 post, one lane (block) at a time.
+        want, impr_v, dleaf_v, nxt_v = (np.zeros(D, np.int64)
+                                        for _ in range(4))
+        for d in range(D):
+            ph = int(f["phase"][d])
+            act, in_dive, in_solve = ph != IDLE, ph == DIVE, ph == SOLVE
+            b = bool(bot[d])
+            e = bool(ent[d]) and not b
+            held = bool(unconv[d]) and not b and not e
+            fnd = bool(found[d])
+            rem, sp, dep = (int(f[k][d]) for k in ("remaining", "subp",
+                                                   "depth"))
+            if enum:
+                leftmost = (sp & w32(w32(1 << rem) - 1)) == 0
+                sol = e and not fnd and (leftmost if in_dive else True)
+                leaf = b or (e and not fnd)
+            else:
+                sol, leaf = e, b or e
+            objv = int(lb[d, obj]) if is_opt else 0
+            if is_opt:
+                better = objv < min(int(f["best_bound"][d]),
+                                    int(f["ext_bound"][0]))
+            else:
+                better = enum or not f["has_best"][d]
+            impr = act and sol and better
+            no_split = act and not leaf and not fnd and not held
+            any_unfixed = no_split and bool(
+                (lb[d, :dp.n_active] < ub[d, :dp.n_active]).any())
+            incomplete = no_split and any_unfixed
+            waiting = no_split and not any_unfixed
+            leaf = leaf or incomplete
+            branching = act and not leaf and not waiting and not held
+            dive_br = branching and in_dive
+            solve_br = branching and in_solve
+            ovf = solve_br and dep >= MAXD
+            solve_br = solve_br and not ovf
+            leaf = leaf or ovf
+            snap = solve_br and dep == 0
+            if impr:
+                f["best_lb"][d], f["best_ub"][d] = lb[d], ub[d]
+            if snap:
+                f["root_lb"][d], f["root_ub"][d] = lb[d], ub[d]
+            it = int(iters[d])
+            f["nodes"][d] = w32(int(f["nodes"][d]) + (act and not held))
+            f["fails"][d] = w32(int(f["fails"][d]) + (act and b))
+            f["fpit"][d] = w32(int(f["fpit"][d]) + (it if act else 0))
+            f["deds"][d] = f["deds"][d] + (np.float32(it) * f["pscale"][d]
+                                           if act else np.float32(0))
+            tree_depth = w32(dep + w32(int(f["kpow"][d]) - rem))
+            f["dmax"][d] = max(int(f["dmax"][d]), tree_depth if act else 0)
+            if impr:
+                f["best_bound"][d] = objv
+                f["has_best"][d] = True
+            f["sols"][d] = w32(int(f["sols"][d]) + impr)
+            f["nonexh"][d] = bool(f["nonexh"][d]) or incomplete or ovf
+            bit = (sp >> max(rem - 1, 0)) & 1
+            rem2 = rem - 1 if dive_br else rem
+            f["remaining"][d] = rem2
+            st0 = int(strat0[d])
+            snap_strat = st0 if snap else int(f["snap_strat"][d])
+            dd, par = min(max(dep, 0), MAXD - 1), min(max(dep - 1, 0), MAXD - 1)
+            rope1 = ((dep if f["dec_cur"][d, par] == 0
+                      else int(f["dec_rope1"][d, par])) if dep > 0 else -1)
+            if solve_br:
+                for k, v in (("dec_var", var[d]), ("dec_l0", c0l[d]),
+                             ("dec_u0", c0u[d]), ("dec_l1", c1l[d]),
+                             ("dec_u1", c1u[d]), ("dec_rope1", rope1),
+                             ("dec_cur", 0)):
+                    f[k][d, dd] = v
+            dep1 = dep + 1 if solve_br else dep
+            if dive_br or solve_br:
+                v = int(var[d])
+                right = dive_br and bit == 1
+                lb[d, v] = max(int(lb[d, v]), int(c1l[d] if right else c0l[d]))
+                ub[d, v] = min(int(ub[d, v]), int(c1u[d] if right else c0u[d]))
+            bt = act and leaf and in_solve
+            lastd = min(max(dep1 - 1, 0), MAXD - 1)
+            t = dep1 if f["dec_cur"][d, lastd] == 0 else int(
+                f["dec_rope1"][d, lastd])
+            done_sub = bt and (dep1 == 0 or t == -1)
+            restore = bt and dep1 > 0 and t != -1
+            if restore:
+                f["dec_cur"][d, min(max(t - 1, 0), MAXD - 1)] = 1
+            strat = int(nstrat[d]) if branching else st0
+            f["strat"][d] = snap_strat if restore else strat
+            f["snap_strat"][d] = snap_strat
+            f["depth"][d] = t if restore else dep1
+            dleaf = act and leaf and in_dive
+            nxt = w32(w32((sp >> rem2) + 1) << rem2)
+            dleaf_left = dleaf and (sp & w32(w32(1 << rem2) - 1)) == 0
+            f["skipped_sub"][d] = w32(int(f["skipped_sub"][d])
+                                      + (w32(nxt - sp - 1) if dleaf_left
+                                         else 0))
+            f["solved_sub"][d] = w32(int(f["solved_sub"][d])
+                                     + (done_sub or dleaf_left))
+            want[d], impr_v[d], dleaf_v[d], nxt_v[d] = (
+                dleaf or done_sub, impr, dleaf, nxt)
+            if restore:  # atomicMax/atomicMin scatter over j < t
+                lb[d], ub[d] = f["root_lb"][d], f["root_ub"][d]
+                for j in range(t):
+                    v, c1 = int(f["dec_var"][d, j]), f["dec_cur"][d, j] == 1
+                    lb[d, v] = max(int(lb[d, v]),
+                                   int(f["dec_l1" if c1 else "dec_l0"][d, j]))
+                    ub[d, v] = min(int(ub[d, v]),
+                                   int(f["dec_u1" if c1 else "dec_u0"][d, j]))
+        # K7 scan (one block).
+        m = max(int(nxt_v[d]) if dleaf_v[d] else 0 for d in range(D))
+        ns = max(int(f["next_sub"][0]), m)
+        limit, w0 = int(f["sub_limit"][0]), int(f["sol_w"][0])
+        total_w, total_i = int(want.sum()), int(impr_v.sum())
+        inc_w, inc_i = np.cumsum(want), np.cumsum(impr_v)
+        newidx = [w32(ns + (int(inc_w[d]) - 1 if want[d] else 0))
+                  for d in range(D)]
+        havework = [bool(want[d]) and newidx[d] < limit for d in range(D)]
+        ridx = [w32(w0 + int(inc_i[d]) - 1) % R
+                if impr_v[d] and R > 0 and total_i - inc_i[d] < R else -1
+                for d in range(D)]
+        refill_phase = SOLVE if s.use_table else DIVE
+        any_live = False
+        for d in range(D):
+            ph = ((refill_phase if havework[d] else IDLE) if want[d]
+                  else int(f["phase"][d]))
+            any_live |= ph != IDLE
+        f["next_sub"][:] = min(w32(ns + total_w), limit)
+        if R > 0:
+            f["sol_w"][:] = [w32(int(x) + total_i) for x in f["sol_w"]]
+        live[1 - cur] = int(any_live)
+        steps += 1
+        # K7 copy, one lane (block) at a time.
+        for d in range(D):
+            if want[d]:
+                if havework[d] and s.use_table:
+                    r = min(max(newidx[d], 0), n_pad - 1)
+                    lb[d] = f["root_lb"][d] = f["tab_lb"][r]
+                    ub[d] = f["root_ub"][d] = f["tab_ub"][r]
+                    f["depth"][d], f["remaining"][d] = 0, 0
+                    f["strat"][d] = f["snap_strat"][d] = f["tab_strat"][r]
+                    f["subp"][d] = f["tab_path"][r]
+                elif havework[d]:
+                    lb[d], ub[d] = lb0, ub0
+                    f["depth"][d], f["strat"][d] = 0, 0
+                    f["remaining"][d] = f["kpow"][d]
+                    f["subp"][d] = newidx[d]
+                f["phase"][d] = refill_phase if havework[d] else IDLE
+            if ridx[d] >= 0:
+                f["sol_ring"][ridx[d]] = f["best_lb"][d]
+    return steps
+
+
+STEP_CASES = {
+    # name: (model, EngineConfig keywords); D = 6 lanes, 2^k subproblems
+    "golomb6_table_ring": (lambda: golomb(6),
+                           dict(use_table=True, sol_ring_size=8,
+                                subproblems_power=3)),
+    "golomb6_table_off_ring": (lambda: golomb(6),
+                               dict(use_table=False, sol_ring_size=4,
+                                    subproblems_power=3)),
+    "queens6_enumerate": (lambda: queens(6),
+                          dict(enumerate_all=True, sol_ring_size=3,
+                               subproblems_power=3)),
+    "rand12_eps_table": (lambda: random_model(12, n_vars=9, n_cons=26),
+                         dict(use_table=True, seed=4,
+                              eps_var_order="first_fail",
+                              subproblems_power=2)),
+    "rand10_table_off": (lambda: random_model(10, n_vars=8, n_cons=22),
+                         dict(use_table=False, subproblems_power=2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_step_kernel_emulation_matches_plain_step(name):
+    """K6 and K7 as transliterated above equal ``step_plain`` field for
+    field over 60 steps at cap 3 (so lanes are held too), including the
+    steps after the batch went IDLE (the golomb(6) table case idles at
+    step 56, the random models earlier)."""
+    from turbo_tpu_torch.solver.convert import search_state_to_numpy
+    text, kw = STEP_CASES[name]
+    tnf = compile_model(parse_fzn_text(text()))
+    s = BatchedSolver(tnf, EngineConfig(num_dives=6, max_depth=48,
+                                        fp_cap_auto=False, **kw),
+                      device="cpu")
+    st = s.init_state()
+    f = {k: v.copy() for k, v in search_state_to_numpy(st).items()}
+    done = 0
+    for n in (1, 7, 20, 32):
+        st, ran = s.run_steps(st, n, 3)
+        assert emulate_run(s, f, n, 3) == int(ran), (name, n)
+        done += n
+        want = search_state_to_numpy(st)
+        for k in want:
+            np.testing.assert_array_equal(f[k], want[k],
+                                          err_msg=f"{name} {done}: {k}")
+    assert int(f["nodes"].sum()) > 0 and done == 60

@@ -67,7 +67,8 @@ def _pair(seed, **cfg):
                    JaxConfig(use_table=False, fp_cap_auto=False,
                              fp_layout="dv", **kw))
     ts = BatchedSolver(compile_model(parse_fzn_text(text)),
-                       EngineConfig(use_table=False, fp_cap_auto=False, **kw))
+                       EngineConfig(use_table=False, fp_cap_auto=False, **kw),
+                       device="cpu")
     return js, ts
 
 

@@ -48,7 +48,8 @@ def _solvers(text, kw):
               fp_cap_auto=False)
     js = JaxSolver(jax_compile(jax_parse(text)),
                    JaxConfig(fp_layout="dv", **kw))
-    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw))
+    ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw),
+                       device="cpu")
     return js, ts
 
 
@@ -200,7 +201,8 @@ def test_default_solve_with_steal_and_resplit_matches_oracle():
         tnf = compile_model(parse_fzn_text(text))
         ro = oracle_solve(tnf, timeout_s=30)
         s = BatchedSolver(tnf, EngineConfig(num_dives=8, subproblems_power=1,
-                                            max_depth=64))
+                                            max_depth=64),
+                          device="cpu")
         assert s.use_table and s.cfg.fp_cap_auto
         r = s.solve(timeout_s=60, chunk=4)
         assert (r.status, r.objective) == (ro.status, ro.objective), trial

@@ -1,13 +1,14 @@
 """turbo-tpu-torch command line entry point.
 
 ``python -m turbo_tpu_torch.cli model.fzn [flags]``: the flags of
-``turbo_tpu.cli`` (shared ``parse_args``), the same solution blocks,
-separators and ``%%%mzn-stat`` lines. ``-arch tpu|gpu|barebones`` run
-the batched engine on the CUDA card (``-platform cpu``: the plain torch
-versions on the CPU) with the JAX CLI's defaults: the EPS subproblem
-table and live fixpoint-cap calibration; ``-arch cpu`` runs the shared
-numpy oracle. ``-v -v`` prints the calibrator's choice, the steal and
-resplit rounds and a line per chunk.
+``turbo_tpu.cli`` (the port's copy of ``parse_args``), the same solution
+blocks, separators and ``%%%mzn-stat`` lines. ``-arch tpu|gpu|barebones``
+run the batched engine on the CUDA card (``-platform cpu``: the plain
+torch versions on the CPU) with the JAX CLI's defaults: the EPS
+subproblem table and live fixpoint-cap calibration; ``-arch cpu`` runs
+the numpy oracle. ``-a``, ``-i`` and ``-n N`` stream every accepted
+solution through the on-device solution ring. ``-v -v`` prints the
+calibrator's choice, the steal and resplit rounds and a line per chunk.
 """
 from __future__ import annotations
 
@@ -93,16 +94,16 @@ def run(cfg: Configuration) -> int:
     if cfg.arch == "cpu":
         return _run_oracle(cfg, stats, tnf, timeout_s, init_time)
 
-    enumerate_all = tnf.obj_var < 0 and cfg.stop_after_n_solutions != 1
-    if enumerate_all or cfg.print_intermediate:
-        raise NotImplementedError(
-            "-a / -i / -n N streaming needs the on-device solution ring, "
-            "which is not ported to turbo_tpu_torch (see ROADMAP.md)")
     from .host.solver.plan import auto_num_dives
     from .solver.config import EngineConfig
     from .solver.engine import BatchedSolver
 
+    enumerate_all = tnf.obj_var < 0 and cfg.stop_after_n_solutions != 1
     num_dives = cfg.or_nodes or auto_num_dives(tnf)
+    # Per-solution streaming (-a / -i / -n N): size the on-device ring;
+    # the solve loop drains it every chunk.
+    want_stream = cfg.print_intermediate or enumerate_all
+    ring = min(4 * num_dives, 8192) if want_stream else 0
     econf = EngineConfig(num_dives=num_dives,
                          subproblems_power=cfg.subproblems_power,
                          subproblems_factor=cfg.subproblems_factor,
@@ -110,8 +111,10 @@ def run(cfg: Configuration) -> int:
                          eps_var_order=cfg.eps_var_order,
                          eps_value_order=cfg.eps_value_order,
                          seed=cfg.seed,
+                         enumerate_all=enumerate_all,
                          disable_simplify=cfg.disable_simplify,
-                         shave=cfg.shave)
+                         shave=cfg.shave,
+                         sol_ring_size=ring)
     # Plan and kernel build count in initTime, outside the -t window.
     tb = time.monotonic()
     solver = BatchedSolver(tnf, econf, device=device)
@@ -120,10 +123,16 @@ def run(cfg: Configuration) -> int:
         print(f"% D={num_dives} k={solver.k} MAXD={solver.cfg.max_depth} "
               f"device={device} setup={setup:.2f}s "
               f"(kernel build {solver.build_time:.2f}s)", file=sys.stderr)
+    printed_last = [None]
+
+    def on_solution(lb_tnf):
+        printed_last[0] = list(lb_tnf)
+        print_solution(tnf, lb_tnf)
     r = solver.solve(timeout_s=timeout_s,
                      stop_after_n_solutions=cfg.stop_after_n_solutions,
                      node_limit=cfg.stop_after_n_nodes,
-                     verbose=cfg.verbose >= 2)
+                     verbose=cfg.verbose >= 2,
+                     on_solution=on_solution if want_stream else None)
     r.init_time = round(init_time + setup, 3)
     if cfg.verbose:
         tb = solver._table
@@ -132,10 +141,17 @@ def run(cfg: Configuration) -> int:
                                   if tb is not None else "off")
               + f"; fp_cap={solver.last_auto_cap or 'not calibrated'}",
               file=sys.stderr)
-    if r.best_lb is not None:
+    # Final block, unless the stream printed this very store last; under
+    # enumeration a stream that lost nothing printed every solution.
+    stream_complete = (enumerate_all and printed_last[0] is not None
+                       and r.sol_ring_overflow == 0)
+    if (r.best_lb is not None and printed_last[0] != list(r.best_lb)
+            and not stream_complete):
         print_solution(tnf, r.best_lb)
     print_final_separator(r.status, tnf.obj_var >= 0,
                           exhaustive=r.exhaustive)
+    if r.sol_ring_overflow:
+        stats.stat("sol_ring_overflow", r.sol_ring_overflow)
     print_mzn_statistics(stats, r)
     return 0
 

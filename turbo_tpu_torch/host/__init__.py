@@ -1,25 +1,20 @@
-"""The JAX package's host layer, shared without a copy.
+"""The port's host layer: its own copy of the JAX package's numpy modules.
 
-``__path__`` points at the ``turbo_tpu`` package directory, so
-``turbo_tpu_torch.host.X`` loads the file ``turbo_tpu/X.py`` as a module
-of this package, and ``turbo_tpu/__init__.py`` (which imports jax) never
-runs. Only these modules may be imported through it; they import
-nothing of jax:
+Copied unchanged from ``turbo_tpu/`` (the same subpackages, so the
+relative imports hold), so that the port runs no file of the JAX
+package; ``tests/test_torch_host.py`` holds each copy to its original:
 
 - ``frontend.ast``, ``frontend.fzn``, ``frontend.native``,
-  ``frontend.xcsp3``
+  ``frontend.xcsp3`` (``native/fzn_parser.cpp``, built with g++ into
+  ``native/build/`` at first use)
 - ``compile.tnf``, ``compile.model``, ``compile.analyze``
 - ``core.ops``
 - ``solver.plan``, ``solver.oracle``, ``solver.deduce_np``,
   ``solver.strategy``, ``solver.timers``
 - ``utils.config``, ``utils.output``, ``utils.checker``
 
-Importing any other module through it (``solver.engine``,
-``solver.propagate_jax``, ``utils.device``, ...) pulls in jax and is a
-bug; ``tests/test_torch_host.py`` guards against it.
+What differs from the originals: the path of the native parser's source
+and build in ``frontend/native.py``, and four docstrings that named a
+local checkout of the reference.
 """
-import importlib.util as _ilu
-
 from .. import __version__  # noqa: F401  (utils.config reads it)
-
-__path__ = list(_ilu.find_spec("turbo_tpu").submodule_search_locations)

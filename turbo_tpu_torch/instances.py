@@ -2,6 +2,9 @@
 
 - ``golomb(m)``: the Golomb ruler (CSPLib prob006). Optimal lengths for
   m = 7..12 are 25, 34, 44, 55, 72, 85 (OEIS A003022).
+- ``queens(n)``: n queens on an n x n board, a satisfaction model
+  whose solution counts are public: 4, 40 and 92 for n = 6, 7, 8 (OEIS
+  A000170).
 - ``random_model(seed, ...)``: seeded random models that draw from every
   rule family the device plan compiles (TNF add/mul/div/min/max/le/eq,
   native linear with unit, non-unit and int64-only coefficients, element,
@@ -41,6 +44,27 @@ def golomb(m: int) -> str:
 
 GOLOMB_OPT = {4: 6, 5: 11, 6: 17, 7: 25, 8: 34, 9: 44, 10: 55, 11: 72,
               12: 85}
+
+
+def queens(n: int) -> str:
+    """n queens: q[i] is the row of the queen in column i; no two share a
+    row or a diagonal."""
+    lines = [f"var 1..{n}: q{i};" for i in range(n)]
+    qs = ", ".join(f"q{i}" for i in range(n))
+    lines.append(f"array [1..{n}] of var int: q :: output_array([1..{n}]) "
+                 f"= [{qs}];")
+    for i in range(n):
+        for j in range(i + 1, n):
+            lines.append(f"constraint int_ne(q{i}, q{j});")
+            for off in (j - i, i - j):
+                lines.append(f"constraint int_lin_ne([1, -1], [q{i}, q{j}], "
+                             f"{off});")
+    lines.append("solve :: int_search(q, input_order, indomain_min, "
+                 "complete) satisfy;")
+    return "\n".join(lines) + "\n"
+
+
+QUEENS_COUNT = {4: 2, 5: 10, 6: 4, 7: 40, 8: 92}
 
 FAMILIES = ("int_plus", "int_times", "int_div", "int_min", "int_max",
             "int_le_reif", "int_eq_reif", "int_lin_le", "int_lin_eq",

@@ -1,20 +1,29 @@
 """The solver's CUDA kernels for Hopper and their wrappers.
 
-Five kernels, each one thread block per dive (or table row) on
-PyTorch's current stream (``csrc/*.cu``):
+Seven kernels on PyTorch's current stream (``csrc/*.cu``), most of them
+one thread block per dive (or table row):
 
 - ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap;
 - ``classify`` (K2): per dive, some domain empty / every propagator
   entailed;
 - ``select`` (K3): branch variable and the two children;
 - ``embed`` (K4): the EPS table build's parent-row gather with the child
-  bound, and (``embed.refill``) the step's table-row refill, in place;
-- ``open_count`` (K5): open right branches on the SOLVE-phase stacks.
+  bound, and (``embed.refill``) the table-row refill that seeds the
+  first lanes, in place;
+- ``open_count`` (K5): open right branches on the SOLVE-phase stacks;
+- ``step`` (K6): the per-lane body of a search step, before
+  (``step.pre``) and after (``step.post``) K1-K3, in place;
+- ``step_tail`` (K7): the cross-lane end of a step (``step_tail.scan``,
+  one block), its refill and ring rows (``step_tail.copy``), and the
+  chunk's live flag (``step_tail.live``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs and scratch with ``torch.empty``, raises when the launch fails,
-and counts its launches in ``launches``. The plain torch versions live
-in ``solver/propagate.py``, ``solver/engine.py`` and
+outputs and scratch with ``torch.empty`` unless the caller passes them
+(``out=``), raises when the launch fails, and counts its launches in
+``launches`` (and per entry point in ``entry_launches``). K1-K3 take an
+optional ``live`` flag (a 1-element int32 CUDA tensor): when it holds 0
+the kernel returns at once. The plain torch versions live in
+``solver/propagate.py``, ``solver/engine.py`` and
 ``solver/eps_table.py``; nothing here falls back to them.
 """
 from __future__ import annotations
@@ -131,6 +140,27 @@ class KernelPlan:
             dp.device).shared_memory_per_block_optin
 
 
+class StepView(ctypes.Structure):
+    """Mirror of ``struct StepView`` in csrc/step.cuh: the search state,
+    K1-K3's outputs and the step scratch, as pointers (built by
+    ``solver/step_cuda.py``)."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "D", "V", "n_active", "MAXD", "obj", "is_opt", "enumerate_all",
+        "use_table", "R", "n_pad")]
+        + [(n, ctypes.c_void_p) for n in (
+            "lb", "ub", "root_lb", "root_ub", "best_lb", "best_ub",
+            "best_bound", "has_best", "dec_var", "dec_l0", "dec_u0",
+            "dec_l1", "dec_u1", "dec_rope1", "dec_cur", "depth", "phase",
+            "remaining", "subp", "strat", "snap_strat", "next_sub",
+            "nonexh", "nodes", "fails", "sols", "fpit", "deds", "dmax",
+            "solved_sub", "skipped_sub", "kpow", "sub_limit", "pscale",
+            "eps_strat", "ext_bound", "tab_lb", "tab_ub", "tab_strat",
+            "tab_path", "lb0", "ub0", "sol_ring", "sol_w", "iters",
+            "unconv", "bot", "ent", "found", "var", "nstrat", "c0l", "c0u",
+            "c1l", "c1u", "strat0", "want", "impr", "dleaf", "nxt",
+            "newidx", "havework", "ridx", "steps")])
+
+
 def _check(t, name, shape, dtype=I32):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -144,13 +174,19 @@ def _check(t, name, shape, dtype=I32):
 
 
 class _Kernel:
-    """A launch wrapper: ``launches`` counts the launches it made."""
+    """A launch wrapper: ``launches`` counts the launches it made, and
+    ``entry_launches`` those of each entry point in ``ENTRIES``."""
     name = source = replaces = ""
+    ENTRIES = ()
 
     def __init__(self):
-        self.launches = 0
+        self.reset()
 
-    def _launch(self, fn, *args):
+    def reset(self):
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.ENTRIES, 0)
+
+    def _launch(self, fn, *args, entry=None):
         lib = load()
         rc = fn(lib)(*args)
         if rc != 0:
@@ -158,10 +194,23 @@ class _Kernel:
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
                                f"({rc})")
         self.launches += 1
+        if entry is not None:
+            self.entry_launches[entry] += 1
+
+
+def _live_ptr(live):
+    if live is None:
+        return None
+    _check(live, "live", (1,))
+    return live.data_ptr()
+
+
+def _stream_of(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _stream_of(t.device)
 
 
 class _Fixpoint(_Kernel):
@@ -169,29 +218,46 @@ class _Fixpoint(_Kernel):
     source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:912"
 
-    def __call__(self, kp, lb, ub, cap: int, smem: bool = True):
+    def __call__(self, kp, lb, ub, cap: int, smem: bool = True, live=None,
+                 out=None):
         """(lb, ub, iters (D,) int32, unconv (D,) bool) after AC-1 sweeps
         to the fixpoint or ``cap``; see csrc/fixpoint.cu. The store sits
         in shared memory when it fits; ``smem=False`` forces the
-        global-memory path that larger stores take."""
+        global-memory path that larger stores take. ``out`` = (lb_out,
+        ub_out, iters, unconv, cand scratch (D, 2, n_cand)); lb_out and
+        ub_out may be lb and ub (in place)."""
         dp = kp.dp
         D = lb.shape[0]
         _check(lb, "lb", (D, dp.V))
         _check(ub, "ub", (D, dp.V))
+        if out is None:
+            out = (torch.empty_like(lb), torch.empty_like(ub),
+                   torch.empty(D, dtype=I32, device=lb.device),
+                   torch.empty(D, dtype=torch.bool, device=lb.device),
+                   torch.empty((D, 2, dp.n_cand), dtype=I32,
+                               device=lb.device))
+        lb_out, ub_out, iters, unconv, cand = out
         if dp.P == 0:
-            z = torch.zeros(D, dtype=I32, device=lb.device)
-            return lb.clone(), ub.clone(), z, z != 0
-        lb_out = torch.empty_like(lb)
-        ub_out = torch.empty_like(ub)
-        iters = torch.empty(D, dtype=I32, device=lb.device)
-        unconv = torch.empty(D, dtype=torch.bool, device=lb.device)
-        cand = torch.empty((D, 2, dp.n_cand), dtype=I32, device=lb.device)
+            if lb_out is not lb:
+                lb_out.copy_(lb)
+                ub_out.copy_(ub)
+            iters.zero_()
+            unconv.zero_()
+            return lb_out, ub_out, iters, unconv
+        for n, t, shape, dt in (
+                ("lb_out", lb_out, (D, dp.V), I32),
+                ("ub_out", ub_out, (D, dp.V), I32),
+                ("iters", iters, (D,), I32), ("unconv", unconv, (D,),
+                                              torch.bool),
+                ("cand", cand, (D, 2, dp.n_cand), I32)):
+            _check(t, n, shape, dt)
         with torch.cuda.device(lb.device):
             self._launch(lambda lib: lib.tt_fixpoint, ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
                          ub_out.data_ptr(), iters.data_ptr(),
                          unconv.data_ptr(), cand.data_ptr(), D, int(cap),
-                         kp.smem_limit if smem else 0, _stream(lb))
+                         kp.smem_limit if smem else 0, _live_ptr(live),
+                         _stream(lb))
         return lb_out, ub_out, iters, unconv
 
 
@@ -200,17 +266,22 @@ class _Classify(_Kernel):
     source = "turbo_tpu_torch/kernels/csrc/classify.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:983"
 
-    def __call__(self, kp, lb, ub):
-        """(bot, ent) as (D,) bool; see csrc/classify.cu."""
+    def __call__(self, kp, lb, ub, live=None, out=None):
+        """(bot, ent) as (D,) bool; see csrc/classify.cu. ``out``: the
+        two output tensors."""
         D = lb.shape[0]
         _check(lb, "lb", (D, kp.dp.V))
         _check(ub, "ub", (D, kp.dp.V))
-        bot = torch.empty(D, dtype=torch.bool, device=lb.device)
-        ent = torch.empty(D, dtype=torch.bool, device=lb.device)
+        if out is None:
+            out = tuple(torch.empty(D, dtype=torch.bool, device=lb.device)
+                        for _ in range(2))
+        bot, ent = out
+        _check(bot, "bot", (D,), torch.bool)
+        _check(ent, "ent", (D,), torch.bool)
         with torch.cuda.device(lb.device):
             self._launch(lambda lib: lib.tt_classify, ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), bot.data_ptr(),
-                         ent.data_ptr(), D, _stream(lb))
+                         ent.data_ptr(), D, _live_ptr(live), _stream(lb))
         return bot, ent
 
 
@@ -219,20 +290,26 @@ class _Select(_Kernel):
     source = "turbo_tpu_torch/kernels/csrc/select.cu"
     replaces = "turbo_tpu/solver/engine.py:550"
 
-    def __call__(self, kp, lb, ub, strat):
+    def __call__(self, kp, lb, ub, strat, live=None, out=None):
         """(found, var, chosen, valo, c0l, c0u, c1l, c1u), each (D,);
-        see csrc/select.cu."""
+        see csrc/select.cu. ``out``: the eight output tensors."""
         D = lb.shape[0]
         _check(lb, "lb", (D, kp.dp.V))
         _check(ub, "ub", (D, kp.dp.V))
         _check(strat, "strat", (D,))
-        found = torch.empty(D, dtype=torch.bool, device=lb.device)
-        outs = [torch.empty(D, dtype=I32, device=lb.device) for _ in range(7)]
+        if out is None:
+            out = (torch.empty(D, dtype=torch.bool, device=lb.device),
+                   *(torch.empty(D, dtype=I32, device=lb.device)
+                     for _ in range(7)))
+        found, *outs = out
+        _check(found, "found", (D,), torch.bool)
+        for i, o in enumerate(outs):
+            _check(o, f"out[{i + 1}]", (D,))
         with torch.cuda.device(lb.device):
             self._launch(lambda lib: lib.tt_select, ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), strat.data_ptr(),
                          found.data_ptr(), *(o.data_ptr() for o in outs), D,
-                         _stream(lb))
+                         _live_ptr(live), _stream(lb))
         return (found, *outs)
 
 
@@ -241,10 +318,6 @@ class _Embed(_Kernel):
     source = "turbo_tpu_torch/kernels/csrc/embed.cu"
     replaces = "turbo_tpu/solver/eps_table.py:109"
     ENTRIES = ("embed", "table_refill")
-
-    def __init__(self):
-        super().__init__()
-        self.entry_launches = dict.fromkeys(self.ENTRIES, 0)
 
     def __call__(self, lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l,
                  c1u, pidx, pbit):
@@ -265,8 +338,7 @@ class _Embed(_Kernel):
                          ub_par.data_ptr(),
                          *(t.data_ptr() for t in vecs.values()),
                          lbp.data_ptr(), ubp.data_ptr(), stp.data_ptr(), W,
-                         V, _stream(lb_par))
-        self.entry_launches["embed"] += 1
+                         V, _stream(lb_par), entry="embed")
         return lbp, ubp, stp
 
     def refill(self, tab_lb, tab_ub, idx, refill, lb, ub, root_lb, root_ub):
@@ -286,8 +358,7 @@ class _Embed(_Kernel):
                          tab_ub.data_ptr(), idx.data_ptr(),
                          refill.data_ptr(), lb.data_ptr(), ub.data_ptr(),
                          root_lb.data_ptr(), root_ub.data_ptr(), D, n_pad, V,
-                         _stream(lb))
-        self.entry_launches["table_refill"] += 1
+                         _stream(lb), entry="table_refill")
 
 
 class _OpenCount(_Kernel):
@@ -310,15 +381,93 @@ class _OpenCount(_Kernel):
         return out
 
 
+class _Step(_Kernel):
+    name = "step"
+    source = "turbo_tpu_torch/kernels/csrc/step.cu"
+    replaces = "turbo_tpu/solver/engine.py:801"
+    ENTRIES = ("pre", "post")
+
+    def pre(self, view, live, device):
+        """Promote, strat0 and the objective tighten of every lane, in
+        place; see csrc/step.cu. ``view``: a StepView of the state."""
+        with torch.cuda.device(device):
+            self._launch(lambda lib: lib.tt_step_pre, ctypes.byref(view),
+                         _live_ptr(live), _stream_of(device), entry="pre")
+
+    def post(self, view, live, device, smem_limit):
+        """The per-lane rest of the step after K1-K3, in place; see
+        csrc/step.cu."""
+        with torch.cuda.device(device):
+            self._launch(lambda lib: lib.tt_step_post, ctypes.byref(view),
+                         _live_ptr(live), int(smem_limit), _stream_of(device),
+                         entry="post")
+
+
+class _StepTail(_Kernel):
+    name = "step_tail"
+    source = "turbo_tpu_torch/kernels/csrc/step_tail.cu"
+    replaces = "turbo_tpu/solver/engine.py:1059"
+    ENTRIES = ("scan", "copy", "live")
+
+    def scan(self, view, live, live_next, device):
+        """The step's cross-lane counts, next_sub, the ring slots and the
+        next step's live flag; see csrc/step_tail.cu."""
+        with torch.cuda.device(device):
+            self._launch(lambda lib: lib.tt_step_scan, ctypes.byref(view),
+                         _live_ptr(live), _live_ptr(live_next),
+                         _stream_of(device), entry="scan")
+
+    def copy(self, view, live, device):
+        """Refill rows and ring rows, in place; see csrc/step_tail.cu."""
+        with torch.cuda.device(device):
+            self._launch(lambda lib: lib.tt_step_copy, ctypes.byref(view),
+                         _live_ptr(live), _stream_of(device), entry="copy")
+
+    def live(self, phase, live, steps):
+        """live[0] = some lane of ``phase`` is not IDLE; steps[0] = 0."""
+        D = phase.shape[0]
+        _check(phase, "phase", (D,))
+        _check(steps, "steps", (1,))
+        with torch.cuda.device(phase.device):
+            self._launch(lambda lib: lib.tt_step_live, phase.data_ptr(), D,
+                         _live_ptr(live), steps.data_ptr(), _stream(phase),
+                         entry="live")
+
+
 fixpoint = _Fixpoint()
 classify = _Classify()
 select = _Select()
 embed = _Embed()
 open_count = _OpenCount()
-KERNELS = (fixpoint, classify, select, embed, open_count)
+step = _Step()
+step_tail = _StepTail()
+KERNELS = (fixpoint, classify, select, embed, open_count, step, step_tail)
 
 
 def reset_launches():
     for k in KERNELS:
-        k.launches = 0
-    embed.entry_launches = dict.fromkeys(embed.ENTRIES, 0)
+        k.reset()
+
+
+def launch_counts(since=None) -> dict:
+    """Launches by kernel name and by ``name.entry``; ``since``: a
+    previous result to subtract."""
+    counts = {k.name: k.launches for k in KERNELS}
+    for k in KERNELS:
+        counts.update({f"{k.name}.{e}": c
+                       for e, c in k.entry_launches.items()})
+    if since is not None:
+        counts = {key: c - since[key] for key, c in counts.items()}
+    return counts
+
+
+def add_launches(counts: dict):
+    """Add launches made outside the wrappers: a CUDA graph replay of
+    kernels the wrappers put into the graph (``launch_counts`` keys)."""
+    by_name = {k.name: k for k in KERNELS}
+    for key, c in counts.items():
+        name, _, entry = key.partition(".")
+        if entry:
+            by_name[name].entry_launches[entry] += c
+        else:
+            by_name[name].launches += c

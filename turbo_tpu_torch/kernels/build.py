@@ -19,9 +19,11 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "embed.cu",
-           "open_count.cu")
+           "open_count.cu", "step.cu", "step_tail.cu")
+# No FMA contraction: K6's float32 deds must round the multiply and the
+# add separately, as the plain torch version does.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""
@@ -49,14 +51,21 @@ def _digest() -> str:
 def _bind(lib):
     P = ctypes.c_void_p
     I = ctypes.c_int
-    lib.tt_fixpoint.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
-    lib.tt_classify.argtypes = [P, P, P, P, P, I, P]
-    lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P]
+    lib.tt_fixpoint.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, P]
+    lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
+    lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
     lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
     lib.tt_table_refill.argtypes = [P] * 8 + [I, I, I, P]
     lib.tt_open_count.argtypes = [P, P, P, P, I, I, P]
+    lib.tt_step_pre.argtypes = [P, P, P]
+    lib.tt_step_post.argtypes = [P, P, I, P]
+    lib.tt_step_scan.argtypes = [P, P, P, P]
+    lib.tt_step_copy.argtypes = [P, P, P]
+    lib.tt_step_live.argtypes = [P, I, P, P, P]
     for fn in (lib.tt_fixpoint, lib.tt_classify, lib.tt_select,
-               lib.tt_embed, lib.tt_table_refill, lib.tt_open_count):
+               lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
+               lib.tt_step_pre, lib.tt_step_post, lib.tt_step_scan,
+               lib.tt_step_copy, lib.tt_step_live):
         fn.restype = I
     lib.tt_error_string.argtypes = [I]
     lib.tt_error_string.restype = ctypes.c_char_p

@@ -22,7 +22,8 @@
 __global__ void __launch_bounds__(TT_THREADS)
 classify_kernel(PlanView p, const int* __restrict__ lb_all,
                 const int* __restrict__ ub_all, unsigned char* bot_out,
-                unsigned char* ent_out) {
+                unsigned char* ent_out, const int* live) {
+  if (live != nullptr && *live == 0) return;  // every lane IDLE
   const long long d = blockIdx.x;
   const int* lb = lb_all + d * p.V;
   const int* ub = ub_all + d * p.V;
@@ -51,8 +52,8 @@ classify_kernel(PlanView p, const int* __restrict__ lb_all,
 
 extern "C" int tt_classify(const PlanView* p, const int* lb, const int* ub,
                            unsigned char* bot, unsigned char* ent, int D,
-                           void* stream) {
+                           const int* live, void* stream) {
   classify_kernel<<<D, TT_THREADS, 0, (cudaStream_t)stream>>>(*p, lb, ub,
-                                                                bot, ent);
+                                                                bot, ent, live);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,11 @@
 // bounds. A dive stops at its own convergence; the JAX loop sweeps on
 // until the last lane converges, which is idempotent on converged lanes
 // (bot lanes may differ: the engine discards their store).
+//
+// In the search step (solver/step_cuda.py) the kernel runs in place
+// (lb_in == lb_out: each block reads its own rows before it writes
+// them) and returns at once when *live is 0 (every lane was IDLE when the
+// step began); the EPS table build passes no live flag.
 #include "common.cuh"
 
 __device__ __forceinline__ void phase_a(const PlanView& p, const int* lb,
@@ -128,10 +133,10 @@ __device__ __forceinline__ void phase_a(const PlanView& p, const int* lb,
 }
 
 __global__ void __launch_bounds__(TT_THREADS)
-fixpoint_kernel(PlanView p, const int* __restrict__ lb_in,
-                const int* __restrict__ ub_in, int* lb_out, int* ub_out,
-                int* iters_out, unsigned char* unconv_out, int* cand,
-                int cap, int use_smem) {
+fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
+                int* ub_out, int* iters_out, unsigned char* unconv_out,
+                int* cand, int cap, int use_smem, const int* live) {
+  if (live != nullptr && *live == 0) return;
   extern __shared__ int smem[];
   const int V = p.V;
   const long long d = blockIdx.x;
@@ -139,9 +144,11 @@ fixpoint_kernel(PlanView p, const int* __restrict__ lb_in,
   int* ub = use_smem ? smem + V : ub_out + d * V;
   int* cl = cand + d * 2LL * p.n_cand;
   int* cu = cl + p.n_cand;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) {
-    lb[v] = lb_in[d * V + v];
-    ub[v] = ub_in[d * V + v];
+  if (use_smem || lb != lb_in + d * V) {
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      lb[v] = lb_in[d * V + v];
+      ub[v] = ub_in[d * V + v];
+    }
   }
   __syncthreads();
   int iters = 0;
@@ -197,16 +204,22 @@ fixpoint_kernel(PlanView p, const int* __restrict__ lb_in,
 extern "C" int tt_fixpoint(const PlanView* p, const int* lb_in,
                            const int* ub_in, int* lb_out, int* ub_out,
                            int* iters, unsigned char* unconv, int* cand,
-                           int D, int cap, int smem_limit, void* stream) {
+                           int D, int cap, int smem_limit, const int* live,
+                           void* stream) {
+  static int attr_set = -1;
   size_t smem = 2 * sizeof(int) * (size_t)p->V;
   int use_smem = smem <= (size_t)smem_limit;
   if (!use_smem) smem = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if ((int)smem > attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = (int)smem;
+  }
   fixpoint_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
-      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, cap, use_smem);
+      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, cap, use_smem,
+      live);
   return (int)cudaGetLastError();
 }
 

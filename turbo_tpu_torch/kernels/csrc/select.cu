@@ -69,7 +69,8 @@ select_kernel(PlanView p, const int* __restrict__ lb_all,
               const int* __restrict__ ub_all, const int* __restrict__ strat,
               unsigned char* found_out, int* var_out, int* chosen_out,
               int* valo_out, int* c0l_out, int* c0u_out, int* c1l_out,
-              int* c1u_out) {
+              int* c1u_out, const int* live) {
+  if (live != nullptr && *live == 0) return;  // every lane IDLE
   const long long d = blockIdx.x;
   const int* lb = lb_all + d * p.V;
   const int* ub = ub_all + d * p.V;
@@ -106,8 +107,9 @@ select_kernel(PlanView p, const int* __restrict__ lb_all,
 extern "C" int tt_select(const PlanView* p, const int* lb, const int* ub,
                          const int* strat, unsigned char* found, int* var,
                          int* chosen, int* valo, int* c0l, int* c0u,
-                         int* c1l, int* c1u, int D, void* stream) {
+                         int* c1l, int* c1u, int D, const int* live,
+                         void* stream) {
   select_kernel<<<D, TT_THREADS, 0, (cudaStream_t)stream>>>(
-      *p, lb, ub, strat, found, var, chosen, valo, c0l, c0u, c1l, c1u);
+      *p, lb, ub, strat, found, var, chosen, valo, c0l, c0u, c1l, c1u, live);
   return (int)cudaGetLastError();
 }

@@ -28,9 +28,16 @@ class EngineConfig:
     eps_var_order: str = "default"
     eps_value_order: str = "default"
     seed: int = 1
-    enumerate_all: bool = False  # all-solutions mode: not ported
+    # All-solutions mode (-a / -n>1 on satisfaction problems): count
+    # only all-singleton stores, splitting entailed boxes further.
+    enumerate_all: bool = False
     disable_simplify: bool = False
     shave: bool = False
+    # Solution ring size R (0 = off): device buffer for per-solution
+    # streaming (-a / -i). The host drains new rows each chunk; in
+    # enumerate mode the chunk is capped at R // num_dives steps so the
+    # ring cannot overflow between drains.
+    sol_ring_size: int = 0
     # Live fixpoint-cap calibration when solve() gets no fp_cap.
     fp_cap_auto: bool = True
     # EPS subproblem-root table (solver/eps_table.py): refills enter

@@ -2,24 +2,34 @@
 
 Port of ``turbo_tpu/solver/engine.py`` for ``fp_mode="fixpoint"``: D
 dives advance in lockstep, one search node per ``step``, on (D, ·)
-tensors on one device. Per step the kernels run the heavy part: the
-propagation fixpoint and the bot/entailment classification
-(``PropagatorKernels``), branch selection (``_select``) and, in table
-mode, the table-row refill (``table_refill``); the rest of the step is
-plain batched torch ops.
+tensors on one device.
+
+On a CUDA state a step is seven kernel launches and no host read:
+K6 ``step_pre`` (promote, objective tighten) -> K1 fixpoint -> K2
+classify -> K3 select -> K6 ``step_post`` (the per-lane rest of the
+step) -> K7 ``scan`` (the cross-lane prefix counts of the refill and the
+solution ring) -> K7 ``copy`` (refill rows, ring rows), all updating the
+state in place. ``run_steps`` enqueues a whole chunk of steps: each
+kernel returns at once when the device flag ``live`` says every lane
+was IDLE, as the JAX ``while_loop`` stops, and a device counter counts
+the steps that ran. On a CPU state ``step_plain`` runs the same step as
+plain torch ops; it is the specification the kernels are held to.
 
 With ``use_table`` (the default) the EPS subproblem roots come from a
 table built once on the device (``solver/eps_table.py``) and refills
 enter SOLVE phase directly; otherwise lanes re-dive their bit-path from
-the root. ``solve`` calibrates the fixpoint cap live
+the root. ``enumerate_all`` counts every all-singleton store, and with
+``sol_ring_size`` > 0 each accepted solution is appended to an
+on-device ring that ``solve`` drains through ``on_solution`` once per
+chunk. ``solve`` calibrates the fixpoint cap live
 (``AutoCapCalibrator``) and, once the subproblem range is drained,
 steals open branches for idle lanes or resplits the stragglers. The
 fixpoint cap is a host integer that ``solve`` owns and passes to
 ``step``.
 
 ``step`` consumes its input state: the decision stacks (D, MAXD) are
-updated in place (the JAX step donates its input the same way); every
-other field of the returned state is a new tensor.
+updated in place (the JAX step donates its input the same way); on the
+CPU every other field of the returned state is a new tensor.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ from ..host.solver.plan import build_plan
 from .config import (EngineConfig, apply_strategy_config, auto_max_depth,
                      choose_subproblems_power)
 from .convert import DevicePlan, search_state_from_numpy, search_state_to_numpy
+from ..device import pick_device
 from .propagate import PropagatorKernels
 
 I32 = torch.int32
@@ -90,6 +101,10 @@ class SearchState:
     tab_ub: torch.Tensor
     tab_strat: torch.Tensor   # (n_pad,) int32 post-dive strategy cursor
     tab_path: torch.Tensor    # (n_pad,) int32 subproblem bit-path
+    # Solution ring (R, V), R = max(1, sol_ring_size), and its write
+    # counter (D,), replicated: accepted solution stores in device order.
+    sol_ring: torch.Tensor
+    sol_w: torch.Tensor
 
 
 def table_refill_plain(tab_lb, tab_ub, idx, refill, lb, ub, root_lb,
@@ -229,14 +244,12 @@ class _TorchXP:
 
 class BatchedSolver:
     def __init__(self, tnf, config: EngineConfig = EngineConfig(),
-                 device="cpu"):
-        if config.enumerate_all:
-            raise NotImplementedError(
-                "enumerate_all needs the on-device solution ring, which is "
-                "not ported (see ROADMAP.md)")
+                 device=None):
+        """``device`` None: the card (``pick_device``; raises without
+        CUDA). The CPU runs the plain versions only when asked."""
         self.tnf = tnf
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = pick_device() if device is None else torch.device(device)
         self.plan = build_plan(tnf, disable_simplify=config.disable_simplify,
                                shave=config.shave)
         self.has_eps = apply_strategy_config(self.plan, config)
@@ -249,8 +262,8 @@ class BatchedSolver:
         self.dp = DevicePlan.from_plan(self.plan, self.device)
         self.kernels = PropagatorKernels(self.dp)
         # EPS subproblem-root table gate (the JAX gate, engine.py:497-506;
-        # this engine runs fp_mode "fixpoint" and refuses enumerate_all).
-        self.use_table = config.use_table
+        # this engine runs fp_mode "fixpoint").
+        self.use_table = config.use_table and not config.enumerate_all
         if self.use_table:
             from .eps_table import table_n_pad
             budget = int(os.environ.get("TURBO_TPU_TABLE_BUDGET",
@@ -262,6 +275,7 @@ class BatchedSolver:
         self._table_aborted_s = 0.0  # wall time of an abandoned build
         self.last_auto_cap = None
         self.build_time = 0.0
+        self._ws = None  # kernel-route scratch (solver/step_cuda.py)
         if self.device.type == "cuda":
             from .. import kernels
             t0 = time.monotonic()
@@ -407,6 +421,13 @@ class BatchedSolver:
             tab_lb, tab_ub = dp.lb0[None, :].clone(), dp.ub0[None, :].clone()
             tab_strat = torch.zeros(1, dtype=I32, device=dev)
             tab_path = torch.zeros(1, dtype=I32, device=dev)
+        R = max(1, self.cfg.sol_ring_size)
+        sol_ring = torch.zeros((R, dp.V), dtype=I32, device=dev)
+        sol_w = full(0)
+        if tb is not None and self.cfg.sol_ring_size > 0 and tb.has_cand:
+            # A solution found during the table build streams too.
+            sol_ring[0] = torch.from_numpy(tb.cand_lb).to(dev)
+            sol_w = full(1)
         return SearchState(
             lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
             best_lb=best_lb, best_ub=best_ub,
@@ -421,54 +442,110 @@ class BatchedSolver:
             eps_strat=full(int(self.has_eps)),
             ext_bound=full(INF),
             tab_lb=tab_lb, tab_ub=tab_ub, tab_strat=tab_strat,
-            tab_path=tab_path)
+            tab_path=tab_path, sol_ring=sol_ring, sol_w=sol_w)
 
     # -- the step -------------------------------------------------------
 
     def step(self, st: SearchState, cap: int = 0) -> SearchState:
         """One search node per lane; ``cap`` (0: ``fp_max_iters``) bounds
-        the fixpoint sweeps, and lanes still changing at it are held."""
-        D = self.cfg.num_dives
-        MAXD = self.cfg.max_depth
-        dp = self.dp
-        obj = dp.obj
-        dev = self.device
-        where = torch.where
+        the fixpoint sweeps, and lanes still changing at it are held. A
+        CUDA state runs the kernels in place; a CPU state the plain step.
+        """
+        if st.lb.is_cuda:
+            from . import step_cuda
+            step_cuda.run(self, st, 1, cap)
+            return st
+        if st.lb.device.type != "cpu":
+            raise RuntimeError(f"no step for device {st.lb.device}")
+        return self.step_plain(st, cap)[0]
 
+    def run_steps(self, st: SearchState, n: int, cap: int = 0):
+        """n steps at fixpoint cap ``cap`` with no host read (the JAX
+        ``make_step_budget`` loop): once every lane is IDLE the remaining
+        steps change nothing. Returns (state, steps run as a 0-dim int32
+        tensor on the state's device); a CUDA state is updated in place.
+        """
+        if st.lb.is_cuda:
+            from . import step_cuda
+            return st, step_cuda.run(self, st, n, cap)
+        if st.lb.device.type != "cpu":
+            raise RuntimeError(f"no step for device {st.lb.device}")
+        count = torch.zeros((), dtype=I32)
+        for _ in range(n):
+            st, live = self.step_plain(st, cap)
+            count += live.to(I32)
+        return st, count
+
+    def step_plain(self, st: SearchState, cap: int = 0):
+        """The step as plain torch ops (``turbo_tpu/solver/engine.py:
+        801-1117``), on any device and with no host read, in the three
+        parts that K6 and K7 replace around K1-K3. Returns (state, live):
+        ``live`` (0-dim bool) is whether some lane was not IDLE; when
+        none was, the state is returned unchanged."""
+        live = (st.phase != IDLE).any()
+        phase, strat0, ub = self.step_pre_plain(st)
+        lb, ub, iters, unconv = self.kernels.fixpoint(
+            st.lb, ub, cap or self.cfg.fp_max_iters)
+        bot, ent = self.kernels.classify(lb, ub)
+        sel = self._select(lb, ub, strat0)
+        new, flags = self.step_post_plain(st, phase, strat0, lb, ub, iters,
+                                          unconv, bot, ent, sel)
+        new = self.step_tail_plain(st, new, *flags)
+        # With every lane IDLE nothing may change (the JAX loop stops);
+        # the stacks were rewritten with their own values then.
+        new = {k: torch.where(live, v, getattr(st, k))
+               for k, v in new.items()}
+        return dataclasses.replace(st, **new), live
+
+    def step_pre_plain(self, st: SearchState):
+        """K6 ``step.pre``: promote finished dives, the strategy cursor,
+        and (I) the objective tighten from the incumbent (one device:
+        the batch min replaces the mesh pmin). Returns (phase, strat0,
+        ub)."""
+        dp, where = self.dp, torch.where
         promote = (st.phase == DIVE) & (st.remaining == 0)
         phase = where(promote, SOLVE, st.phase)
         # After the dive, skip the EPS strategy if one is configured.
         strat0 = where(promote, torch.maximum(st.strat, st.eps_strat),
                        st.strat)
+        ub = st.ub
+        if dp.is_opt:
+            ub = ub.clone()
+            g = torch.minimum(st.best_bound.min(), st.ext_bound[0])
+            lim = torch.minimum(g, st.best_bound) - 1
+            ub[:, dp.obj] = where(phase == SOLVE,
+                                  torch.minimum(ub[:, dp.obj], lim),
+                                  ub[:, dp.obj])
+        return phase, strat0, ub
+
+    def step_post_plain(self, st, phase, strat0, lb, ub, iters, unconv, bot,
+                        ent, sel):
+        """K6 ``step.post``: everything after K1-K3 that reads or writes
+        one lane. The stacks are updated in place. Returns (fields, (want,
+        impr, dleaf, nxt)): the new per-lane fields and K7's inputs."""
+        MAXD = self.cfg.max_depth
+        dp = self.dp
+        obj = dp.obj
+        where = torch.where
+        enum = self.cfg.enumerate_all
         act = phase != IDLE
         in_dive = phase == DIVE
         in_solve = phase == SOLVE
-        lb, ub = st.lb, st.ub
-        best_bound = st.best_bound
-
-        # I. Tighten the objective from the incumbent (one device: the
-        # batch min replaces the mesh pmin).
-        if dp.is_opt:
-            g = torch.minimum(best_bound.min(), st.ext_bound[0])
-            lim = torch.minimum(g, best_bound) - 1
-        else:
-            lim = torch.full_like(best_bound, INF)
-        ub = ub.clone()
-        ub[:, obj] = where(in_solve, torch.minimum(ub[:, obj], lim),
-                           ub[:, obj])
-
-        # II. Propagate to the fixpoint (capped), classify, hold.
-        lb, ub, iters, unconv = self.kernels.fixpoint(
-            lb, ub, cap or self.cfg.fp_max_iters)
-        bot, ent = self.kernels.classify(lb, ub)
         ent = ent & ~bot
         held = unconv & ~bot & ~ent
-
-        # IV(a). Branch selection and the children of the chosen var.
-        found, var, nstrat, valo, c0l, c0u, c1l, c1u = self._select(
-            lb, ub, strat0)
-        sol = ent
-        leaf = bot | sol
+        found, var, nstrat, valo, c0l, c0u, c1l, c1u = sel
+        one = torch.ones_like(st.remaining)
+        if enum:
+            # All solutions: a solution is an all-singleton store; an
+            # entailed box with a splittable var keeps splitting. A
+            # singleton reached mid-dive is shared by every subproblem of
+            # its prefix: count it in the leftmost one only.
+            leftmost = (st.subp & ((one << st.remaining) - 1)) == 0
+            sol = ent & ~found & where(in_dive, leftmost, True)
+            leaf = bot | (ent & ~found)
+        else:
+            sol = ent
+            leaf = bot | sol
 
         nodes = st.nodes + (act & ~held).to(I32)
         fails = st.fails + (act & bot).to(I32)
@@ -479,13 +556,15 @@ class BatchedSolver:
 
         # III. Solutions (all propagators entailed; objective read at lb).
         if dp.is_opt:
-            better = lb[:, obj] < torch.minimum(best_bound, st.ext_bound[0])
+            better = lb[:, obj] < torch.minimum(st.best_bound,
+                                                st.ext_bound[0])
         else:
-            better = ~st.has_best
+            better = torch.ones_like(act) if enum else ~st.has_best
         impr = act & sol & better
         best_lb = where(impr[:, None], lb, st.best_lb)
         best_ub = where(impr[:, None], ub, st.best_ub)
-        best_bound = where(impr, lb[:, obj] if dp.is_opt else 0, best_bound)
+        best_bound = where(impr, lb[:, obj] if dp.is_opt else 0,
+                           st.best_bound)
         has_best = st.has_best | impr
         sols = st.sols + impr.to(I32)
         no_split = act & ~leaf & ~found & ~held
@@ -523,15 +602,12 @@ class BatchedSolver:
         def push(dst, vals):  # in place
             upd = where(solve_br, vals, dst.gather(1, dd)[:, 0])
             dst.scatter_(1, dd, upd[:, None])
-            return dst
 
-        dec_var = push(st.dec_var, var)
-        dec_l0 = push(st.dec_l0, c0l)
-        dec_u0 = push(st.dec_u0, c0u)
-        dec_l1 = push(st.dec_l1, c1l)
-        dec_u1 = push(st.dec_u1, c1u)
-        dec_rope1 = push(st.dec_rope1, rope1.to(I32))
-        dec_cur = push(st.dec_cur, torch.zeros_like(var))
+        for dst, vals in ((st.dec_var, var), (st.dec_l0, c0l),
+                          (st.dec_u0, c0u), (st.dec_l1, c1l),
+                          (st.dec_u1, c1u), (st.dec_rope1, rope1.to(I32)),
+                          (st.dec_cur, torch.zeros_like(var))):
+            push(dst, vals)
         depth = where(solve_br, st.depth + 1, st.depth)
 
         # Apply the chosen child bounds (dive: by path bit; solve: left).
@@ -545,10 +621,11 @@ class BatchedSolver:
         ub = ub.scatter(1, evar, torch.minimum(ub.gather(1, evar), eu))
 
         # VII. Backtracking by ropes.
+        dec_cur = st.dec_cur
         bt = act & leaf & in_solve
         lastd = (depth - 1).clamp(0, MAXD - 1).long()[:, None]
         last_cur = dec_cur.gather(1, lastd)[:, 0]
-        last_rope1 = dec_rope1.gather(1, lastd)[:, 0]
+        last_rope1 = st.dec_rope1.gather(1, lastd)[:, 0]
         t = where(last_cur == 0, depth, last_rope1)
         done_sub = bt & ((depth == 0) | (t == -1))
         restore = bt & (depth > 0) & (t != -1)
@@ -556,84 +633,91 @@ class BatchedSolver:
         dec_cur.scatter_(1, tm1, where(restore, 1, dec_cur.gather(1, tm1)[:, 0])[:, None])
 
         # Rebuild the store: root snapshot meet all decisions < t at
-        # their current child. Only the first max(t) entries can be live.
+        # their current child, over the whole stack width (a narrower
+        # width would need max(t) on the host).
         tr = where(restore, t, 0)
-        w = int(tr.max())
-        if w > 0:
-            live = torch.arange(w, dtype=I32, device=dev)[None, :] < tr[:, None]
-            cur1 = dec_cur[:, :w] == 1
-            cl = where(live, where(cur1, dec_l1[:, :w], dec_l0[:, :w]), NINF)
-            cu = where(live, where(cur1, dec_u1[:, :w], dec_u0[:, :w]), INF)
-            tvar = where(live, dec_var[:, :w], 0).long()
-            reb_lb = root_lb.scatter_reduce(1, tvar, cl, "amax")
-            reb_ub = root_ub.scatter_reduce(1, tvar, cu, "amin")
-            lb = where(restore[:, None], reb_lb, lb)
-            ub = where(restore[:, None], reb_ub, ub)
+        live_d = (torch.arange(MAXD, dtype=I32, device=lb.device)[None, :]
+                  < tr[:, None])
+        cur1 = dec_cur == 1
+        cl = where(live_d, where(cur1, st.dec_l1, st.dec_l0), NINF)
+        cu = where(live_d, where(cur1, st.dec_u1, st.dec_u0), INF)
+        tvar = where(live_d, st.dec_var, 0).long()
+        reb_lb = root_lb.scatter_reduce(1, tvar, cl, "amax")
+        reb_ub = root_ub.scatter_reduce(1, tvar, cu, "amin")
+        lb = where(restore[:, None], reb_lb, lb)
+        ub = where(restore[:, None], reb_ub, ub)
         depth = where(restore, t, depth)
         strat = where(branching, nstrat, strat0)
         strat = where(restore, snap_strat, strat)
 
         # VIII. Dive leaves: skip the unreachable subtree.
         dleaf = act & leaf & in_dive
-        one = torch.ones_like(remaining)
         nxt = ((st.subp >> remaining) + 1) << remaining
         dleaf_left = dleaf & ((st.subp & ((one << remaining) - 1)) == 0)
-        skip_gain = where(dleaf_left, nxt - st.subp - 1, 0)
-        skipped_sub = st.skipped_sub + skip_gain
-        next_sub = torch.maximum(st.next_sub[0], where(dleaf, nxt, 0).max())
-
-        # IX. Refill finished lanes from the subproblem counter.
-        shard_limit = st.sub_limit[0]
+        skipped_sub = st.skipped_sub + where(dleaf_left, nxt - st.subp - 1, 0)
         want = dleaf | done_sub
         solved_sub = st.solved_sub + (done_sub | dleaf_left).to(I32)
+        fields = dict(
+            lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
+            best_lb=best_lb, best_ub=best_ub, best_bound=best_bound,
+            has_best=has_best, depth=depth, phase=phase,
+            remaining=remaining, strat=strat, snap_strat=snap_strat,
+            nonexh=nonexh, nodes=nodes, fails=fails, sols=sols, fpit=fpit,
+            deds=deds, dmax=dmax, solved_sub=solved_sub,
+            skipped_sub=skipped_sub)
+        return fields, (want, impr, dleaf, nxt)
+
+    def step_tail_plain(self, st, f, want, impr, dleaf, nxt):
+        """K7 ``step_tail``: (IX) the refill of finished lanes from the
+        subproblem counter, and the solution-ring append. ``f``: the new
+        fields of ``step_post_plain``, updated and returned with
+        next_sub, subp, sol_ring and sol_w."""
+        D = self.cfg.num_dives
+        where = torch.where
+        next_sub = torch.maximum(st.next_sub[0], where(dleaf, nxt, 0).max())
+        shard_limit = st.sub_limit[0]
         rank = torch.cumsum(want.to(I32), dim=0, dtype=I32) - 1
         newidx = next_sub + where(want, rank, 0)
-        havework = want & (newidx < shard_limit)
+        refill = want & (newidx < shard_limit)
         next_sub = torch.minimum(next_sub + want.sum().to(I32), shard_limit)
-        refill = havework
-        next_sub = next_sub.expand(D).clone()
+        f["next_sub"] = next_sub.expand(D).clone()
         if self.use_table:
             # Table refill: the leaf row, straight into SOLVE phase; subp
             # carries the leaf's real bit-path (the tail resplit reads it).
-            phase = where(want, where(havework, SOLVE, IDLE), phase).to(I32)
-            table_refill(st.tab_lb, st.tab_ub, newidx, refill, lb, ub,
-                         root_lb, root_ub)  # in place: all four are new
+            f["phase"] = where(want, where(refill, SOLVE, IDLE),
+                               f["phase"]).to(I32)
+            table_refill(st.tab_lb, st.tab_ub, newidx, refill, f["lb"],
+                         f["ub"], f["root_lb"], f["root_ub"])  # all new
             idxc = newidx.clamp(0, st.tab_lb.shape[0] - 1).long()
             tstr = st.tab_strat[idxc]
-            depth = where(refill, 0, depth)
-            strat = where(refill, tstr, strat)
-            snap_strat = where(refill, tstr, snap_strat)
-            remaining = where(refill, 0, remaining)
-            subp = where(refill, st.tab_path[idxc], st.subp)
+            f["strat"] = where(refill, tstr, f["strat"])
+            f["snap_strat"] = where(refill, tstr, f["snap_strat"])
+            f["remaining"] = where(refill, 0, f["remaining"])
+            f["subp"] = where(refill, st.tab_path[idxc], st.subp)
         else:
-            phase = where(want, where(havework, DIVE, IDLE), phase).to(I32)
-            lb = where(refill[:, None], dp.lb0[None, :], lb)
-            ub = where(refill[:, None], dp.ub0[None, :], ub)
-            depth = where(refill, 0, depth)
-            strat = where(refill, 0, strat)
-            remaining = where(refill, st.kpow, remaining)
-            subp = where(refill, newidx, st.subp)
-
-        return dataclasses.replace(
-            st, lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
-            best_lb=best_lb, best_ub=best_ub, best_bound=best_bound,
-            has_best=has_best, dec_var=dec_var, dec_l0=dec_l0,
-            dec_u0=dec_u0, dec_l1=dec_l1, dec_u1=dec_u1,
-            dec_rope1=dec_rope1, dec_cur=dec_cur, depth=depth, phase=phase,
-            remaining=remaining, subp=subp, strat=strat,
-            snap_strat=snap_strat, next_sub=next_sub, nonexh=nonexh,
-            nodes=nodes, fails=fails, sols=sols, fpit=fpit, deds=deds,
-            dmax=dmax, solved_sub=solved_sub, skipped_sub=skipped_sub)
-
-    def run_steps(self, st: SearchState, n: int, cap: int = 0):
-        """Up to n steps at fixpoint cap ``cap``, stopping early once
-        every lane is IDLE (the JAX ``make_step_budget`` loop). Returns
-        (state, steps run)."""
-        i = 0
-        while i < n and bool((st.phase != IDLE).any()):
-            st = self.step(st, cap)
-            i += 1
-        return st, i
+            f["phase"] = where(want, where(refill, DIVE, IDLE),
+                               f["phase"]).to(I32)
+            f["lb"] = where(refill[:, None], self.dp.lb0[None, :], f["lb"])
+            f["ub"] = where(refill[:, None], self.dp.ub0[None, :], f["ub"])
+            f["strat"] = where(refill, 0, f["strat"])
+            f["remaining"] = where(refill, st.kpow, f["remaining"])
+            f["subp"] = where(refill, newidx, st.subp)
+        f["depth"] = where(refill, 0, f["depth"])
+        R = self.cfg.sol_ring_size
+        if R > 0:
+            # Append the accepted stores (the incumbent rows just written)
+            # in lane order: slot (w0 + rank) mod R. Of more than R
+            # writers in one step only the last R land, so every slot has
+            # one writer (the last); the others go to a spare row R.
+            cnt = torch.cumsum(impr.to(I32), dim=0, dtype=I32)
+            total = cnt[-1]
+            keep = impr & (total - cnt < R)
+            ridx = torch.remainder(st.sol_w[0] + cnt - 1, R)
+            ring = torch.cat([st.sol_ring, st.sol_ring[:1]])
+            ring.index_copy_(0, where(keep, ridx, R).long(), f["best_lb"])
+            f["sol_ring"] = ring[:R]
+            f["sol_w"] = st.sol_w + total
+        return f
 
     # -- EPS tail: resplit and stack steal (host numpy surgery) ---------
 
@@ -783,18 +867,25 @@ class BatchedSolver:
     def solve(self, timeout_s: float = 1e18, chunk: int = 16,
               stop_after_n_solutions: int = 1, max_steps: int = 1 << 60,
               node_limit: int = 0, verbose: bool = False, on_improve=None,
-              fp_cap: int = 0):
+              on_solution=None, fp_cap: int = 0):
         """Single-device host loop (``turbo_tpu/solver/engine.py:
-        1417-1818`` without checkpoint, solution ring, profiler split,
-        heartbeat and hard wall): chunks of ``step`` until every lane is
-        IDLE, the timeout, ``node_limit``, ``max_steps`` or (on
-        satisfaction problems) ``stop_after_n_solutions``. The table
-        build runs inside the ``-t`` window with a deadline at half of
-        it; ``fp_cap`` > 0 pins the fixpoint cap, else the calibrator
-        sweeps it (``fp_cap_auto``). Once the range is drained, idle
-        lanes steal open branches or the stragglers are resplit.
-        Kernels were built in ``__init__``: the solve clock starts
-        here."""
+        1417-1818`` without checkpoint, profiler split, heartbeat and
+        hard wall): chunks of ``run_steps`` until every lane is IDLE, the
+        timeout, ``node_limit``, ``max_steps`` or (on satisfaction
+        problems) ``stop_after_n_solutions``, with one host read per
+        chunk. The table build runs inside the ``-t`` window with a
+        deadline at half of it; ``fp_cap`` > 0 pins the fixpoint cap,
+        else the calibrator sweeps it (``fp_cap_auto``). Once the range
+        is drained, idle lanes steal open branches or the stragglers are
+        resplit (not under ``enumerate_all``).
+
+        ``on_improve(best_lb_tnf)``: called when the incumbent improves.
+        ``on_solution(lb_tnf)``: with ``sol_ring_size`` > 0, called for
+        every accepted solution in device order, once per chunk; under
+        ``enumerate_all`` the chunk is capped so that the ring cannot
+        overflow between drains. Solutions lost to an overflow are
+        warned about and counted in ``sol_ring_overflow``. Kernels were
+        built in ``__init__``: the solve clock starts here."""
         from ..host.solver.timers import PhaseTimers
         from .result import EngineResult
         t0 = time.monotonic()
@@ -823,6 +914,13 @@ class BatchedSolver:
         resplit_rounds = 0
         resplit_base = None
         steal_rounds = 0
+        ring = self.cfg.sol_ring_size
+        if ring > 0 and self.cfg.enumerate_all:
+            # At most D solutions land per step: cap the chunk so that no
+            # more than `ring` land between two drains.
+            chunk = max(1, min(chunk, ring // max(D, 1)))
+        ring_drained = 0
+        overflow = 0
         cur_chunk = chunk
         steps = 0
         stopped = False
@@ -845,13 +943,34 @@ class BatchedSolver:
             first_call = False
             tg = time.monotonic()
             # One host read per chunk.
-            phase, sols, fpit, bbs, nsub, slim, nodes_v = torch.stack(
+            host = torch.cat([torch.stack(
                 [st.phase, st.sols, st.fpit, st.best_bound, st.next_sub,
-                 st.sub_limit, st.nodes]).cpu().numpy()
+                 st.sub_limit, st.nodes, st.sol_w]).view(-1),
+                ndone.view(1)]).cpu().numpy()
+            ndone = int(host[-1])
+            (phase, sols, fpit, bbs, nsub, slim, nodes_v,
+             sol_w) = host[:-1].reshape(8, D)
             steps += ndone
             timers.transfer_g2c += time.monotonic() - tg
             timers.record_chunk(device_dur, int(fpit.sum()), phase, ndone,
                                 time.monotonic() - t0)
+            if ring > 0 and on_solution is not None:
+                cur = int(sol_w[0])
+                if not self.opt and stop_after_n_solutions > 0:
+                    cur = min(cur, stop_after_n_solutions)
+                if cur - ring_drained > ring:
+                    lost = cur - ring_drained - ring
+                    overflow += lost
+                    print(f"% warning: solution ring overflow; {lost} "
+                          "solutions not streamed", flush=True)
+                    ring_drained = cur - ring
+                if cur > ring_drained:
+                    # Only the new rows cross to the host.
+                    slots = torch.arange(ring_drained, cur) % ring
+                    rows = st.sol_ring[slots.to(st.sol_ring.device)]
+                    for row in rows.cpu().numpy():
+                        on_solution(self.plan.store_to_tnf(row))
+                    ring_drained = cur
             bbm = int(bbs.min())
             if on_improve is not None and bbm < last_best:
                 last_best = bbm
@@ -904,6 +1023,7 @@ class BatchedSolver:
             # the host, worth it only for a large idle pool.
             if (drained and idle_n >= max(1, len(phase) // 8)
                     and not (phase == IDLE).all()
+                    and not self.cfg.enumerate_all
                     and timeout_s - (time.monotonic() - t0) > 2.0
                     and time.monotonic() - last_steal > steal_wait):
                 last_steal = time.monotonic()
@@ -950,13 +1070,13 @@ class BatchedSolver:
                     # Nothing to steal or refine: back off so retries do
                     # not starve the stragglers' chunks.
                     steal_wait = min(steal_wait * 2, 8.0)
-            if node_limit and int(st.nodes.sum()) >= node_limit:
+            if node_limit and int(nodes_v.sum()) >= node_limit:
                 stopped = True
                 break
             if verbose:
                 bb = int(bbs.min())
                 print(f"% t={time.monotonic()-t0:6.1f}s steps={steps} "
-                      f"chunk_s={device_dur:.2f} nodes={int(st.nodes.sum())} "
+                      f"chunk_s={device_dur:.2f} nodes={int(nodes_v.sum())} "
                       f"best={bb if bb < INF else None} "
                       f"dive={(phase == DIVE).sum()} "
                       f"solve={(phase == SOLVE).sum()} "
@@ -975,6 +1095,7 @@ class BatchedSolver:
             res.eps_skipped_subproblems = skipped0
             res.eps_redistributions += resplit_rounds + steal_rounds
         res.best_obj_time = best_obj_time
+        res.sol_ring_overflow = overflow
         timers.fill_result(res, res.solve_time)
         res.dive_time += dive_dur
         res.table_build_time = dive_dur

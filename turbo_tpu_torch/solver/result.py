@@ -49,6 +49,9 @@ class EngineResult:
     # EPS table build wall time (solver/eps_table.py): inside dive_time
     # and the solve window, broken out in the statistics.
     table_build_time: float = 0.0
+    # Solutions the ring overwrote before the host drained them (not
+    # streamed through on_solution; the CLI warns and prints the count).
+    sol_ring_overflow: int = 0
 
     @classmethod
     def unsat(cls, solver):

@@ -1,0 +1,182 @@
+"""The search step on the card: seven kernel launches, no host read.
+
+A step of ``BatchedSolver.step_plain`` on a CUDA state, in place:
+
+    K6 step.pre -> K1 fixpoint -> K2 classify -> K3 select
+    -> K6 step.post -> K7 step_tail.scan -> K7 step_tail.copy
+
+``run`` enqueues a chunk of n steps after one ``step_tail.live`` launch
+that sets the device flag ``live`` (some lane not IDLE) and zeroes the
+device step counter. Each step reads one of two flag words and its scan
+writes the other, so every kernel of a step after the batch went IDLE
+returns at once, as the JAX ``while_loop`` of ``make_step_budget``
+(``turbo_tpu/solver/engine.py:1316-1377``) stops. The host reads
+nothing: ``solve`` reads the counter with the chunk's other scalars.
+
+The scratch of the step (K1-K3's outputs, the flags K6 hands to K7) is
+allocated once per solver (``Workspace``); the state's tensors are
+passed to the kernels as pointers in one ``StepView``.
+
+A chunk whose launches repeat those of the chunk before (the same step
+count, cap and StepView, i.e. the same state tensors) is captured once
+into a CUDA graph and replayed from then on: one launch per chunk in
+place of seven per step. The graph bakes in pointers only, so a replay
+is right whenever the StepView's bytes match. The capture launches
+nothing, so it counts no launch; each replay adds the captured launches
+to the wrappers' counts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+I32 = torch.int32
+F32 = torch.float32
+BOOL = torch.bool
+
+
+class Workspace:
+    """Per-solver scratch of the kernel route, on the solver's card."""
+
+    def __init__(self, solver):
+        D = solver.cfg.num_dives
+        dev = solver.device
+        dp = solver.dp
+
+        def e(dtype, *shape):
+            return torch.empty(shape or (D,), dtype=dtype, device=dev)
+
+        self.iters, self.unconv = e(I32), e(BOOL)
+        self.cand = e(I32, D, 2, dp.n_cand)
+        self.bot, self.ent = e(BOOL), e(BOOL)
+        self.sel = (e(BOOL),) + tuple(e(I32) for _ in range(7))
+        self.strat0, self.nxt, self.newidx, self.ridx = (e(I32) for _ in
+                                                         range(4))
+        self.want, self.impr, self.dleaf, self.havework = (e(BOOL) for _ in
+                                                           range(4))
+        live = torch.zeros(2, dtype=I32, device=dev)
+        self.live = (live[0:1], live[1:2])
+        self.steps = torch.zeros(1, dtype=I32, device=dev)
+        self.graphs = {}     # (n, cap, StepView bytes) -> (graph, counts)
+        self.last_key = None
+        self.capture_stream = None
+
+
+def _fields(solver, st):
+    """(name, tensor, shape, dtype) of every state field the kernels
+    read or write."""
+    D, V = solver.cfg.num_dives, solver.dp.V
+    MAXD = solver.cfg.max_depth
+    n_pad = st.tab_lb.shape[0]
+    R = max(1, solver.cfg.sol_ring_size)
+    shapes = {"lb": (D, V), "ub": (D, V), "root_lb": (D, V),
+              "root_ub": (D, V), "best_lb": (D, V), "best_ub": (D, V),
+              "tab_lb": (n_pad, V), "tab_ub": (n_pad, V),
+              "tab_strat": (n_pad,), "tab_path": (n_pad,),
+              "sol_ring": (R, V)}
+    dtypes = {"has_best": BOOL, "nonexh": BOOL, "deds": F32, "pscale": F32}
+    for f in dataclasses.fields(st):
+        shape = shapes.get(f.name, (D, MAXD) if f.name.startswith("dec_")
+                           else (D,))
+        yield f.name, getattr(st, f.name), shape, dtypes.get(f.name, I32)
+
+
+def view(solver, st, ws):
+    """The StepView of state ``st``, checked field by field."""
+    from ..kernels import StepView, _check
+    cfg, dp = solver.cfg, solver.dp
+    ptr = {}
+    for name, t, shape, dtype in _fields(solver, st):
+        _check(t, name, shape, dtype)
+        ptr[name] = t.data_ptr()
+    found, var, nstrat, _valo, c0l, c0u, c1l, c1u = ws.sel
+    for name, t in (("lb0", dp.lb0), ("ub0", dp.ub0), ("iters", ws.iters),
+                    ("unconv", ws.unconv), ("bot", ws.bot),
+                    ("ent", ws.ent), ("found", found), ("var", var),
+                    ("nstrat", nstrat), ("c0l", c0l), ("c0u", c0u),
+                    ("c1l", c1l), ("c1u", c1u), ("strat0", ws.strat0),
+                    ("want", ws.want), ("impr", ws.impr),
+                    ("dleaf", ws.dleaf), ("nxt", ws.nxt),
+                    ("newidx", ws.newidx), ("havework", ws.havework),
+                    ("ridx", ws.ridx), ("steps", ws.steps)):
+        ptr[name] = t.data_ptr()
+    return StepView(
+        D=cfg.num_dives, V=dp.V, n_active=dp.n_active, MAXD=cfg.max_depth,
+        obj=dp.obj, is_opt=int(dp.is_opt),
+        enumerate_all=int(cfg.enumerate_all),
+        use_table=int(solver.use_table), R=cfg.sol_ring_size,
+        n_pad=st.tab_lb.shape[0], **ptr)
+
+
+MAX_GRAPHS = 8
+
+
+def run(solver, st, n: int, cap: int = 0, graph: bool = True):
+    """n steps of ``st`` in place at fixpoint cap ``cap`` (0:
+    ``fp_max_iters``). Returns the number of steps that ran, as a 0-dim
+    int32 tensor on the card (no host read). ``graph``: capture a chunk
+    that repeats the previous one and replay it."""
+    if solver._ws is None:
+        solver._ws = Workspace(solver)
+    ws = solver._ws
+    sv = view(solver, st, ws)
+    cap = cap or solver.cfg.fp_max_iters
+    key = (n, cap, bytes(sv))
+    g = ws.graphs.get(key) if graph else None
+    if g is None and graph and key == ws.last_key:
+        g = _capture(solver, st, sv, n, cap)
+        if len(ws.graphs) >= MAX_GRAPHS:
+            ws.graphs.pop(next(iter(ws.graphs)))
+        ws.graphs[key] = g
+    ws.last_key = key
+    if g is not None:
+        from .. import kernels
+        g[0].replay()
+        kernels.add_launches(g[1])
+    else:
+        _enqueue(solver, st, sv, n, cap)
+    return ws.steps[0].clone()
+
+
+def _capture(solver, st, sv, n, cap):
+    """(graph, launch counts) of one chunk's launches, captured on a side
+    stream; the capture runs nothing and counts nothing."""
+    from .. import kernels
+    ws = solver._ws
+    dev = st.lb.device
+    if ws.capture_stream is None:
+        ws.capture_stream = torch.cuda.Stream(dev)
+    main = torch.cuda.current_stream(dev)
+    ws.capture_stream.wait_stream(main)
+    g = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts()
+    with torch.cuda.stream(ws.capture_stream):
+        g.capture_begin(capture_error_mode="thread_local")
+        try:
+            _enqueue(solver, st, sv, n, cap)
+        finally:
+            g.capture_end()
+            captured = kernels.launch_counts(since=before)
+            kernels.add_launches({k: -v for k, v in captured.items()})
+    main.wait_stream(ws.capture_stream)
+    return g, captured
+
+
+def _enqueue(solver, st, sv, n, cap):
+    """Launch the live flag and n steps on the current stream."""
+    from .. import kernels
+    ws = solver._ws
+    dev = st.lb.device
+    kp = solver.kernels.kernel_plan
+    kernels.step_tail.live(st.phase, ws.live[0], ws.steps)
+    for i in range(n):
+        cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
+        kernels.step.pre(sv, cur, dev)
+        kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur,
+                         out=(st.lb, st.ub, ws.iters, ws.unconv, ws.cand))
+        kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
+        kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
+        kernels.step.post(sv, cur, dev, kp.smem_limit)
+        kernels.step_tail.scan(sv, cur, nxt, dev)
+        kernels.step_tail.copy(sv, cur, dev)
