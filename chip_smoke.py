@@ -13,22 +13,31 @@ phase 3c). Phases (any failure exits non-zero):
    narrowed stores and stores fixed at a solution, and on golomb(12) at
    D=512; K4 (embed and table refill) and K5 (open-branch count) on
    random stores, table rows, masks and stacks at golomb(12)'s shapes
-   (W=D=512, V=2560, 2048 table rows, MAXD=10000). The golomb(12) times
-   go into the JSON line;
+   (W=D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
+   K8 (WAC1: outer caps 2 and 10000, inner caps 1 and 16; iters, unconv
+   and bot of every lane, the store of every lane that is not bot) and
+   K1's other entries (2 and 5 fixed sweeps; the fixpoint on transposed
+   (V, D) planes at caps 2 and 10000), each on the shared-memory and the
+   global-memory path. The golomb(12) times go into the JSON line;
 3b. K6 and K7 (the step's own kernels) against the plain step on the
    same CUDA state, every SearchState field exactly equal after 1, 7 and
    40 steps, and the kernels' step counter equal to the plain steps
    that found a live lane: golomb(12) at D=512 with the table on, the 6
    random models of phase 4 with the table off, queens(8) with
-   enumerate_all and the solution ring; then, on golomb(12)'s state, the
-   time of each kernel entry inside real steps (CUDA events between the
-   launches) against the plain step's three parts;
+   enumerate_all and the solution ring; the same for the step with K8
+   (``fp_mode="wac1"``), with fixed sweeps and with the transposed entry
+   (``fp_layout="vd"``) on golomb(12) and on random models; then, on
+   each golomb(12) state, the time of each kernel entry inside real
+   steps (CUDA events between the launches) against the plain step's
+   three parts, and the fixpoint iterations per node;
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
    sync inside a chunk fails the phase), launches per step, wall time
    per step, and from ``torch.profiler`` the device kernels and busy
    time per step, for the kernel route and for the plain step; then the
-   same chunk captured once in a CUDA graph and replayed;
+   same chunk captured once in a CUDA graph and replayed; the same loop
+   (without the plain step) under ``wac1``, ``fixed`` and ``vd``, the
+   last against ``dv`` in turns (dv, vd, vd, dv);
 4. the solver API on the card against the port's engine on the CPU with
    the plain versions, on 6 small seeded models, steal and resplit
    stubbed out on both: nodes, failures, solutions and fixpoint
@@ -54,16 +63,34 @@ phase 3c). Phases (any failure exits non-zero):
 10. ``-i -t 30000`` on golomb(9) through the card CLI: every streamed
    block checker-valid, the last one at the final objective (44 when
    the run closes);
-11. the launch counts of each path driven in phases 4c-10, each set to 0
-   just before the path and read just after it: all seven kernels (and
-   every entry point of K4, K6 and K7) on the main path (6) and on the
-   drain case (8), K1-K3, K6 and K7 on the table-off path (7) and on
-   ``-a``, and K4 too on ``-i``.
+10b. ``-fp wac1`` on golomb(12) through the card CLI at full width
+   (``-or 0``, ``-t 30000``): every solution checker-valid, K8 launched
+   once per table level and once per step, K1 never;
+10c. ``fp_mode="fixed"`` and ``fp_layout="vd"`` on golomb(12), D=512,
+   through the solver API for 8 s each, the best solution checked;
+10d. ``-arch hybrid`` on golomb(12) through the card CLI (``-or 0``,
+   ``-t 15000``): solutions checker-valid, one K1 and one K2 launch per
+   round;
+10e. golomb(8) proven optimal at 34 under ``-fp wac1``, ``-arch hybrid``
+   and both together (the hybrid searches with 128 cubes over 2^10
+   subproblems);
+10f. ``-checkpoint``: golomb(9) cut by ``-cutnodes``, resumed from the
+   file and closed at 44, on the batched engine and under
+   ``-arch hybrid``;
+11. the launch counts of each path driven in phases 4c-10f, each set to
+   0 just before the path and read just after it: the seven kernels of
+   the default search (and every entry point of K4, K6 and K7) on the
+   main path (6) and on the drain case (8), K1-K3, K6 and K7 on the
+   table-off path (7) and on ``-a``, K4 too on ``-i``; K8 in place of K1
+   on 10b, K1's fixed-sweeps and transposed entries on 10c, K1 and K2 on
+   the hybrid paths.
 
 It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
-67 T/s, at the timed shapes and this run's data), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+67 T/s, at the timed shapes and this run's data; ``launches`` is the
+count on the main path, or on the kernel's own path (``path``) where the
+default search does not run it), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import io
@@ -79,6 +106,10 @@ ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "chiprun_out" / "chip_smoke"
 # The path whose launch counts the JSON line's ``launches`` reports.
 MAIN = "default CLI, golomb(12)"
+# The paths of K8 and of K1's other entries, read for their ``launches``.
+WAC1 = "-fp wac1, golomb(12)"
+FIXED = "fp_mode fixed, golomb(12)"
+VD = "fp_layout vd, golomb(12)"
 
 
 def fail(msg):
@@ -86,8 +117,17 @@ def fail(msg):
     sys.exit(1)
 
 
+T0 = time.monotonic()
+
+
 def log(msg):
+    """Print, and keep a copy in ``chiprun_out/chip_smoke/log.txt``."""
+    if msg.startswith("["):  # a phase heading: the time since the start
+        msg = f"{msg}  (t+{time.monotonic() - T0:.0f} s)"
     print(msg, flush=True)
+    if WORK.is_dir():
+        with open(WORK / "log.txt", "a") as f:
+            f.write(msg + "\n")
 
 
 def nvidia_smi():
@@ -222,8 +262,8 @@ def phase_kernels(torch, dev):
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
 
-    errs = {k.name: 0 for k in (kernels.fixpoint, kernels.classify,
-                                kernels.select)}
+    errs = dict.fromkeys(("fixpoint", "classify", "select", "wac1",
+                          "fixpoint.fixed_sweeps", "fixpoint.transposed"), 0)
     times = {}
     sweeps = {}
     # Exactness on 4 random models at D=1024; exactness and the reported
@@ -261,9 +301,58 @@ def phase_kernels(torch, dev):
             cases.append(("select",
                           lambda a=st_lb, b=st_ub: kernels.select(kp, a, b, strat),
                           lambda a=st_lb, b=st_ub: s._select_plain(a, b, strat)))
+        # K8 and K1's other entries: caps 2 and 10000, inner caps 1 and
+        # 16, 2 and 5 fixed sweeps, shared- and global-memory paths. The
+        # first case of each name is the timed one.
+        lbT, ubT = lb.t().contiguous(), ub.t().contiguous()
+
+        def untransposed(res):
+            return (res[0].t(), res[1].t()) + tuple(res[2:])
+
+        def nonbot(res):
+            # WAC1: iters, unconv and bot on every lane, the store on the
+            # lanes that are not bot.
+            b = pk.is_bot(res[0], res[1])
+            keep = (~b)[:, None].to(res[0].dtype)
+            return (res[0] * keep, res[1] * keep, res[2], res[3], b)
+
+        # A 4th element keys the plain result (it does not depend on the
+        # memory path, so it is computed once for both); a 5th is applied
+        # to both results before they are compared, outside the timing.
+        memo = {}
+        for smem in (True, False):
+            for cap in (10000, 2):
+                cases.append((
+                    "fixpoint.transposed",
+                    lambda c=cap, m=smem: kernels.fixpoint.transposed(
+                        kp, lbT, ubT, c, smem=m),
+                    lambda c=cap: pk.fixpoint_t_plain(lbT, ubT, c),
+                    ("t", cap), untransposed))
+                for inner in (16, 1):
+                    cases.append((
+                        "wac1",
+                        lambda c=cap, i=inner, m=smem: kernels.wac1(
+                            kp, lb, ub, c, i, smem=m),
+                        lambda c=cap, i=inner: pk.fixpoint_wac1_plain(
+                            lb, ub, c, i),
+                        ("w", cap, inner), nonbot))
+            for n in (2, 5):
+                cases.append((
+                    "fixpoint.fixed_sweeps",
+                    lambda n=n, m=smem: kernels.fixpoint.fixed_sweeps(
+                        kp, lb, ub, n, smem=m),
+                    lambda n=n: pk.fixed_sweeps_plain(lb, ub, n), ("f", n)))
         timed = set()
-        for name, kern, plain in cases:
-            got, want = kern(), plain()
+        for name, kern, plain, *rest in cases:
+            key = rest[0] if rest else None
+            post = rest[1] if len(rest) > 1 else tuple
+            if key is None:
+                want = post(plain())
+            else:
+                if key not in memo:
+                    memo[key] = post(plain())
+                want = memo[key]
+            got = post(kern())
             torch.cuda.synchronize()
             for i, (g, w) in enumerate(zip(got, want)):
                 if g.dtype != w.dtype or g.shape != w.shape:
@@ -284,24 +373,39 @@ def phase_kernels(torch, dev):
             if name not in timed:  # time the first case of each kernel
                 timed.add(name)
                 times[label, name] = (median_ms(kern), median_ms(plain, reps=3))
-                if name == "fixpoint":
-                    sweeps[label] = int((got[2].long() - 1).sum())
+                # Sweeps this run's stores needed: iters is sweeps + 1,
+                # under fixed sweeps the sweeps themselves.
+                if name not in ("classify", "select"):
+                    fixed = name == "fixpoint.fixed_sweeps"
+                    sweeps[label, name] = int(got[2].long().sum()) - (
+                        0 if fixed else D)
         n_bot = int(pk.is_bot(fl, fu).sum())
         n_ent = int(pk.all_entailed(fl, fu).sum())
         log(f"  {label}: D={D} V={s.dp.V} P={s.dp.P} lin_fit32="
             f"{[b.fit32 for b in s.dp.lin]} bot lanes={n_bot} "
-            f"entailed lanes={n_ent}: fixpoint/classify/select exact; ms "
-            + ", ".join(f"{k} {times[label, k][0]:.4f} (plain "
-                        f"{times[label, k][1]:.4f})" for k in errs))
+            f"entailed lanes={n_ent}: fixpoint (3 entries)/classify/select/"
+            f"wac1 exact; sweeps over all lanes: AC-1 "
+            f"{sweeps[label, 'fixpoint']}, WAC1 outer {sweeps[label, 'wac1']}"
+            f"; ms " + ", ".join(f"{k} {times[label, k][0]:.4f} (plain "
+                                 f"{times[label, k][1]:.4f})" for k in errs))
     # Bounds at golomb(12), D=512: the planes read and written once, the
     # plan's tables once; K1's operations for the sweeps this run's
     # stores needed.
     dp, D = s.dp, 512
     planes = 2 * D * dp.V * 4
     tabs = plan_bytes(kp)
+    fp_bytes = 2 * planes + tabs + 5 * D
+    g12 = "golomb(12)"
     bounds = {
-        "fixpoint": bound(2 * planes + tabs + 5 * D,
-                          sweeps["golomb(12)"] * sweep_ops(dp)),
+        "fixpoint": bound(fp_bytes, sweeps[g12, "fixpoint"] * sweep_ops(dp)),
+        "fixpoint.transposed": bound(
+            fp_bytes, sweeps[g12, "fixpoint.transposed"] * sweep_ops(dp)),
+        "fixpoint.fixed_sweeps": bound(
+            fp_bytes, sweeps[g12, "fixpoint.fixed_sweeps"] * sweep_ops(dp)),
+        # One pass over every propagator per outer sweep: the inner
+        # iterations beyond a group's first are not counted (the kernel
+        # does not return them), so this stays a lower bound.
+        "wac1": bound(fp_bytes, sweeps[g12, "wac1"] * sweep_ops(dp)),
         "classify": bound(planes + tabs + 2 * D,
                           D * (10 * dp.P + 4 * sum(b.coef.numel()
                                                    for b in dp.lin) + dp.V)),
@@ -433,8 +537,22 @@ def phase_step_kernels(torch, dev):
     from turbo_tpu_torch.instances import golomb, queens, random_model
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
+    # The first four are timed below: the step with K1, with K8, with
+    # K1's fixed-sweeps entry (no table under "fixed") and with K1's
+    # transposed entry.
     cases = ([("golomb(12), D=512, table on, cap 16", golomb(12),
-               dict(num_dives=512), 16)]
+               dict(num_dives=512), 16),
+              ("golomb(12), D=512, table on, cap 16, fp_mode wac1",
+               golomb(12), dict(num_dives=512, fp_mode="wac1"), 16),
+              ("golomb(12), D=512, fp_mode fixed (2 sweeps)", golomb(12),
+               dict(num_dives=512, fp_mode="fixed"), 16),
+              ("golomb(12), D=512, table on, cap 16, fp_layout vd",
+               golomb(12), dict(num_dives=512, fp_layout="vd"), 16)]
+             + [(f"random_model({200 + i}), table off, cap 4, fp_mode {mode}",
+                 random_model(200 + i, n_vars=8, n_cons=24),
+                 dict(num_dives=64, subproblems_power=8, use_table=False,
+                      fp_mode=mode), 4)
+                for i in range(2) for mode in ("wac1", "fixed")]
              + [(f"random_model({200 + i}), table off, cap 4",
                  random_model(200 + i, n_vars=8, n_cons=24),
                  dict(num_dives=64, subproblems_power=8, use_table=False), 4)
@@ -442,7 +560,7 @@ def phase_step_kernels(torch, dev):
              + [("queens(8), enumerate_all, ring 256", queens(8),
                  dict(num_dives=64, subproblems_power=6, enumerate_all=True,
                       sol_ring_size=256), 10000)])
-    big = None
+    big = []
     for label, text, kw, cap in cases:
         s = BatchedSolver(compile_model(parse_fzn_text(text)),
                           EngineConfig(fp_cap_auto=False, **kw), device=dev)
@@ -474,16 +592,22 @@ def phase_step_kernels(torch, dev):
             f"(nodes {int(st_k.nodes.sum())}, solutions "
             f"{int(st_k.sols.sum())}, idle lanes "
             f"{int((st_k.phase == 2).sum())}/{kw['num_dives']})")
-        if big is None:
-            big = (s, st_k, cap)
-    return time_step_parts(torch, *big)
+        if len(big) < 4:
+            big.append((label, s, st_k, cap))
+    out = None
+    for label, s, st, cap in big:
+        res = time_step_parts(torch, label, s, st, cap)
+        out = out or res  # the JSON line's K6 and K7: the step with K1
+    return out
 
 
-def time_step_parts(torch, s, st, cap, steps=20):
+def time_step_parts(torch, label, s, st, cap, steps=20):
     """Each kernel entry's time inside ``steps`` real steps of ``st``:
     CUDA events between the launches, all steps enqueued before one
     synchronize (so the card does not wait on the host between them);
-    and the plain step's three parts on a copy of the same state."""
+    and the plain step's three parts on a copy of the same state. The
+    propagation launch is the configuration's (K1, one of its entries
+    with the ``vd`` copies, or K8)."""
     import dataclasses
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.solver import step_cuda
@@ -491,20 +615,20 @@ def time_step_parts(torch, s, st, cap, steps=20):
     ws, kp = s._ws, s.kernels.kernel_plan
     sv = step_cuda.view(s, st, ws)
     plain_st = clone_state(st)
-    names = ("step.pre", "fixpoint", "classify", "select", "step.post",
+    names = ("step.pre", "propagation", "classify", "select", "step.post",
              "step_tail.scan", "step_tail.copy")
     ev = [[torch.cuda.Event(enable_timing=True) for _ in range(8)]
           for _ in range(steps)]
     n_impr = torch.zeros((), dtype=torch.int64, device=dev)
     n_refill = torch.zeros((), dtype=torch.int64, device=dev)
+    nodes0, fpit0 = int(st.nodes.long().sum()), int(st.fpit.long().sum())
     kernels.step_tail.live(st.phase, ws.live[0], ws.steps)
     for i in range(steps):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
         ev[i][0].record()
         kernels.step.pre(sv, cur, dev)
         ev[i][1].record()
-        kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur,
-                         out=(st.lb, st.ub, ws.iters, ws.unconv, ws.cand))
+        step_cuda.propagate(s, st, cap, cur)
         ev[i][2].record()
         kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
         ev[i][3].record()
@@ -529,7 +653,7 @@ def time_step_parts(torch, s, st, cap, steps=20):
         pe[0].record()
         phase, strat0, ub = s.step_pre_plain(p)
         pe[1].record()
-        lb, ub, iters, unconv = s.kernels.fixpoint(p.lb, ub, cap)
+        lb, ub, iters, unconv = s.propagate(p.lb, ub, cap)
         bot, ent = s.kernels.classify(lb, ub)
         sel = s._select(lb, ub, strat0)
         pe[2].record()
@@ -552,8 +676,12 @@ def time_step_parts(torch, s, st, cap, steps=20):
     # (two read, four written) and a ring row per improvement.
     k6 = bound(D * 62 * 4 + impr * 16 * V + 4 * D, 100 * D)
     k7 = bound(28 * D + refill * 24 * V + impr * 8 * V, 30 * D)
-    log(f"  golomb(12) D={D} V={V}, {steps} steps at cap {cap} (per step: "
-        f"{impr:.2f} improving, {refill:.2f} refilled lanes), ms per step: "
+    nodes = int(st.nodes.long().sum()) - nodes0
+    fpit = int(st.fpit.long().sum()) - fpit0
+    log(f"  {label}: D={D} V={V}, {steps} steps (per step: "
+        f"{impr:.2f} improving, {refill:.2f} refilled lanes, "
+        f"{nodes / steps:.1f} nodes; {fpit / max(nodes, 1):.2f} "
+        f"fixpoint_iterations per node), ms per step: "
         + ", ".join(f"{n} {acc[n]:.4f}" for n in names)
         + f"; plain parts: pre {plain['pre']:.4f}, post {plain['post']:.4f},"
         f" tail {plain['tail']:.4f}; bound ms K6 {k6[0]:.5f} ({k6[1]}), K7 "
@@ -580,12 +708,14 @@ def profile_steps(torch, fn, steps):
     return len(dev_events) / steps, busy_us / 1e3 / steps
 
 
-def phase_step_loop(torch, dev, chunk=16, cap=16):
-    """3c: the step loop on golomb(12), D=512, table on: no host sync
-    inside a chunk (sync debug mode "error"), launches, wall and device
-    time per step, for the kernels launched one by one, the same chunk
-    replayed as a CUDA graph (the route ``run_steps`` takes once a chunk
-    repeats), and the plain step."""
+def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16):
+    """3c: the step loop on golomb(12), D=512, under the configuration
+    ``kw``: no host sync inside a chunk (sync debug mode "error"),
+    launches, wall and device time per step, for the kernels launched one
+    by one and the same chunk replayed as a CUDA graph (the route
+    ``run_steps`` takes once a chunk repeats); ``full``: the profile of
+    both routes and the plain step too. Returns the graph route's wall
+    ms per step."""
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
@@ -594,9 +724,10 @@ def phase_step_loop(torch, dev, chunk=16, cap=16):
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
     s = BatchedSolver(compile_model(parse_fzn_text(golomb(12))),
-                      EngineConfig(num_dives=512, fp_cap_auto=False),
+                      EngineConfig(num_dives=512, fp_cap_auto=False, **kw),
                       device=dev)
     st = s.init_state()
+    log(f"  {label}:")
     for _ in range(2):  # warm: the second chunk is captured
         step_cuda.run(s, st, chunk, cap)
     torch.cuda.synchronize()
@@ -617,18 +748,20 @@ def phase_step_loop(torch, dev, chunk=16, cap=16):
         wall = time.monotonic() - t0
         n = int(ran)
         per = sum(kernels.launch_counts()[k.name] for k in kernels.KERNELS)
-        log(f"  {route}: {n} steps, {per / chunk:.2f} kernel launches per "
-            f"step, wall {wall / n * 1e3:.3f} ms per step (enqueue "
-            f"{enq / n * 1e3:.3f}); no host sync")
+        log(f"    {route}: {n} steps, {per / chunk:.2f} launches of the "
+            f"port's kernels per step, wall {wall / n * 1e3:.3f} ms per step "
+            f"(enqueue {enq / n * 1e3:.3f}); no host sync")
         out.setdefault(route, []).append(wall / n * 1e3)
-        out["launches_per_step"] = per / chunk
-    for route, graph in (("kernels one by one", False), ("CUDA graph", True)):
+    routes = (("kernels one by one", False), ("CUDA graph", True))
+    for route, graph in routes if full else routes[1:]:
         prof = profile_steps(
             torch, lambda: step_cuda.run(s, st, chunk, cap, graph=graph),
             chunk)
-        log(f"  {route} under torch.profiler: " + (
+        log(f"    {route} under torch.profiler: " + (
             f"{prof[0]:.1f} device kernels and {prof[1]:.3f} ms device busy"
             " per step" if prof else "no device time (not measured)"))
+    if not full:
+        return out["CUDA graph"]
     plain = clone_state(st)
 
     def plain_chunk():
@@ -643,10 +776,10 @@ def phase_step_loop(torch, dev, chunk=16, cap=16):
     torch.cuda.synchronize()
     wall = (time.monotonic() - t0) / chunk * 1e3
     pprof = profile_steps(torch, plain_chunk, chunk)
-    log(f"  plain step on the card: wall {wall:.3f} ms per step; " + (
+    log(f"    plain step on the card: wall {wall:.3f} ms per step; " + (
         f"{pprof[0]:.1f} device kernels and {pprof[1]:.3f} ms device busy "
         "per step" if pprof else "profiler: no device time"))
-    return out
+    return out["CUDA graph"]
 
 
 def counted(label, fn, required=()):
@@ -665,6 +798,36 @@ def counted(label, fn, required=()):
     return counts
 
 
+STEP_KERNELS = ("fixpoint", "classify", "select", "step", "step_tail",
+                "step.pre", "step.post", "step_tail.scan", "step_tail.copy",
+                "step_tail.live")
+TABLE_KERNELS = ("embed", "embed.embed", "embed.table_refill")
+
+
+def api_run(dev, big, tnf, model, seconds, **kw):
+    """A path: golomb(big) at D=512 through the solver API under ``kw``
+    for ``seconds``; its best solution checked."""
+    from turbo_tpu_torch.host.utils.output import print_solution
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+
+    def run():
+        s = BatchedSolver(tnf, EngineConfig(num_dives=512, **kw), device=dev)
+        r = s.solve(timeout_s=seconds)
+        if r.best_lb is None:
+            fail(f"golomb({big}) under {kw}: no solution")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            print_solution(tnf, r.best_lb)
+        check_solution(model, buf.getvalue())
+        log(f"  objective {r.objective}, checker-valid; nodes {r.nodes}, "
+            f"nodes/s {r.nodes / r.solve_time:.0f}, solveTime "
+            f"{r.solve_time:.3f} s, k {s.k}, fixpoint_iterations "
+            f"{r.fixpoint_iterations}, table "
+            f"{'on' if s.use_table else 'off'}")
+    return run
+
+
 def run_path(torch, dev, big=12):
     """Phases 4-8: the port's paths on ``dev``; ``big`` is the golomb
     ruler of phases 6-8 (12: full width). Returns the launch counts of
@@ -676,11 +839,8 @@ def run_path(torch, dev, big=12):
                                            queens, random_model)
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
-    step_kernels = ("fixpoint", "classify", "select", "step", "step_tail",
-                    "step.pre", "step.post", "step_tail.scan",
-                    "step_tail.copy", "step_tail.live")
-    all_kernels = step_kernels + ("embed", "open_count", "embed.embed",
-                                  "embed.table_refill")
+    step_kernels, table_kernels = STEP_KERNELS, TABLE_KERNELS
+    all_kernels = step_kernels + table_kernels + ("open_count",)
     paths = {}
 
     def no_tail(solver):
@@ -787,27 +947,11 @@ def run_path(torch, dev, big=12):
 
     tnf_big = compile_model(model)
 
-    def table_off():
-        s = BatchedSolver(tnf_big, EngineConfig(num_dives=512,
-                                                use_table=False,
-                                                fp_cap_auto=False),
-                          device=dev)
-        r = s.solve(timeout_s=15)
-        if r.best_lb is None:
-            fail(f"table-off golomb({big}): no solution")
-        from turbo_tpu_torch.host.utils.output import print_solution
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            print_solution(tnf_big, r.best_lb)
-        check_solution(model, buf.getvalue())
-        log(f"  objective {r.objective}, checker-valid; nodes {r.nodes}, "
-            f"nodes/s {r.nodes / r.solve_time:.0f}, solveTime "
-            f"{r.solve_time:.3f} s, k {s.k}, fixpoint_iterations "
-            f"{r.fixpoint_iterations}")
-
     log(f"[7] table-off path: golomb({big}), D=512, solver API, 15 s")
     paths[f"table off, golomb({big})"] = counted(
-        f"the table-off path, golomb({big})", table_off,
+        f"the table-off path, golomb({big})",
+        api_run(dev, big, tnf_big, model, 15, use_table=False,
+                fp_cap_auto=False),
         required=step_kernels)
 
     def drain():
@@ -877,8 +1021,155 @@ def run_path(torch, dev, big=12):
     log("[10] -i -t 30000 on golomb(9), card CLI")
     paths["-i, golomb(9)"] = counted(
         "-i, golomb(9)", improving_golomb,
-        required=step_kernels + ("embed", "embed.embed",
-                                 "embed.table_refill"))
+        required=step_kernels + table_kernels)
+    paths.update(run_option_paths(torch, dev, big))
+    return paths
+
+
+def run_option_paths(torch, dev, big=12):
+    """Phases 10b-10f: the paths of ``-fp wac1``, ``fp_mode="fixed"``,
+    ``fp_layout="vd"``, ``-arch hybrid`` and ``-checkpoint``. Returns
+    their launch counts by label."""
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.instances import GOLOMB_OPT, golomb
+    step_kernels, table_kernels = STEP_KERNELS, TABLE_KERNELS
+    rest = tuple(k for k in step_kernels if k != "fixpoint")
+    paths = {}
+    text = golomb(big)
+    model = parse_fzn_text(text)
+    tnf_big = compile_model(model)
+
+    def checked_blocks(out, what, m=model):
+        blocks = out.split("----------\n")[:-1]
+        if not blocks:
+            fail(f"{what}: no solution printed")
+        for b in blocks:
+            check_solution(m, "\n".join(l for l in b.splitlines()
+                                        if not l.startswith("%")))
+        return len(blocks)
+
+    def cli_big(what, seconds, *opts):
+        def run():
+            out, _, stats = run_cli([write_model(f"golomb{big}", text), "-s",
+                                     "-or", "0", "-t", str(seconds * 1000),
+                                     *opts])
+            n = checked_blocks(out, what)
+            nodes, solve_t = int(stats["nodes"]), float(stats["solveTime"])
+            log(f"  {n} solution(s) checked; objective "
+                f"{stats.get('objective')} (optimum {GOLOMB_OPT[big]}); nodes "
+                f"{nodes}, nodes/s {nodes / solve_t:.0f}, solveTime "
+                f"{solve_t:.3f} s, fixpoint_iterations "
+                f"{stats['fixpoint_iterations']} "
+                f"({int(stats['fixpoint_iterations']) / max(nodes, 1):.2f} "
+                f"per node), table_build_time "
+                f"{stats.get('table_build_time', 'absent')}; per block: "
+                f"solve_time {stats['solve_time']}, fixpoint_time "
+                f"{stats['fixpoint_time']}, search_time "
+                f"{stats['search_time']}")
+        return run
+
+    log(f"[10b] -fp wac1: golomb({big}), card CLI, -or 0, -t 30000")
+    c = paths[WAC1] = counted(
+        f"-fp wac1, golomb({big})", cli_big("-fp wac1", 30, "-fp", "wac1"),
+        required=("wac1",) + rest + table_kernels)
+    # K8 ran in every level of the table build and in every step, K1 never.
+    if c["fixpoint"] != 0 or c["wac1"] != c["step.pre"] + c["embed.embed"]:
+        fail(f"-fp wac1: K8 launches {c['wac1']} != steps {c['step.pre']} + "
+             f"table levels {c['embed.embed']}, or K1 ran ({c['fixpoint']})")
+
+    log(f"[10c] fp_mode fixed and fp_layout vd: golomb({big}), D=512, solver "
+        f"API, 8 s each")
+    paths[FIXED] = counted(
+        f"fp_mode fixed, golomb({big})",
+        api_run(dev, big, tnf_big, model, 8, fp_mode="fixed"),
+        required=("fixpoint.fixed_sweeps",) + rest)
+    paths[VD] = counted(
+        f"fp_layout vd, golomb({big})",
+        api_run(dev, big, tnf_big, model, 8, fp_layout="vd"),
+        required=("fixpoint.transposed",) + rest + table_kernels)
+
+    log(f"[10d] -arch hybrid: golomb({big}), card CLI, -or 0, -t 15000")
+    c = paths[f"-arch hybrid, golomb({big})"] = counted(
+        f"-arch hybrid, golomb({big})",
+        cli_big("-arch hybrid", 15, "-arch", "hybrid"),
+        required=("fixpoint", "classify"))
+    # One K1 and one K2 launch per round, and nothing else.
+    if c["fixpoint"] != c["classify"] or c["step"] or c["select"]:
+        fail(f"-arch hybrid: launches {c}")
+    # The card's share of a hybrid round: 3 s of the same search through
+    # the solver API under torch.profiler.
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.hybrid import HybridSolver
+    hs = HybridSolver(tnf_big, EngineConfig(num_dives=512), device=dev)
+    res = []
+    prof = profile_steps(torch, lambda: res.append(hs.solve(timeout_s=3)), 1)
+    r = res[0]
+    log(f"  3 s under torch.profiler: {r.nodes} nodes, solveTime "
+        f"{r.solve_time:.3f} s; " + (
+            f"{prof[0]:.0f} device kernels and copies, {prof[1]:.1f} ms device "
+            f"busy: {prof[1] / (r.solve_time * 1e3) * 100:.2f} % of the solve "
+            f"time" if prof else "no device time (not measured)"))
+
+    g8 = write_model("golomb8", golomb(8))
+    few = ("-or", "128", "-sub", "10")
+
+    def proofs():
+        # The hybrid search dives every subproblem from the root on the
+        # host: 128 cubes over 2^10 subproblems keep the proof short.
+        for opts in (["-fp", "wac1"], ["-arch", "hybrid", *few],
+                     ["-arch", "hybrid", *few, "-fp", "wac1"]):
+            out, _, stats = run_cli([g8, "-s"] + opts)
+            if "==========" not in out or int(stats.get("objective", -1)) != 34:
+                fail(f"golomb(8) {opts}: expected optimal 34, got "
+                     f"{stats.get('objective')}")
+            log(f"  {' '.join(opts)}: optimal 34: nodes {stats['nodes']}, "
+                f"fails {stats['failures']}, solveTime "
+                f"{float(stats['solveTime']):.3f} s, fixpoint_iterations "
+                f"{stats['fixpoint_iterations']}")
+
+    log("[10e] golomb(8) proven optimal under -fp wac1, -arch hybrid and both")
+    paths["golomb(8) proofs: wac1, hybrid, hybrid wac1"] = counted(
+        "the golomb(8) proofs", proofs,
+        required=("wac1", "fixpoint", "classify") + rest + table_kernels)
+
+    g9 = write_model("golomb9", golomb(9))
+    g9model = parse_fzn_text(golomb(9))
+
+    def resume(arch, cut, *opts):
+        def run():
+            ck = WORK / f"golomb9.{arch}.ckpt"
+            ck.unlink(missing_ok=True)
+            base = [g9, "-s", "-arch", arch, "-checkpoint", str(ck), *opts]
+            out, _, st1 = run_cli(base + ["-cutnodes", str(cut)])
+            if "==========" in out or not ck.exists():
+                fail(f"-checkpoint ({arch}): the cut run closed or wrote no "
+                     f"file")
+            out, err, st2 = run_cli(base)
+            checked_blocks(out, f"-checkpoint ({arch})", g9model)
+            if "==========" not in out or int(st2.get("objective", -1)) != \
+                    GOLOMB_OPT[9]:
+                fail(f"-checkpoint ({arch}): the resumed run did not close at "
+                     f"{GOLOMB_OPT[9]}: {st2.get('objective')}")
+            # The resumed run carries the cut run's counters on.
+            if "ignored" in err or "could not resume" in err or \
+                    int(st2["nodes"]) <= int(st1["nodes"]):
+                fail(f"-checkpoint ({arch}): the file was not resumed: "
+                     f"{err.strip()[-300:]}")
+            log(f"  -arch {arch}: cut at {st1['nodes']} nodes, file "
+                f"{ck.stat().st_size} bytes; resumed and closed at "
+                f"{st2['objective']} with {st2['nodes']} nodes in all, "
+                f"solveTime {float(st2['solveTime']):.3f} s")
+            ck.unlink()  # the batched state with its stacks is large
+        return run
+
+    log("[10f] -checkpoint: golomb(9) cut by -cutnodes, resumed, closes at 44")
+    paths["-checkpoint, golomb(9)"] = counted(
+        "-checkpoint, golomb(9)", resume("tpu", 5000),
+        required=step_kernels + table_kernels)
+    paths["-checkpoint -arch hybrid, golomb(9)"] = counted(
+        "-checkpoint -arch hybrid, golomb(9)", resume("hybrid", 5000, *few),
+        required=("fixpoint", "classify"))
     return paths
 
 
@@ -924,12 +1215,13 @@ def main():
     from turbo_tpu_torch.kernels import build as kbuild
 
     dev = torch.device("cuda:0")
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {kind}")
     shutil.rmtree(kbuild.BUILD_DIR, ignore_errors=True)
-    WORK.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
     kernels.load()
     log(f"[2] kernel build (cold, nvcc sm_90a): {time.monotonic() - t0:.1f} s")
@@ -941,27 +1233,46 @@ def main():
     kres = phase_kernels(torch, dev)
     log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
     kres.update(phase_step_kernels(torch, dev))
-    log("[3c] step loop, golomb(12), D=512, table on, cap 16")
-    phase_step_loop(torch, dev)
+    log("[3c] step loop, golomb(12), D=512, cap 16: K1 (dv), K8, fixed "
+        "sweeps, and the vd entry against dv in turns")
+    loops = [("fp_mode fixpoint, layout dv, table on", {}, True),
+             ("fp_mode wac1, table on", dict(fp_mode="wac1"), False),
+             ("fp_mode fixed (2 sweeps), no table", dict(fp_mode="fixed"),
+              False),
+             ("layout vd, table on", dict(fp_layout="vd"), False),
+             ("layout vd, table on (again)", dict(fp_layout="vd"), False),
+             ("layout dv, table on (again)", {}, False)]
+    walls = {label: phase_step_loop(torch, dev, label, kw, full)
+             for label, kw, full in loops}
+    log("  CUDA-graph wall ms per step, dv / vd / vd / dv: " + " / ".join(
+        ", ".join(f"{w:.3f}" for w in walls[loops[i][0]])
+        for i in (0, 3, 4, 5)))
     if "--kernels-only" in sys.argv[1:]:
         log("--kernels-only: stopping after phase 3c")
         sys.exit(0)
 
     paths = run_path(torch, dev)
-    main_counts = paths[MAIN]
     log("[11] launches by path: " + "; ".join(
         f"{p}: " + ", ".join(f"{k} {n}" for k, n in c.items())
         for p, c in paths.items()))
     if "jax" in sys.modules or "turbo_tpu" in sys.modules:
         fail("jax or the turbo_tpu package was imported")
-    print(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": main_counts[k.name],
-         "launches_by_path": {p: c[k.name] for p, c in paths.items()},
-         "max_abs_err": kres[k.name][0], "ms": kres[k.name][1],
-         "plain_ms": kres[k.name][2], "bound_ms": kres[k.name][3],
-         "bound_by": kres[k.name][4], "library_ms": None}
-        for k in kernels.KERNELS], "main_path": MAIN}))
+    # One entry per kernel, and one per entry point of K1 that replaces a
+    # JAX function of its own. ``launches`` is read on the main path, or,
+    # for a kernel the default search does not run, on its own path.
+    k1 = kernels.fixpoint
+    listed = [(k.name, k, k.replaces, WAC1 if k is kernels.wac1 else MAIN)
+              for k in kernels.KERNELS]
+    listed += [(f"{k1.name}.{e}", k1, k1.ENTRY_REPLACES[e], path)
+               for e, path in (("fixed_sweeps", FIXED), ("transposed", VD))]
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": k.source,
+         "replaces": replaces, "launches": paths[path][name], "path": path,
+         "launches_by_path": {p: c[name] for p, c in paths.items()},
+         "max_abs_err": kres[name][0], "ms": kres[name][1],
+         "plain_ms": kres[name][2], "bound_ms": kres[name][3],
+         "bound_by": kres[name][4], "library_ms": None}
+        for name, k, replaces, path in listed], "main_path": MAIN}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """The port's CLI against ``turbo_tpu.cli`` on in-line models.
 
-Both CLIs run their defaults (EPS table, live cap calibration). Each
-model has a unique optimal solution, so both must print the same
-solution block and the same final separator, and the same set of
-``%%%mzn-stat`` keys.
+Both CLIs run their defaults (EPS table, live cap calibration), then
+``-fp wac1``, ``-arch hybrid`` and a ``-checkpoint`` resume. Each model
+has a unique optimal solution, so both must print the same solution
+block and the same final separator, and the same set of ``%%%mzn-stat``
+keys.
 """
 import re
 
@@ -59,7 +60,63 @@ def test_cli_output_matches_jax_cli(name, tmp_path, capsys):
 def test_unported_options_raise(tmp_path):
     path = tmp_path / "m.fzn"
     path.write_text(MODELS["linear"])
-    for extra, what in ((["-arch", "hybrid"], "-arch hybrid"),
-                        (["-checkpoint", str(tmp_path / "c")], "-checkpoint")):
+    for extra, what in ((["-arch", "multi"], "-arch multi"),
+                        (["-hosts", "2"], "-hosts > 1")):
         with pytest.raises(NotImplementedError, match=what):
             port_cli.main([str(path), "-platform", "cpu"] + extra)
+
+
+OPTIONS = {
+    "wac1": ["-fp", "wac1"],
+    "wac1_threshold": ["-fp", "wac1", "-wac1_threshold", "2"],
+    "wac1_below_threshold": ["-fp", "wac1", "-wac1_threshold", "100000"],
+    "hybrid": ["-arch", "hybrid"],
+    "hybrid_wac1": ["-arch", "hybrid", "-fp", "wac1"],
+    "hybrid_intermediate": ["-arch", "hybrid", "-i"],
+}
+
+
+@pytest.mark.parametrize("opt", sorted(OPTIONS))
+@pytest.mark.parametrize("name", ["golomb4", "linear"])
+def test_cli_options_match_jax_cli(name, opt, tmp_path, capsys):
+    """``-fp wac1`` and ``-arch hybrid``: the same solution blocks,
+    separators and stat keys as the JAX CLI."""
+    path = tmp_path / f"{name}.fzn"
+    path.write_text(MODELS[name])
+    extra = OPTIONS[opt]
+    arch = [] if "-arch" in extra else ["-arch", "tpu"]
+    sol_j, tail_j, keys_j = _run(jax_cli.main, path, capsys, arch + extra)
+    sol_t, tail_t, keys_t = _run(port_cli.main, path, capsys, extra)
+    assert sol_t == sol_j
+    assert tail_t == tail_j and tail_t[-1] == "=========="
+    assert keys_t == keys_j
+    assert ("wac1_threshold" in keys_t) == ("wac1" in extra)
+
+
+@pytest.mark.parametrize("arch", ["tpu", "hybrid"])
+def test_cli_checkpoint_resume_matches_jax_cli(arch, tmp_path, capsys):
+    """``-checkpoint``: a run cut by ``-cutnodes`` writes the file and
+    prints no final separator; the next run resumes from it and closes.
+    Both CLIs print the same blocks and stat keys in both runs."""
+    path = tmp_path / "golomb6.fzn"
+    path.write_text(golomb(6))
+    base = ["-arch", arch, "-sub", "5"]
+    outs = {}
+
+    def run(main, extra):
+        assert main([str(path), "-s", "-platform", "cpu", "-or", "8"]
+                    + base + extra) == 0
+        out = capsys.readouterr().out
+        return ([l for l in out.splitlines() if not l.startswith("%")],
+                set(re.findall(r"^%%%mzn-stat: (\w+)=", out, re.M)))
+
+    for label, main in (("jax", jax_cli.main), ("port", port_cli.main)):
+        ck = tmp_path / f"{label}.ckpt"
+        cut = run(main, ["-checkpoint", str(ck), "-cutnodes", "40"])
+        assert ck.exists()
+        outs[label] = (cut, run(main, ["-checkpoint", str(ck)]))
+    (cut_j, res_j), (cut_t, res_t) = outs["jax"], outs["port"]
+    # Cut: the same blocks (if any) and no final separator.
+    assert cut_t == cut_j and "==========" not in cut_t[0]
+    assert res_t == res_j
+    assert "m5 = 17;" in res_t[0] and res_t[0][-1] == "=========="

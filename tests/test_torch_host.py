@@ -207,9 +207,14 @@ def test_random_strategies_shuffle_like_the_original():
 def test_engine_config_defaults_are_the_jax_defaults():
     """The port's EngineConfig carries the JAX defaults for every field
     it has (the EPS table and cap calibration on), so the port's CLI
-    runs the JAX CLI's default search."""
+    runs the JAX CLI's default search. The one exception is the plane
+    layout inside the fixpoint: both layouts give equal stores, and on
+    the card the transposed one costs the step two copies each way."""
     jax_cfg, port_cfg = jax_engine.EngineConfig(), port_config.EngineConfig()
     fields = [f.name for f in dataclasses.fields(port_cfg)]
-    assert {"use_table", "fp_cap_auto"} <= set(fields)
+    assert {"use_table", "fp_cap_auto", "fp_mode", "fp_layout",
+            "wac1_threshold"} <= set(fields)
+    assert (port_cfg.fp_layout, jax_cfg.fp_layout) == ("dv", "vd")
     for f in fields:
-        assert getattr(port_cfg, f) == getattr(jax_cfg, f), f
+        if f != "fp_layout":
+            assert getattr(port_cfg, f) == getattr(jax_cfg, f), f

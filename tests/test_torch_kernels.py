@@ -4,8 +4,9 @@ The kernels (turbo_tpu_torch/kernels/csrc/*.cu) cannot run here, so
 this file transliterates them line for line into scalar Python over the
 very tables the wrappers upload (``kernel_tables``): one dive at a time,
 phase A then phase B per sweep, CSR combine, conflict fold, block
-argmin; and K6/K7 (the step around K1-K3) one lane at a time over the
-state. The emulation must equal the plain torch versions, which
+argmin; K8 (WAC1) pass by pass, candidates first and the meets after;
+and K6/K7 (the step around K1-K3) one lane at a time over the state.
+The emulation must equal the plain torch versions, which
 ``test_torch_propagate.py`` and ``test_torch_engine.py`` hold to the
 JAX package. The real kernels
 are compared with the plain versions on the card (marked ``cuda``, and
@@ -203,10 +204,12 @@ def phase_a(t, lb, ub):
     return cl, cu
 
 
-def emulate_fixpoint(t, lb_row, ub_row, cap):
+def emulate_fixpoint(t, lb_row, ub_row, cap, fixed=False):
+    """fixpoint.cu's ``sweep_loop`` and what its kernel writes; ``fixed``:
+    the ``tt_fixed_sweeps`` entry (exactly ``cap`` sweeps)."""
     lb, ub = [int(v) for v in lb_row], [int(v) for v in ub_row]
     V, it, iters, m = t["V"], 0, 0, True
-    while m and it < cap:
+    while (m or fixed) and it < cap:
         cl, cu = phase_a(t, lb, ub)
         conf = int(any(cl[s] > o or cu[s] < o
                        for s, o in zip(t["conf_slot"], t["conf_off"])))
@@ -226,7 +229,80 @@ def emulate_fixpoint(t, lb_row, ub_row, cap):
         iters += 1
         it += 1
         m = changed and not bot
+    if fixed:
+        return lb, ub, iters, False
     return lb, ub, iters + 1, m
+
+
+def meet(t, lb, ub, v, l, u):
+    """wac1.cu's ``meet``: the candidate clamped to the root box, then
+    atomicMax / atomicMin into the store; whether a bound moved."""
+    l, u = min(l, t["ub_cap"][v]), max(u, t["lb_floor"][v])
+    ch = l > lb[v] or u < ub[v]
+    lb[v], ub[v] = max(lb[v], l), min(ub[v], u)
+    return ch
+
+
+def emulate_wac1(t, lb_row, ub_row, cap, inner_cap):
+    """wac1.cu, one dive: every pass computes its candidates from the
+    store (``phase_a`` computes all of them; a pass reads its own slots)
+    and only then meets them into it."""
+    lb, ub = [int(v) for v in lb_row], [int(v) for v in ub_row]
+    V, P, E, M = t["V"], t["P"], t["E"], t["M"]
+    bot = any(lb[v] > ub[v] for v in range(V))
+    sweeps, it, m = 0, 0, True
+    while m and it < cap:
+        changed = False
+        for g in range(t["G"]):
+            a, b = t["g_off"][g], t["g_off"][g + 1]
+            for _ in range(inner_cap):
+                cl, cu = phase_a(t, lb, ub)
+                ch = False
+                for i in range(a, b):
+                    for r, role in enumerate(("px", "py", "pz")):
+                        ch |= meet(t, lb, ub, t[role][i], cl[r * P + i],
+                                   cu[r * P + i])
+                changed |= ch
+                if not ch:
+                    break
+                bot = bot or any(lb[t[role][i]] > ub[t[role][i]]
+                                 for i in range(a, b)
+                                 for role in ("px", "py", "pz"))
+                if bot:
+                    break
+            if bot:
+                break
+        if not bot:
+            ch = False
+            if E:
+                cl, cu = phase_a(t, lb, ub)
+                for i in range(E):
+                    s = 3 * P + i
+                    ch |= meet(t, lb, ub, t["e_idx"][i], cl[s], cu[s])
+                    ch |= meet(t, lb, ub, t["e_res"][i], cl[s + E], cu[s + E])
+            if M:
+                cl, cu = phase_a(t, lb, ub)
+                for i in range(M):
+                    s = 3 * P + 2 * E + i
+                    ch |= meet(t, lb, ub, t["m_x"][i], cl[s], cu[s])
+                    ch |= meet(t, lb, ub, t["m_b"][i], cl[s + M], cu[s + M])
+            for k in range(t["LB"]):
+                cl, cu = phase_a(t, lb, ub)
+                for r in range(t["lb_off"][k], t["lb_off"][k + 1]):
+                    o = t["l_toff"][r]
+                    for j in range(t["l_K"][r]):
+                        if t["l_coef"][o + j] != 0:
+                            s = t["base_lin"] + o + j
+                            ch |= meet(t, lb, ub, t["l_var"][o + j], cl[s],
+                                       cu[s])
+                    s = t["base_linb"] + r
+                    ch |= meet(t, lb, ub, t["l_b"][r], cl[s], cu[s])
+            changed |= ch
+            bot = any(lb[v] > ub[v] for v in range(V))
+        sweeps += 1
+        it += 1
+        m = changed and not bot
+    return lb, ub, sweeps + 1, m
 
 
 def emulate_classify(t, lb, ub):
@@ -340,6 +416,89 @@ def test_kernel_emulation_matches_plain(seed):
             assert emulate_classify(t, a[d], b[d]) == (bool(bot[d]), bool(ent[d]))
             want = tuple(int(x[d]) for x in sel)
             assert tuple(int(x) for x in emulate_select(t, a[d], b[d], strat[d])) == want
+
+
+def _flat_tables(s):
+    t = kernel_tables(s.dp)
+    return {k: ([int(x) for x in v.reshape(-1)]
+                if isinstance(v, np.ndarray) else v) for k, v in t.items()}
+
+
+@pytest.mark.parametrize("seed", [-1, 0, 1, 2, 3])
+def test_wac1_kernel_emulation_matches_plain(seed):
+    """K8 as transliterated above against ``fixpoint_wac1_plain``, every
+    lane and output, at outer caps 10000 and 2 and inner caps 16 and 1;
+    the group and bucket offsets the kernel walks are the plan's."""
+    s, lb, ub, _ = _case(seed)
+    t = _flat_tables(s)
+    assert t["g_off"] == [0] + [b for _, _, b in s.dp.group_slices]
+    assert t["G"] == len(s.dp.group_slices) and t["g_off"][-1] == t["P"]
+    assert t["LB"] == len(s.dp.lin) and t["lb_off"][-1] == t["L"]
+    assert [t["lb_off"][k + 1] - t["lb_off"][k] for k in range(t["LB"])] == [
+        bk.coef.shape[0] for bk in s.dp.lin]
+    for cap in (10000, 2):
+        for inner in (16, 1):
+            pl, pu, pi, pm = s.kernels.fixpoint_wac1_plain(lb, ub, cap, inner)
+            for d in range(lb.shape[0]):
+                el, eu, ei, em = emulate_wac1(t, lb[d].tolist(),
+                                              ub[d].tolist(), cap, inner)
+                assert el == pl[d].tolist() and eu == pu[d].tolist(), (cap, d)
+                assert (ei, em) == (int(pi[d]), bool(pm[d])), (cap, inner, d)
+
+
+@pytest.mark.parametrize("seed", [-1, 0, 1, 2, 3])
+def test_fixed_and_transposed_entries_match_plain(seed):
+    """K1's two other entries: exactly n sweeps (no exit on convergence
+    or bot, iters = n), and the fixpoint on the columns of (V, D) planes,
+    where dive d's element v lies at [v * D + d]."""
+    s, lb, ub, _ = _case(seed)
+    t = _flat_tables(s)
+    D, V = lb.shape
+    for n in (1, 3):
+        pl, pu, pi, pm = s.kernels.fixed_sweeps_plain(lb, ub, n)
+        for d in range(D):
+            el, eu, ei, em = emulate_fixpoint(t, lb[d].tolist(),
+                                              ub[d].tolist(), n, fixed=True)
+            assert el == pl[d].tolist() and eu == pu[d].tolist(), (n, d)
+            assert (ei, em) == (int(pi[d]), bool(pm[d])) == (n, False)
+    lbT, ubT = lb.t().contiguous(), ub.t().contiguous()
+    fl, fu = lbT.reshape(-1).tolist(), ubT.reshape(-1).tolist()
+    for cap in (10000, 2):
+        pl, pu, pi, pm = s.kernels.fixpoint_t_plain(lbT, ubT, cap)
+        assert pl.shape == (V, D)
+        for d in range(D):
+            el, eu, ei, em = emulate_fixpoint(t, fl[d::D], fu[d::D], cap)
+            assert el == pl[:, d].tolist() and eu == pu[:, d].tolist()
+            assert (ei, em) == (int(pi[d]), bool(pm[d])), (cap, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [-1, 0, 1])
+def test_cuda_wac1_fixed_transposed_match_plain(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from turbo_tpu_torch import kernels
+    s, lb, ub, _ = _case(seed)
+    dev = torch.device("cuda:0")
+    sc = BatchedSolver(s.tnf, s.cfg, device=dev)
+    kp, pk = sc.kernels.kernel_plan, sc.kernels
+    glb, gub = lb.to(dev), ub.to(dev)
+    for smem in (True, False):
+        for cap in (10000, 2):
+            for inner in (16, 1):
+                for g, w in zip(kernels.wac1(kp, glb, gub, cap, inner,
+                                             smem=smem),
+                                pk.fixpoint_wac1_plain(glb, gub, cap, inner)):
+                    assert torch.equal(g, w)
+            gT, uT = glb.t().contiguous(), gub.t().contiguous()
+            for g, w in zip(kernels.fixpoint.transposed(kp, gT, uT, cap,
+                                                        smem=smem),
+                            pk.fixpoint_t_plain(gT, uT, cap)):
+                assert torch.equal(g, w)
+        for g, w in zip(kernels.fixpoint.fixed_sweeps(kp, glb, gub, 3,
+                                                      smem=smem),
+                        pk.fixed_sweeps_plain(glb, gub, 3)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -5,10 +5,15 @@
 blocks, separators and ``%%%mzn-stat`` lines. ``-arch tpu|gpu|barebones``
 run the batched engine on the CUDA card (``-platform cpu``: the plain
 torch versions on the CPU) with the JAX CLI's defaults: the EPS
-subproblem table and live fixpoint-cap calibration; ``-arch cpu`` runs
-the numpy oracle. ``-a``, ``-i`` and ``-n N`` stream every accepted
-solution through the on-device solution ring. ``-v -v`` prints the
-calibrator's choice, the steal and resplit rounds and a line per chunk.
+subproblem table and live fixpoint-cap calibration; ``-arch hybrid``
+runs the host-owned search with batched propagation on the device
+(``solver/hybrid.py``); ``-arch cpu`` runs the numpy oracle. ``-fp wac1``
+propagates with WAC1 (AC-1 below ``-wac1_threshold`` propagators).
+``-a``, ``-i`` and ``-n N`` stream every accepted solution through the
+on-device solution ring (``-arch hybrid``: each improving solution as it
+is found). ``-checkpoint FILE`` resumes from FILE when it matches and
+writes it when the run is cut. ``-v -v`` prints the calibrator's choice,
+the steal and resplit rounds and a line per chunk.
 """
 from __future__ import annotations
 
@@ -26,12 +31,8 @@ def _unported(cfg: Configuration):
     """The part of the JAX CLI this port does not carry yet, by name."""
     if cfg.hosts > 1:
         return "-hosts > 1 (multi-host EPS)"
-    if cfg.arch in ("hybrid", "multi"):
-        return f"-arch {cfg.arch}"
-    if cfg.checkpoint_path:
-        return "-checkpoint"
-    if cfg.fixpoint == "wac1" and cfg.arch != "cpu":
-        return "-fp wac1"
+    if cfg.arch == "multi":
+        return "-arch multi"
     return None
 
 
@@ -60,6 +61,8 @@ def run(cfg: Configuration) -> int:
     stats.stat("hardware", f'"{cfg.hardware or hw}"')
     stats.stat("arch", f'"{cfg.arch}"')
     stats.stat("fixpoint", f'"{cfg.fixpoint if cfg.arch != "cpu" else "ac1"}"')
+    if cfg.fixpoint == "wac1" and cfg.arch != "cpu":
+        stats.stat("wac1_threshold", cfg.wac1_threshold)
     stats.stat("subproblems_factor", cfg.subproblems_factor)
     stats.stat("seed", cfg.seed)
     stats.stat("eps_var_order", f'"{cfg.eps_var_order}"')
@@ -100,9 +103,11 @@ def run(cfg: Configuration) -> int:
 
     enumerate_all = tnf.obj_var < 0 and cfg.stop_after_n_solutions != 1
     num_dives = cfg.or_nodes or auto_num_dives(tnf)
-    # Per-solution streaming (-a / -i / -n N): size the on-device ring;
-    # the solve loop drains it every chunk.
-    want_stream = cfg.print_intermediate or enumerate_all
+    # Per-solution streaming (-a / -i / -n N) on the batched engine: size
+    # the on-device ring; the solve loop drains it every chunk. The
+    # hybrid search reports each improving solution itself.
+    hybrid = cfg.arch == "hybrid"
+    want_stream = (cfg.print_intermediate or enumerate_all) and not hybrid
     ring = min(4 * num_dives, 8192) if want_stream else 0
     econf = EngineConfig(num_dives=num_dives,
                          subproblems_power=cfg.subproblems_power,
@@ -112,12 +117,19 @@ def run(cfg: Configuration) -> int:
                          eps_value_order=cfg.eps_value_order,
                          seed=cfg.seed,
                          enumerate_all=enumerate_all,
+                         fp_mode=("wac1" if cfg.fixpoint == "wac1"
+                                  else "fixpoint"),
+                         wac1_threshold=cfg.wac1_threshold,
                          disable_simplify=cfg.disable_simplify,
                          shave=cfg.shave,
                          sol_ring_size=ring)
     # Plan and kernel build count in initTime, outside the -t window.
     tb = time.monotonic()
-    solver = BatchedSolver(tnf, econf, device=device)
+    if hybrid:
+        from .solver.hybrid import HybridSolver
+        solver = HybridSolver(tnf, econf, device=device)
+    else:
+        solver = BatchedSolver(tnf, econf, device=device)
     setup = time.monotonic() - tb
     if cfg.verbose:
         print(f"% D={num_dives} k={solver.k} MAXD={solver.cfg.max_depth} "
@@ -128,13 +140,19 @@ def run(cfg: Configuration) -> int:
     def on_solution(lb_tnf):
         printed_last[0] = list(lb_tnf)
         print_solution(tnf, lb_tnf)
+    extra = {}
+    if want_stream:
+        extra["on_solution"] = on_solution
+    elif cfg.print_intermediate or enumerate_all:
+        extra["on_improve"] = on_solution
+    if cfg.checkpoint_path:
+        extra["checkpoint_path"] = cfg.checkpoint_path
     r = solver.solve(timeout_s=timeout_s,
                      stop_after_n_solutions=cfg.stop_after_n_solutions,
                      node_limit=cfg.stop_after_n_nodes,
-                     verbose=cfg.verbose >= 2,
-                     on_solution=on_solution if want_stream else None)
+                     verbose=cfg.verbose >= 2, **extra)
     r.init_time = round(init_time + setup, 3)
-    if cfg.verbose:
+    if cfg.verbose and not hybrid:
         tb = solver._table
         print("% eps table: " + (f"n_live={tb.n_live} of {solver.num_sub_total}"
                                   f" subproblems, n_pad={tb.n_pad}"
@@ -143,7 +161,8 @@ def run(cfg: Configuration) -> int:
               file=sys.stderr)
     # Final block, unless the stream printed this very store last; under
     # enumeration a stream that lost nothing printed every solution.
-    stream_complete = (enumerate_all and printed_last[0] is not None
+    stream_complete = (enumerate_all and want_stream
+                       and printed_last[0] is not None
                        and r.sol_ring_overflow == 0)
     if (r.best_lb is not None and printed_last[0] != list(r.best_lb)
             and not stream_complete):

@@ -1,9 +1,11 @@
 """The solver's CUDA kernels for Hopper and their wrappers.
 
-Seven kernels on PyTorch's current stream (``csrc/*.cu``), most of them
+Eight kernels on PyTorch's current stream (``csrc/*.cu``), most of them
 one thread block per dive (or table row):
 
-- ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap;
+- ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap, on
+  (D, V) planes; ``fixpoint.fixed_sweeps``: exactly n sweeps;
+  ``fixpoint.transposed``: the fixpoint on dive-minor (V, D) planes;
 - ``classify`` (K2): per dive, some domain empty / every propagator
   entailed;
 - ``select`` (K3): branch variable and the two children;
@@ -15,13 +17,15 @@ one thread block per dive (or table row):
   (``step.pre``) and after (``step.post``) K1-K3, in place;
 - ``step_tail`` (K7): the cross-lane end of a step (``step_tail.scan``,
   one block), its refill and ring rows (``step_tail.copy``), and the
-  chunk's live flag (``step_tail.live``).
+  chunk's live flag (``step_tail.live``);
+- ``wac1`` (K8): WAC1 propagation (per op-group local fixpoints, then
+  the element, membership and linear passes) to the fixpoint or the cap.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty`` unless the caller passes them
 (``out=``), raises when the launch fails, and counts its launches in
-``launches`` (and per entry point in ``entry_launches``). K1-K3 take an
-optional ``live`` flag (a 1-element int32 CUDA tensor): when it holds 0
+``launches`` (and per entry point in ``entry_launches``). K1-K3 and K8
+take an optional ``live`` flag (a 1-element int32 CUDA tensor): when it holds 0
 the kernel returns at once. The plain torch versions live in
 ``solver/propagate.py``, ``solver/engine.py`` and
 ``solver/eps_table.py``; nothing here falls back to them.
@@ -44,6 +48,7 @@ class PlanView(ctypes.Structure):
                 for n, t in (
                     ("V", "i"), ("n_active", "i"), ("P", "i"), ("n_cand", "i"),
                     ("prop_op", "p"), ("px", "p"), ("py", "p"), ("pz", "p"),
+                    ("G", "i"), ("g_off", "p"),
                     ("E", "i"), ("T", "i"), ("e_idx", "p"), ("e_res", "p"),
                     ("e_len", "p"), ("e_tab", "p"), ("M", "i"), ("W", "i"),
                     ("m_x", "p"), ("m_b", "p"), ("m_base", "p"),
@@ -53,6 +58,7 @@ class PlanView(ctypes.Structure):
                     ("base_linb", "i"), ("l_b", "p"), ("l_op", "p"),
                     ("l_rhs", "p"), ("l_K", "p"), ("l_toff", "p"),
                     ("l_flags", "p"), ("l_coef", "p"), ("l_var", "p"),
+                    ("LB", "i"), ("lb_off", "p"),
                     ("inc_off", "p"), ("inc_slot", "p"), ("n_conf", "i"),
                     ("conf_slot", "p"), ("conf_off", "p"), ("lb_floor", "p"),
                     ("ub_cap", "p"), ("S", "i"), ("s_off", "p"),
@@ -61,7 +67,9 @@ class PlanView(ctypes.Structure):
 
 def kernel_tables(dp) -> dict:
     """The plan in the kernels' flat layout, as numpy arrays and ints:
-    concatenated linear rows (term offsets into the candidate slots),
+    the op-groups as offsets into the propagators, concatenated linear
+    rows (term offsets into the candidate slots) with the buckets as
+    offsets into the rows,
     the bucketed incidence tables as CSR without neutral slots, the
     conflict fold without neutral entries, concatenated strategies."""
     n = lambda t: t.cpu().numpy()
@@ -74,6 +82,8 @@ def kernel_tables(dp) -> dict:
     assert len(inc_off) == dp.n_active + 1
     l_b, l_op, l_rhs, l_K, l_toff, l_flags, l_coef, l_var = ([] for _ in range(8))
     off = 0
+    g_off = [0] + [b for _, _, b in dp.group_slices]
+    lb_off = np.cumsum([0] + [bk.coef.shape[0] for bk in dp.lin])
     for bk in dp.lin:
         C, K = bk.coef.shape
         l_b.append(n(bk.b)); l_op.append(n(bk.op))
@@ -93,6 +103,7 @@ def kernel_tables(dp) -> dict:
     tabs = dict(
         V=dp.V, n_active=dp.n_active, P=dp.P, n_cand=dp.n_cand,
         prop_op=n(dp.prop_op), px=n(dp.all_x), py=n(dp.all_y), pz=n(dp.all_z),
+        G=len(dp.group_slices), g_off=np.asarray(g_off, i32),
         E=dp.E, T=int(dp.e_tab.shape[1]), e_idx=n(dp.e_idx),
         e_res=n(dp.e_res), e_len=n(dp.e_len), e_tab=n(dp.e_tab),
         M=dp.M, W=dp.m_W, m_x=n(dp.m_x), m_b=n(dp.m_b),
@@ -104,7 +115,7 @@ def kernel_tables(dp) -> dict:
         l_b=cat(l_b, i32), l_op=cat(l_op, i32), l_rhs=cat(l_rhs, np.int64),
         l_K=cat(l_K, i32), l_toff=cat(l_toff, i32),
         l_flags=cat(l_flags, i32), l_coef=cat(l_coef, i32),
-        l_var=cat(l_var, i32),
+        l_var=cat(l_var, i32), LB=len(dp.lin), lb_off=lb_off.astype(i32),
         inc_off=np.asarray(inc_off, i32), inc_slot=np.asarray(inc_slot, i32),
         n_conf=len(conf_slot), conf_slot=conf_slot, conf_off=conf_off,
         lb_floor=n(dp.lb_floor), ub_cap=n(dp.ub_cap),
@@ -213,10 +224,67 @@ def _stream(t):
     return _stream_of(t.device)
 
 
+def _fixpoint_out(dp, lb, D):
+    """Fresh outputs of K1 / K8: (lb_out, ub_out, iters, unconv, cand
+    scratch (D, 2, n_cand))."""
+    return (torch.empty_like(lb), torch.empty_like(lb),
+            torch.empty(D, dtype=I32, device=lb.device),
+            torch.empty(D, dtype=torch.bool, device=lb.device),
+            torch.empty((D, 2, dp.n_cand), dtype=I32, device=lb.device))
+
+
+def _check_fixpoint(dp, lb, ub, out, D, shape):
+    _check(lb, "lb", shape)
+    _check(ub, "ub", shape)
+    lb_out, ub_out, iters, unconv, cand = out
+    for n, t, sh, dt in (
+            ("lb_out", lb_out, shape, I32), ("ub_out", ub_out, shape, I32),
+            ("iters", iters, (D,), I32),
+            ("unconv", unconv, (D,), torch.bool),
+            ("cand", cand, (D, 2, dp.n_cand), I32)):
+        _check(t, n, sh, dt)
+
+
+def _no_propagators(lb, ub, out):
+    """P == 0: the JAX functions return the store with zero counts."""
+    lb_out, ub_out, iters, unconv, _ = out
+    if lb_out is not lb:
+        lb_out.copy_(lb)
+        ub_out.copy_(ub)
+    iters.zero_()
+    unconv.zero_()
+    return lb_out, ub_out, iters, unconv
+
+
 class _Fixpoint(_Kernel):
     name = "fixpoint"
     source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:912"
+    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed")
+    ENTRY_REPLACES = {"fixed_sweeps": "turbo_tpu/solver/propagate_jax.py:967",
+                      "transposed": "turbo_tpu/solver/propagate_jax.py:782"}
+
+    def _run(self, entry, kp, lb, ub, cap, smem, live, out):
+        dp = kp.dp
+        transposed = entry == "transposed"
+        D = lb.shape[1] if transposed else lb.shape[0]
+        shape = (dp.V, D) if transposed else (D, dp.V)
+        if out is None:
+            out = _fixpoint_out(dp, lb, D)
+        _check_fixpoint(dp, lb, ub, out, D, shape)
+        if dp.P == 0:
+            return _no_propagators(lb, ub, out)
+        lb_out, ub_out, iters, unconv, cand = out
+        fn = {"fixpoint": "tt_fixpoint", "fixed_sweeps": "tt_fixed_sweeps",
+              "transposed": "tt_fixpoint_t"}[entry]
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: getattr(lib, fn), ctypes.byref(kp.view),
+                         lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
+                         ub_out.data_ptr(), iters.data_ptr(),
+                         unconv.data_ptr(), cand.data_ptr(), D, int(cap),
+                         kp.smem_limit if smem else 0, _live_ptr(live),
+                         _stream(lb), entry=entry)
+        return lb_out, ub_out, iters, unconv
 
     def __call__(self, kp, lb, ub, cap: int, smem: bool = True, live=None,
                  out=None):
@@ -226,38 +294,47 @@ class _Fixpoint(_Kernel):
         global-memory path that larger stores take. ``out`` = (lb_out,
         ub_out, iters, unconv, cand scratch (D, 2, n_cand)); lb_out and
         ub_out may be lb and ub (in place)."""
+        return self._run("fixpoint", kp, lb, ub, cap, smem, live, out)
+
+    def fixed_sweeps(self, kp, lb, ub, n: int, smem: bool = True, live=None,
+                     out=None):
+        """Exactly ``n`` AC-1 sweeps of every dive, whether or not it
+        converged or turned bot: iters = n, unconv all false."""
+        return self._run("fixed_sweeps", kp, lb, ub, n, smem, live, out)
+
+    def transposed(self, kp, lbT, ubT, cap: int, smem: bool = True,
+                   live=None, out=None):
+        """The fixpoint of ``__call__`` on dive-minor planes: lbT, ubT
+        and the first two outputs are (V, D)."""
+        return self._run("transposed", kp, lbT, ubT, cap, smem, live, out)
+
+
+class _Wac1(_Kernel):
+    name = "wac1"
+    source = "turbo_tpu_torch/kernels/csrc/wac1.cu"
+    replaces = "turbo_tpu/solver/propagate_jax.py:884"
+
+    def __call__(self, kp, lb, ub, cap: int, inner_cap: int = 16,
+                 smem: bool = True, live=None, out=None):
+        """(lb, ub, sweeps + 1 (D,) int32, unconv (D,) bool) after WAC1
+        sweeps to the fixpoint or ``cap``; see csrc/wac1.cu. ``smem`` and
+        ``out`` as for K1. The stores must lie inside the root box's clamp
+        (lb <= ub0 + 1, ub >= lb0 - 1), as every engine state does."""
         dp = kp.dp
         D = lb.shape[0]
-        _check(lb, "lb", (D, dp.V))
-        _check(ub, "ub", (D, dp.V))
         if out is None:
-            out = (torch.empty_like(lb), torch.empty_like(ub),
-                   torch.empty(D, dtype=I32, device=lb.device),
-                   torch.empty(D, dtype=torch.bool, device=lb.device),
-                   torch.empty((D, 2, dp.n_cand), dtype=I32,
-                               device=lb.device))
-        lb_out, ub_out, iters, unconv, cand = out
+            out = _fixpoint_out(dp, lb, D)
+        _check_fixpoint(dp, lb, ub, out, D, (D, dp.V))
         if dp.P == 0:
-            if lb_out is not lb:
-                lb_out.copy_(lb)
-                ub_out.copy_(ub)
-            iters.zero_()
-            unconv.zero_()
-            return lb_out, ub_out, iters, unconv
-        for n, t, shape, dt in (
-                ("lb_out", lb_out, (D, dp.V), I32),
-                ("ub_out", ub_out, (D, dp.V), I32),
-                ("iters", iters, (D,), I32), ("unconv", unconv, (D,),
-                                              torch.bool),
-                ("cand", cand, (D, 2, dp.n_cand), I32)):
-            _check(t, n, shape, dt)
+            return _no_propagators(lb, ub, out)
+        lb_out, ub_out, iters, unconv, cand = out
         with torch.cuda.device(lb.device):
-            self._launch(lambda lib: lib.tt_fixpoint, ctypes.byref(kp.view),
+            self._launch(lambda lib: lib.tt_wac1, ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
                          ub_out.data_ptr(), iters.data_ptr(),
                          unconv.data_ptr(), cand.data_ptr(), D, int(cap),
-                         kp.smem_limit if smem else 0, _live_ptr(live),
-                         _stream(lb))
+                         int(inner_cap), kp.smem_limit if smem else 0,
+                         _live_ptr(live), _stream(lb))
         return lb_out, ub_out, iters, unconv
 
 
@@ -441,7 +518,9 @@ embed = _Embed()
 open_count = _OpenCount()
 step = _Step()
 step_tail = _StepTail()
-KERNELS = (fixpoint, classify, select, embed, open_count, step, step_tail)
+wac1 = _Wac1()
+KERNELS = (fixpoint, classify, select, embed, open_count, step, step_tail,
+           wac1)
 
 
 def reset_launches():

@@ -19,7 +19,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "embed.cu",
-           "open_count.cu", "step.cu", "step_tail.cu")
+           "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu")
 # No FMA contraction: K6's float32 deds must round the multiply and the
 # add separately, as the plain torch version does.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +51,9 @@ def _digest() -> str:
 def _bind(lib):
     P = ctypes.c_void_p
     I = ctypes.c_int
-    lib.tt_fixpoint.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, P]
+    for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t):
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, P]
+    lib.tt_wac1.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P, P]
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
     lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
@@ -62,7 +64,8 @@ def _bind(lib):
     lib.tt_step_scan.argtypes = [P, P, P, P]
     lib.tt_step_copy.argtypes = [P, P, P]
     lib.tt_step_live.argtypes = [P, I, P, P, P]
-    for fn in (lib.tt_fixpoint, lib.tt_classify, lib.tt_select,
+    for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t,
+               lib.tt_wac1, lib.tt_classify, lib.tt_select,
                lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
                lib.tt_step_pre, lib.tt_step_post, lib.tt_step_scan,
                lib.tt_step_copy, lib.tt_step_live):

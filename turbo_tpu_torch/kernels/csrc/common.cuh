@@ -1,8 +1,11 @@
-// Shared device code of the solver kernels (fixpoint.cu, classify.cu
-// and select.cu use all of it; embed.cu and open_count.cu only the
-// block size): the plan tables as one struct passed by
+// Shared device code of the solver kernels (fixpoint.cu, wac1.cu,
+// classify.cu and select.cu use all of it; embed.cu and open_count.cu
+// only the block size): the plan tables as one struct passed by
 // value, and the per-propagator rules of
-// turbo_tpu/solver/propagate_jax.py written for one thread.
+// turbo_tpu/solver/propagate_jax.py written for one thread. The rules
+// read a dive's store through ``lb[v]`` / ``ub[v]``: a plain pointer
+// (shared memory, or a (D, V) row) or a ``Plane`` (a strided column of
+// (V, D) planes).
 //
 // Arithmetic follows the JAX package bit for bit: store values and
 // TNF add/min/max/le/eq candidates are int32 with two's-complement
@@ -30,6 +33,8 @@ struct PlanView {
   const int* px;        // (P,) x/y/z var ids, group order
   const int* py;
   const int* pz;
+  int G;
+  const int* g_off;     // (G + 1,) op-groups as slices [g_off[g], g_off[g+1])
   int E, T;
   const int* e_idx;     // (E,)
   const int* e_res;
@@ -54,6 +59,8 @@ struct PlanView {
   const int* l_flags;   // (L,) bit 0: unit coefficients, bit 1: fit32
   const int* l_coef;    // (terms,)
   const int* l_var;
+  int LB;
+  const int* lb_off;    // (LB + 1,) linear buckets as row slices
   const int* inc_off;   // (n_active + 1,) CSR of candidate slots per var
   const int* inc_slot;
   int n_conf;
@@ -224,8 +231,16 @@ __device__ __forceinline__ void lin_term(bool fit32, int c, int xl, int xu,
   }
 }
 
+// One dive's bound plane inside (V, D) planes: element v at p[v * s].
+struct Plane {
+  int* p;
+  long long s;
+  __device__ __forceinline__ int& operator[](int v) const { return p[v * s]; }
+};
+
+template <class S>
 __device__ __forceinline__ void lin_sums(const PlanView& p, int r,
-                                         const int* lb, const int* ub,
+                                         const S& lb, const S& ub,
                                          long long* smin, long long* smax) {
   bool fit32 = p.l_flags[r] & 2;
   long long s0 = 0, s1 = 0;
@@ -289,4 +304,118 @@ __device__ __forceinline__ bool member_ask(const PlanView& p, int i,
   long long width = (long long)ux - lx + 1;
   return (lb[p.m_b[i]] >= 1 && c == width && width > 0) ||
          (ub[p.m_b[i]] <= 0 && c == 0);
+}
+
+// -- candidates of one propagator, written into the dive's candidate
+// planes cl / cu at the slots of solver/plan.py ------------------------
+
+// TNF propagator it: the three roles' intervals (_deduce_group).
+template <class S>
+__device__ __forceinline__ void cand_tnf(const PlanView& p, int it,
+                                         const S& lb, const S& ub, int* cl,
+                                         int* cu) {
+  const int P = p.P;
+  int x = p.px[it], y = p.py[it], z = p.pz[it];
+  int c[6];
+  deduce(p.prop_op[it], lb[x], ub[x], lb[y], ub[y], lb[z], ub[z], c);
+  cl[it] = c[0]; cu[it] = c[1];
+  cl[P + it] = c[2]; cu[P + it] = c[3];
+  cl[2 * P + it] = c[4]; cu[2 * P + it] = c[5];
+}
+
+// Element row i: windowed min/max of the result, first/last feasible
+// index (_element_cands).
+template <class S>
+__device__ __forceinline__ void cand_elem(const PlanView& p, int i,
+                                          const S& lb, const S& ub, int* cl,
+                                          int* cu) {
+  int len = p.e_len[i];
+  int li = lb[p.e_idx[i]], ui = ub[p.e_idx[i]];
+  int lr = lb[p.e_res[i]], ur = ub[p.e_res[i]];
+  int jlo = TT_INF - 1, jhi = TT_NINF - 1, rlo = TT_INF, rhi = TT_NINF;
+  const int* tab = p.e_tab + (long long)i * p.T;
+  int wlo = sub32(li, 1), whi = sub32(ui, 1);
+  for (int j = 0; j < p.T; ++j) {
+    int v = tab[j];
+    if (j >= wlo && j <= whi && j < len && v >= lr && v <= ur) {
+      jlo = j < jlo ? j : jlo; jhi = j > jhi ? j : jhi;
+      rlo = v < rlo ? v : rlo; rhi = v > rhi ? v : rhi;
+    }
+  }
+  int s = 3 * p.P + i;
+  cl[s] = jlo + 1; cu[s] = jhi + 1;
+  cl[s + p.E] = rlo; cu[s + p.E] = rhi;
+}
+
+// Reified sparse membership row i (_member_cands).
+template <class S>
+__device__ __forceinline__ void cand_member(const PlanView& p, int i,
+                                            const S& lb, const S& ub, int* cl,
+                                            int* cu) {
+  int W = p.W, base = p.m_base[i], top = p.m_top[i];
+  int lx = lb[p.m_x[i]], ux = ub[p.m_x[i]];
+  int c = member_count(p, i, lx, ux);
+  long long width = (long long)ux - lx + 1;
+  int b_lo = c == width && width > 0, b_hi = c > 0;
+  int wl = sub32(lx, base), wh = sub32(ux, base);
+  wl = wl < 0 ? 0 : (wl > W - 1 ? W - 1 : wl);
+  wh = wh < 0 ? 0 : (wh > W - 1 ? W - 1 : wh);
+  long long row = (long long)i * W;
+  int nge = lx > top ? TT_INF : p.m_next_ge[row + wl];
+  int ple = ux < base ? TT_NINF : p.m_prev_le[row + wh];
+  int nout = lx >= base && lx <= top ? p.m_next_out[row + wl] : lx;
+  int pout = ux >= base && ux <= top ? p.m_prev_out[row + wh] : ux;
+  bool tt = lb[p.m_b[i]] >= 1, ff = ub[p.m_b[i]] <= 0;
+  int x_lo = tt ? nge : (ff ? nout : TT_NINF);
+  int x_hi = tt ? ple : (ff ? pout : TT_INF);
+  int s = 3 * p.P + 2 * p.E + i;
+  cl[s] = clip32(x_lo); cu[s] = clip32(x_hi);
+  cl[s + p.M] = b_lo; cu[s + p.M] = b_hi;
+}
+
+// Reified linear row r: sum bounds, then per-term floor/ceil candidates
+// (_linear_bucket_cands). A padding term (coefficient 0) leaves its
+// slot unwritten: no reader looks at it.
+template <class S>
+__device__ __forceinline__ void cand_linear(const PlanView& p, int r,
+                                            const S& lb, const S& ub, int* cl,
+                                            int* cu) {
+  int flags = p.l_flags[r];
+  bool unit = flags & 1, fit32 = flags & 2;
+  long long smin, smax;
+  lin_sums(p, r, lb, ub, &smin, &smax);
+  long long rhs = p.l_rhs[r];
+  bool is_eq = p.l_op[r] == 1;
+  cl[p.base_linb + r] = is_eq ? (smin == rhs && smax == rhs) : (smax <= rhs);
+  cu[p.base_linb + r] = is_eq ? (smin <= rhs && rhs <= smax) : (smin <= rhs);
+  bool tt = lb[p.l_b[r]] >= 1, ff = ub[p.l_b[r]] <= 0;
+  bool ge_act = (is_eq && tt) || (!is_eq && ff), le_act = tt;
+  long long rhs2 = is_eq ? rhs : rhs + 1;
+  const int* coef = p.l_coef + p.l_toff[r];
+  const int* var = p.l_var + p.l_toff[r];
+  int* tl = cl + p.base_lin + p.l_toff[r];
+  int* tu = cu + p.base_lin + p.l_toff[r];
+  for (int t = 0; t < p.l_K[r]; ++t) {
+    int c = coef[t];
+    if (c == 0) continue;
+    long long tmin, tmax;
+    lin_term(fit32, c, lb[var[t]], ub[var[t]], &tmin, &tmax);
+    long long R = rhs - (smin - tmin), R2 = rhs2 - (smax - tmax);
+    long long q_le, ceil_le, q_ge, ceil_ge;
+    if (unit) {
+      q_le = ceil_le = R * c;
+      q_ge = ceil_ge = R2 * c;
+    } else {
+      q_le = fdiv64(R, c);
+      ceil_le = q_le + ((R - q_le * c) != 0);
+      q_ge = fdiv64(R2, c);
+      ceil_ge = q_ge + ((R2 - q_ge * c) != 0);
+    }
+    bool cpos = c > 0;
+    long long hi = le_act && cpos ? q_le : TT_INF;
+    hi = lmin(hi, ge_act && !cpos ? q_ge : TT_INF);
+    long long lo = le_act && !cpos ? ceil_le : TT_NINF;
+    lo = lmax(lo, ge_act && cpos ? ceil_ge : TT_NINF);
+    tl[t] = clip32(lo); tu[t] = clip32(hi);
+  }
 }

@@ -25,6 +25,20 @@ class EngineConfig:
     # Per-step fixpoint sweep cap; lanes still changing at the cap are
     # held (no branch, no node) and resume next step.
     fp_max_iters: int = 10000
+    # "fixpoint": AC-1 until no change. "fixed": exactly fp_fixed_iters
+    # sweeps per step, no convergence loop; sound because entailment and
+    # failure detection stay exact, and an undecided node propagates
+    # further on the next step before it branches. "wac1": per-op-group
+    # local fixpoints, Gauss-Seidel over groups; falls back to AC-1 when
+    # the instance has fewer than wac1_threshold propagators.
+    fp_mode: str = "fixpoint"
+    # Plane layout inside the fixpoint: "dv" = (D, V) as the search
+    # state carries it; "vd" = transposed to dive-minor (V, D) around the
+    # sweep. Both give equal stores.
+    fp_layout: str = "dv"
+    fp_fixed_iters: int = 2
+    wac1_threshold: int = 0
+    wac1_inner_cap: int = 16
     eps_var_order: str = "default"
     eps_value_order: str = "default"
     seed: int = 1
@@ -41,8 +55,16 @@ class EngineConfig:
     # Live fixpoint-cap calibration when solve() gets no fp_cap.
     fp_cap_auto: bool = True
     # EPS subproblem-root table (solver/eps_table.py): refills enter
-    # SOLVE phase from a table built once, instead of re-diving.
+    # SOLVE phase from a table built once, instead of re-diving. Off
+    # under enumerate_all, fp_mode "fixed" (the build needs true
+    # fixpoints) and for oversized tables.
     use_table: bool = True
+
+    def __post_init__(self):
+        if self.fp_mode not in ("fixpoint", "fixed", "wac1"):
+            raise ValueError(f"fp_mode {self.fp_mode!r}")
+        if self.fp_layout not in ("dv", "vd"):
+            raise ValueError(f"fp_layout {self.fp_layout!r}")
 
 
 def probe_tree_power(tnf, probe_nodes: int = 2000,

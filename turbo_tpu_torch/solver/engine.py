@@ -1,11 +1,12 @@
 """Batched EPS dive-and-solve engine in PyTorch.
 
-Port of ``turbo_tpu/solver/engine.py`` for ``fp_mode="fixpoint"``: D
-dives advance in lockstep, one search node per ``step``, on (D, ·)
-tensors on one device.
+Port of ``turbo_tpu/solver/engine.py``: D dives advance in lockstep,
+one search node per ``step``, on (D, ·) tensors on one device.
 
 On a CUDA state a step is seven kernel launches and no host read:
-K6 ``step_pre`` (promote, objective tighten) -> K1 fixpoint -> K2
+K6 ``step_pre`` (promote, objective tighten) -> propagation (K1
+fixpoint; by ``fp_mode`` and ``fp_layout`` its fixed-sweeps or
+transposed entry, or K8 WAC1) -> K2
 classify -> K3 select -> K6 ``step_post`` (the per-lane rest of the
 step) -> K7 ``scan`` (the cross-lane prefix counts of the refill and the
 solution ring) -> K7 ``copy`` (refill rows, ring rows), all updating the
@@ -167,7 +168,8 @@ class AutoCapCalibrator:
         self.max_sample_chunks = 4
         self.acc_dur = 0.0
         self.acc_chunks = 0
-        if fp_cap_override == 0 and cfg.fp_cap_auto:
+        if (fp_cap_override == 0 and cfg.fp_cap_auto
+                and cfg.fp_mode != "fixed"):
             self.caps = [c for c in (2, 3, 4, 8, 16)
                          if c <= cfg.fp_max_iters]
         else:
@@ -253,6 +255,11 @@ class BatchedSolver:
         self.plan = build_plan(tnf, disable_simplify=config.disable_simplify,
                                shave=config.shave)
         self.has_eps = apply_strategy_config(self.plan, config)
+        if (config.fp_mode == "wac1"
+                and self.plan.num_real_props < config.wac1_threshold):
+            # WAC1 behaves as AC-1 below the threshold.
+            self.cfg = config = dataclasses.replace(config,
+                                                    fp_mode="fixpoint")
         if config.max_depth <= 0:
             self.cfg = config = dataclasses.replace(
                 config, max_depth=auto_max_depth(self.plan))
@@ -261,9 +268,9 @@ class BatchedSolver:
         self.opt = self.plan.is_opt
         self.dp = DevicePlan.from_plan(self.plan, self.device)
         self.kernels = PropagatorKernels(self.dp)
-        # EPS subproblem-root table gate (the JAX gate, engine.py:497-506;
-        # this engine runs fp_mode "fixpoint").
-        self.use_table = config.use_table and not config.enumerate_all
+        # EPS subproblem-root table gate (see EngineConfig.use_table).
+        self.use_table = (config.use_table and not config.enumerate_all
+                          and config.fp_mode in ("fixpoint", "wac1"))
         if self.use_table:
             from .eps_table import table_n_pad
             budget = int(os.environ.get("TURBO_TPU_TABLE_BUDGET",
@@ -484,7 +491,7 @@ class BatchedSolver:
         none was, the state is returned unchanged."""
         live = (st.phase != IDLE).any()
         phase, strat0, ub = self.step_pre_plain(st)
-        lb, ub, iters, unconv = self.kernels.fixpoint(
+        lb, ub, iters, unconv = self.propagate(
             st.lb, ub, cap or self.cfg.fp_max_iters)
         bot, ent = self.kernels.classify(lb, ub)
         sel = self._select(lb, ub, strat0)
@@ -496,6 +503,21 @@ class BatchedSolver:
         new = {k: torch.where(live, v, getattr(st, k))
                for k, v in new.items()}
         return dataclasses.replace(st, **new), live
+
+    def propagate(self, lb, ub, cap: int):
+        """(II) of the step: propagate to the fixpoint or ``cap`` by
+        ``fp_mode`` and ``fp_layout`` (``turbo_tpu/solver/engine.py:
+        837-849``). Returns (lb, ub, iters, unconv)."""
+        cfg, k = self.cfg, self.kernels
+        if cfg.fp_mode == "fixed":
+            return k.fixed_sweeps(lb, ub, cfg.fp_fixed_iters)
+        if cfg.fp_mode == "wac1":
+            return k.fixpoint_wac1(lb, ub, cap, cfg.wac1_inner_cap)
+        if cfg.fp_layout == "vd":
+            lbT, ubT, iters, unconv = k.fixpoint_t(
+                lb.t().contiguous(), ub.t().contiguous(), cap)
+            return lbT.t().contiguous(), ubT.t().contiguous(), iters, unconv
+        return k.fixpoint(lb, ub, cap)
 
     def step_pre_plain(self, st: SearchState):
         """K6 ``step.pre``: promote finished dives, the strategy cursor,
@@ -867,17 +889,21 @@ class BatchedSolver:
     def solve(self, timeout_s: float = 1e18, chunk: int = 16,
               stop_after_n_solutions: int = 1, max_steps: int = 1 << 60,
               node_limit: int = 0, verbose: bool = False, on_improve=None,
-              on_solution=None, fp_cap: int = 0):
+              on_solution=None, checkpoint_path: str = "",
+              checkpoint_every_s: float = 60.0, fp_cap: int = 0):
         """Single-device host loop (``turbo_tpu/solver/engine.py:
-        1417-1818`` without checkpoint, profiler split, heartbeat and
-        hard wall): chunks of ``run_steps`` until every lane is IDLE, the
+        1417-1818`` without profiler split, heartbeat and hard wall):
+        chunks of ``run_steps`` until every lane is IDLE, the
         timeout, ``node_limit``, ``max_steps`` or (on satisfaction
         problems) ``stop_after_n_solutions``, with one host read per
         chunk. The table build runs inside the ``-t`` window with a
         deadline at half of it; ``fp_cap`` > 0 pins the fixpoint cap,
         else the calibrator sweeps it (``fp_cap_auto``). Once the range
         is drained, idle lanes steal open branches or the stragglers are
-        resplit (not under ``enumerate_all``).
+        resplit (not under ``enumerate_all``). With ``checkpoint_path``
+        the run resumes from that file when it matches this solver
+        (``solver/checkpoint.py``) and writes it every
+        ``checkpoint_every_s`` seconds and when it stops early.
 
         ``on_improve(best_lb_tnf)``: called when the incumbent improves.
         ``on_solution(lb_tnf)``: with ``sol_ring_size`` > 0, called for
@@ -914,6 +940,23 @@ class BatchedSolver:
         resplit_rounds = 0
         resplit_base = None
         steal_rounds = 0
+
+        def checkpoint():
+            from .checkpoint import save_state
+            save_state(self, st, checkpoint_path, extras={
+                "resplit_base": resplit_base,
+                "resplit_rounds": resplit_rounds,
+                "steal_rounds": steal_rounds})
+
+        if checkpoint_path:
+            from .checkpoint import load_state
+            restored = load_state(self, checkpoint_path)
+            if restored is not None:
+                st, extras = restored
+                resplit_base = extras.get("resplit_base")
+                resplit_rounds = extras.get("resplit_rounds", 0)
+                steal_rounds = extras.get("steal_rounds", 0)
+        last_ckpt = time.monotonic()
         ring = self.cfg.sol_ring_size
         if ring > 0 and self.cfg.enumerate_all:
             # At most D solutions land per step: cap the chunk so that no
@@ -1073,6 +1116,10 @@ class BatchedSolver:
             if node_limit and int(nodes_v.sum()) >= node_limit:
                 stopped = True
                 break
+            if checkpoint_path and \
+                    time.monotonic() - last_ckpt > checkpoint_every_s:
+                checkpoint()
+                last_ckpt = time.monotonic()
             if verbose:
                 bb = int(bbs.min())
                 print(f"% t={time.monotonic()-t0:6.1f}s steps={steps} "
@@ -1083,6 +1130,8 @@ class BatchedSolver:
                       f"idle={(phase == IDLE).sum()}/{len(phase)} "
                       f"next_sub={int(nsub[0])}/{int(slim[0])}",
                       flush=True)
+        if checkpoint_path and stopped:
+            checkpoint()
         res = EngineResult.from_state(self, st, stopped,
                                       time.monotonic() - t0)
         if resplit_base is not None:

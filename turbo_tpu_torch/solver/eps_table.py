@@ -99,13 +99,17 @@ def embed(*args):
 
 def dive_level(solver, lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l,
                c1u, pidx, pbit):
-    """One frontier chunk of W rows: embed -> fixpoint (true fixpoint)
-    -> classify -> select. Returns the 13 outputs of the JAX program
-    (lb, ub, strat, var, c0l, c0u, c1l, c1u, bot, ent, found, iters,
-    objlb)."""
+    """One frontier chunk of W rows: embed -> fixpoint (true fixpoint;
+    WAC1 under ``fp_mode="wac1"``) -> classify -> select. Returns the 13
+    outputs of the JAX program (lb, ub, strat, var, c0l, c0u, c1l, c1u,
+    bot, ent, found, iters, objlb)."""
     lbp, ubp, stp = embed(lb_par, ub_par, strat_par, var_par, c0l, c0u,
                           c1l, c1u, pidx, pbit)
-    lb2, ub2, iters, _ = solver.kernels.fixpoint(lbp, ubp, _BIG_CAP)
+    if solver.cfg.fp_mode == "wac1":
+        lb2, ub2, iters, _ = solver.kernels.fixpoint_wac1(
+            lbp, ubp, _BIG_CAP, solver.cfg.wac1_inner_cap)
+    else:
+        lb2, ub2, iters, _ = solver.kernels.fixpoint(lbp, ubp, _BIG_CAP)
     bot, ent = solver.kernels.classify(lb2, ub2)
     ent = ent & ~bot
     found, var2, nstrat, _, d0l, d0u, d1l, d1u = solver._select(lb2, ub2,

@@ -1,20 +1,25 @@
 """Batched AC-1 interval propagation in PyTorch.
 
 Port of ``turbo_tpu/solver/propagate_jax.py`` (``PropagatorKernels``,
-gather mode ``take``, the ``dv`` (D, V) layout). Every rule has a plain
-torch version here that computes bit for bit what the JAX function
-computes: int32 store planes, MUL/DIV and non-``lin_fit32`` linear rows
-in int64, each candidate clamped to [NINF, INF].
+gather mode ``take``). Every rule has a plain torch version here that
+computes bit for bit what the JAX function computes: int32 store planes,
+MUL/DIV and non-``lin_fit32`` linear rows in int64, each candidate
+clamped to [NINF, INF].
 
-``fixpoint`` and ``classify`` dispatch by device: a CPU tensor runs the
-plain version, a CUDA tensor launches the hand-written kernel
-(``kernels/csrc/fixpoint.cu``, ``classify.cu``) or raises.
+``fixpoint``, ``fixed_sweeps``, ``fixpoint_t`` (dive-minor (V, D)
+planes), ``fixpoint_wac1`` and ``classify`` dispatch by device: a CPU
+tensor runs the plain version, a CUDA tensor launches the hand-written
+kernel (``kernels/csrc/fixpoint.cu``, ``wac1.cu``, ``classify.cu``) or
+raises.
 
 The plain fixpoint freezes a lane once its mask drops (converged, bot or
 capped), as the kernel does; the JAX loop keeps sweeping every lane
 until the last lane converges. Sweeps are idempotent at a fixpoint, so
 the two agree on every lane whose store is not bot (store, ``iters``
-and ``unconv``), and on ``bot`` everywhere.
+and ``unconv``), and on ``bot`` everywhere. The plain WAC1 fixpoint
+freezes a lane the same way, and inside a sweep as soon as the lane is
+bot, as its kernel does: ``iters``, ``unconv`` and ``bot`` agree with
+the JAX function on every lane, the store on every lane that is not bot.
 """
 from __future__ import annotations
 
@@ -437,6 +442,139 @@ class PropagatorKernels:
         if lb.device.type != "cpu":
             raise RuntimeError(f"no fixpoint for device {lb.device}")
         return self.fixpoint_plain(lb, ub, max_iters)
+
+    def fixed_sweeps_plain(self, lb, ub, n: int):
+        """Exactly n AC-1 sweeps of every lane, no convergence check:
+        iters = n, unconv all false."""
+        z = torch.zeros(lb.shape[0], dtype=I32, device=lb.device)
+        if self.P == 0:
+            return lb, ub, z, z != 0
+        for _ in range(n):
+            lb, ub = self.iteration(lb, ub)
+        return lb, ub, z + n, z != 0
+
+    def fixed_sweeps(self, lb, ub, n: int):
+        if lb.is_cuda:
+            from ..kernels import fixpoint as k_fixpoint
+            return k_fixpoint.fixed_sweeps(self.kernel_plan, lb, ub, int(n))
+        if lb.device.type != "cpu":
+            raise RuntimeError(f"no fixed sweeps for device {lb.device}")
+        return self.fixed_sweeps_plain(lb, ub, n)
+
+    def fixpoint_t_plain(self, lbT, ubT, max_iters: int = 100000):
+        """The AC-1 fixpoint on dive-minor (V, D) planes: the sweep is
+        the one of ``iteration`` whatever the layout. Returns (lbT, ubT,
+        iters, unconv)."""
+        lb, ub, iters, m = self.fixpoint_plain(
+            lbT.t().contiguous(), ubT.t().contiguous(), max_iters)
+        return lb.t().contiguous(), ub.t().contiguous(), iters, m
+
+    def fixpoint_t(self, lbT, ubT, max_iters: int = 100000):
+        if lbT.is_cuda:
+            from ..kernels import fixpoint as k_fixpoint
+            return k_fixpoint.transposed(self.kernel_plan, lbT, ubT,
+                                         int(max_iters))
+        if lbT.device.type != "cpu":
+            raise RuntimeError(f"no fixpoint for device {lbT.device}")
+        return self.fixpoint_t_plain(lbT, ubT, max_iters)
+
+    # -- WAC1: per-group local fixpoints ---------------------------------
+
+    def _meet(self, lb, ub, idx, cl, cu, run):
+        """Scatter-meet candidates (D, n) into variables ``idx`` (n,) on
+        the lanes of ``run``, each candidate clamped to the root box
+        first (on a store inside the box this is the JAX function's clamp
+        after the meet). Returns (lb, ub, changed (D,))."""
+        dp = self.dp
+        ix = idx[None, :].expand(lb.shape[0], -1)
+        cl = torch.minimum(cl, dp.ub_cap[idx][None, :])
+        cu = torch.maximum(cu, dp.lb_floor[idx][None, :])
+        lb2 = lb.scatter_reduce(1, ix, cl, "amax")
+        ub2 = ub.scatter_reduce(1, ix, cu, "amin")
+        ch = run & ((lb2 != lb) | (ub2 != ub)).any(dim=1)
+        return (_where(run[:, None], lb2, lb), _where(run[:, None], ub2, ub),
+                ch)
+
+    def sweep_wac1_plain(self, lb, ub, inner_cap: int = 16):
+        """One WAC1 sweep: every op-group to its local fixpoint (Jacobi
+        inside the group, at most ``inner_cap`` iterations) in group
+        order, then one scatter-meet pass of the element rows, the
+        membership rows and each linear bucket in turn. A lane leaves the
+        sweep once it is bot. Returns (lb, ub, changed (D,), bot (D,))."""
+        dp = self.dp
+        bot = self.is_bot(lb, ub)
+        alive = torch.ones_like(bot)
+        changed = torch.zeros_like(bot)
+        for op, a, b in dp.group_slices:
+            xs, ys, zs = dp.all_x[a:b], dp.all_y[a:b], dp.all_z[a:b]
+            idx = torch.cat([xs, ys, zs])
+            run = alive
+            for _ in range(inner_cap):
+                if not bool(run.any()):
+                    break
+                cxl, cxu, cyl, cyu, czl, czu = _deduce_group(
+                    op, lb[:, xs], ub[:, xs], lb[:, ys], ub[:, ys],
+                    lb[:, zs], ub[:, zs])
+                lb, ub, ch = self._meet(
+                    lb, ub, idx, torch.cat([cxl, cyl, czl], dim=1),
+                    torch.cat([cxu, cyu, czu], dim=1), run)
+                changed = changed | ch
+                bot = bot | (ch & self.is_bot(lb, ub))
+                run = ch & ~bot
+            alive = alive & ~bot
+        run = alive
+        ch = torch.zeros_like(bot)
+        if dp.E:
+            il, ih, rl, rh = self._element_cands(lb, ub)
+            lb, ub, c = self._meet(lb, ub, torch.cat([dp.e_idx, dp.e_res]),
+                                   torch.cat([il, rl], dim=1),
+                                   torch.cat([ih, rh], dim=1), run)
+            ch = ch | c
+        if dp.M:
+            xl, xh, bl, bh = self._member_cands(lb, ub)
+            lb, ub, c = self._meet(lb, ub, torch.cat([dp.m_x, dp.m_b]),
+                                   torch.cat([xl, bl], dim=1),
+                                   torch.cat([xh, bh], dim=1), run)
+            ch = ch | c
+        for bk in dp.lin:
+            tl, th, b_lo, b_hi = self._linear_bucket_cands(lb, ub, bk)
+            lb, ub, c = self._meet(lb, ub,
+                                   torch.cat([bk.var.reshape(-1), bk.b]),
+                                   torch.cat([tl, b_lo], dim=1),
+                                   torch.cat([th, b_hi], dim=1), run)
+            ch = ch | c
+        return lb, ub, changed | ch, _where(run, self.is_bot(lb, ub), bot)
+
+    def fixpoint_wac1_plain(self, lb, ub, max_iters: int = 100000,
+                            inner_cap: int = 16):
+        """WAC1 fixpoint: ``sweep_wac1_plain`` until a lane's sweep
+        changes nothing, the lane is bot, or ``max_iters``. Returns (lb,
+        ub, sweeps + 1 (D,) int32, unconv (D,) bool)."""
+        D = lb.shape[0]
+        z = torch.zeros(D, dtype=I32, device=lb.device)
+        if self.P == 0:
+            return lb, ub, z, z != 0
+        m = z == 0
+        sweeps = z
+        it = 0
+        while it < max_iters and bool(m.any()):
+            lb2, ub2, ch, bot = self.sweep_wac1_plain(lb, ub, inner_cap)
+            sweeps = sweeps + m.to(I32)
+            lb = _where(m[:, None], lb2, lb)
+            ub = _where(m[:, None], ub2, ub)
+            m = m & ch & ~bot
+            it += 1
+        return lb, ub, sweeps + 1, m
+
+    def fixpoint_wac1(self, lb, ub, max_iters: int = 100000,
+                      inner_cap: int = 16):
+        if lb.is_cuda:
+            from ..kernels import wac1 as k_wac1
+            return k_wac1(self.kernel_plan, lb, ub, int(max_iters),
+                          int(inner_cap))
+        if lb.device.type != "cpu":
+            raise RuntimeError(f"no WAC1 fixpoint for device {lb.device}")
+        return self.fixpoint_wac1_plain(lb, ub, max_iters, inner_cap)
 
     # -- classification ------------------------------------------------
 

@@ -2,8 +2,14 @@
 
 A step of ``BatchedSolver.step_plain`` on a CUDA state, in place:
 
-    K6 step.pre -> K1 fixpoint -> K2 classify -> K3 select
+    K6 step.pre -> propagation -> K2 classify -> K3 select
     -> K6 step.post -> K7 step_tail.scan -> K7 step_tail.copy
+
+The propagation launch is K1 (``fp_mode="fixpoint"``, layout ``dv``), its
+fixed-sweeps entry (``"fixed"``), K8 (``"wac1"``), or, for layout
+``vd``, K1's transposed entry between two transposing copies into and
+out of (V, D) planes kept in the ``Workspace``; each runs in place and
+takes the step's ``live`` flag.
 
 ``run`` enqueues a chunk of n steps after one ``step_tail.live`` launch
 that sets the device flag ``live`` (some lane not IDLE) and zeroes the
@@ -49,6 +55,8 @@ class Workspace:
 
         self.iters, self.unconv = e(I32), e(BOOL)
         self.cand = e(I32, D, 2, dp.n_cand)
+        if solver.cfg.fp_mode == "fixpoint" and solver.cfg.fp_layout == "vd":
+            self.lbT, self.ubT = e(I32, dp.V, D), e(I32, dp.V, D)
         self.bot, self.ent = e(BOOL), e(BOOL)
         self.sel = (e(BOOL),) + tuple(e(I32) for _ in range(7))
         self.strat0, self.nxt, self.newidx, self.ridx = (e(I32) for _ in
@@ -163,6 +171,32 @@ def _capture(solver, st, sv, n, cap):
     return g, captured
 
 
+def propagate(solver, st, cap, live):
+    """The step's propagation launch, in place on ``st.lb`` / ``st.ub``,
+    by ``fp_mode`` and ``fp_layout``; iters and unconv go to the
+    workspace."""
+    from .. import kernels
+    cfg, ws = solver.cfg, solver._ws
+    kp = solver.kernels.kernel_plan
+    out = (st.lb, st.ub, ws.iters, ws.unconv, ws.cand)
+    if cfg.fp_mode == "fixed":
+        kernels.fixpoint.fixed_sweeps(kp, st.lb, st.ub, cfg.fp_fixed_iters,
+                                      live=live, out=out)
+    elif cfg.fp_mode == "wac1":
+        kernels.wac1(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap, live=live,
+                     out=out)
+    elif cfg.fp_layout == "vd":
+        ws.lbT.copy_(st.lb.t())
+        ws.ubT.copy_(st.ub.t())
+        kernels.fixpoint.transposed(
+            kp, ws.lbT, ws.ubT, cap, live=live,
+            out=(ws.lbT, ws.ubT, ws.iters, ws.unconv, ws.cand))
+        st.lb.copy_(ws.lbT.t())
+        st.ub.copy_(ws.ubT.t())
+    else:
+        kernels.fixpoint(kp, st.lb, st.ub, cap, live=live, out=out)
+
+
 def _enqueue(solver, st, sv, n, cap):
     """Launch the live flag and n steps on the current stream."""
     from .. import kernels
@@ -173,8 +207,7 @@ def _enqueue(solver, st, sv, n, cap):
     for i in range(n):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
         kernels.step.pre(sv, cur, dev)
-        kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur,
-                         out=(st.lb, st.ub, ws.iters, ws.unconv, ws.cand))
+        propagate(solver, st, cap, cur)
         kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
         kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
         kernels.step.post(sv, cur, dev, kp.smem_limit)
