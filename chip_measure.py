@@ -26,6 +26,20 @@ then runs the default CLI on golomb(M) for S seconds as a separate
 process in DIR and in this checkout, in the order DIR, this, this, DIR,
 so that both trees meet the same card and host in turn; one JSON line
 each, with ``"tree"`` the directory.
+
+``--k1-ab DIR`` runs only K1 and the EPS table build of DIR against this
+checkout, each tree in a process of its own (its own
+``turbo_tpu_torch``), in the order DIR, this, this, DIR. A process
+prints one JSON line: K1's ``-Xptxas -v`` line; for golomb(12) at D=512
+and 2048 and golomb(8) at D=1024 the time to upload the kernel tables
+and three table builds in turn (the first cold: lazy module loads and
+first allocations), each with its K1 launches, rows and K1 ms (CUDA
+events) and the wall time of its first ``dive_level`` call against the
+others'; before them, the process's first upload of the kernel tables,
+table by table; and K1 alone (median of 15) on ``chip_smoke.random_stores``
+at the shapes, seeds and caps of ``K1_CASES``, with the sweeps its
+slowest dive needed. Then the default CLI on golomb(12) with ``-t 5000``
+in each tree in the same order, for its cold ``table_build_time``.
 """
 import argparse
 import contextlib
@@ -41,6 +55,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "measure"
 CONFIGS = ("cli", "cli_table_off", "api_table_cap10000",
            "api_table_off_cap10000")
+# (golomb marks, D, seed of the stores, cap): phase 3's stores of
+# chip_smoke.py (golomb(12) seed 4, golomb(8) seed 5), other seeds, and
+# the table build's cap over more than one wave of blocks.
+K1_CASES = ((12, 512, 4, 10000), (12, 512, 5, 10000), (12, 1024, 5, 1 << 30),
+            (12, 2048, 5, 1 << 30), (8, 1024, 5, 10000), (8, 2048, 5, 1 << 30))
 
 
 def run_one(name, path, text, seconds):
@@ -113,6 +132,117 @@ def run_tree(tree, path, seconds):
             "table_build_time": float(stats.get("table_build_time", 0.0))}
 
 
+def k1_child(tree, dev="cuda:0"):
+    """K1 and the table build of checkout ``tree``, imported from there,
+    in this process, on ``dev``; one JSON line."""
+    import time
+    import numpy as np
+    import torch
+    from chip_smoke import median_ms, ptxas_lines, random_stores
+    sys.path.insert(0, str(tree))  # after chip_smoke: this checkout's
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.instances import golomb
+    from turbo_tpu_torch.kernels import build as kbuild
+    from turbo_tpu_torch.solver import eps_table
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+    kernels.load()
+    log_file = kbuild.BUILD_DIR / "build.log"
+    rec = {"tree": str(tree), "module": str(pathlib.Path(kernels.__file__)),
+           "k1_ptxas": ptxas_lines(log_file.read_text() if log_file.exists()
+                                   else "", "fixpoint_kernel")}
+    solvers = {}
+    for m, D in ((12, 512), (12, 2048), (8, 1024)):
+        s = BatchedSolver(compile_model(parse_fzn_text(golomb(m))),
+                          EngineConfig(num_dives=D), device=dev)
+        if not solvers:
+            # The process's first upload of kernel tables, table by table
+            # (the four slowest): what a one-time cost of the first
+            # KernelPlan is made of.
+            up = {}
+            for name, v in kernels.kernel_tables(s.dp).items():
+                if isinstance(v, np.ndarray):
+                    t0 = time.monotonic()
+                    torch.as_tensor(v).to(dev)
+                    torch.cuda.synchronize()
+                    up[name] = (v.nbytes, time.monotonic() - t0)
+            rec["first upload (bytes, s)"] = dict(sorted(
+                up.items(), key=lambda kv: -kv[1][1])[:4])
+        solvers.setdefault(m, s)
+        t0 = time.monotonic()
+        s.kernels.kernel_plan  # noqa: B018 (uploads the tables)
+        torch.cuda.synchronize()
+        out = {"tables_s": time.monotonic() - t0, "builds": []}
+        for _ in range(3):
+            launches = []
+            plain = s.kernels.fixpoint
+
+            def timed(lb, ub, cap):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                res = plain(lb, ub, cap)
+                ev[1].record()
+                launches.append((ev, lb.shape[0]))
+                return res
+            levels = []  # wall s of each dive_level call, synchronized
+            level = eps_table.dive_level
+
+            def timed_level(*args):
+                t0 = time.monotonic()
+                res = level(*args)
+                torch.cuda.synchronize()
+                levels.append(time.monotonic() - t0)
+                return res
+            s.kernels.fixpoint = timed
+            eps_table.dive_level = timed_level
+            try:
+                tab = eps_table.build_table(s)
+            finally:
+                del s.kernels.fixpoint
+                eps_table.dive_level = level
+            torch.cuda.synchronize()
+            out["builds"].append({
+                "s": tab.build_time, "k1_launches": len(launches),
+                "rows": sum(n for _, n in launches),
+                "k1_ms": sum(a.elapsed_time(b) for (a, b), _ in launches),
+                "first_level_s": levels[0], "other_levels_s": sum(levels[1:])})
+        rec[f"golomb({m}) D={D} table build"] = out
+    for m, D, seed, cap in K1_CASES:
+        s = solvers[m]
+        kp = s.kernels.kernel_plan
+        lb, ub = (torch.as_tensor(a, device=dev) for a in random_stores(
+            s.plan, None, D, np.random.default_rng(seed), None))
+        iters = kernels.fixpoint(kp, lb, ub, cap)[2]
+        rec[f"K1 golomb({m}) D={D} seed {seed} cap {cap}"] = {
+            "ms": median_ms(lambda: kernels.fixpoint(kp, lb, ub, cap)),
+            "max_sweeps": int(iters.max()) - 1,
+            "sweeps": int(iters.long().sum()) - D}
+    print(json.dumps(rec), flush=True)
+
+
+def k1_ab(other, seconds=5.0):
+    """``--k1-ab``: ``k1_child`` and a short default CLI run on golomb(12)
+    in checkout ``other`` and in this one, in turns."""
+    from turbo_tpu_torch.instances import golomb
+    trees = [pathlib.Path(t).resolve() for t in (other, ROOT, ROOT, other)]
+    for tree in trees:
+        r = subprocess.run([sys.executable, str(ROOT / "chip_measure.py"),
+                            "--k1-child", str(tree)], capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            raise RuntimeError(f"{tree}: --k1-child returned {r.returncode}:"
+                               f" {r.stderr[-3000:]}")
+        print(r.stdout.strip().splitlines()[-1], flush=True)
+    path = OUT / "golomb12.fzn"
+    path.write_text(golomb(12))
+    for tree in trees:
+        print(json.dumps({"instance": "golomb(12)", "config": "cli",
+                          "tree": str(tree),
+                          **run_tree(tree, path, seconds)}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=2)
@@ -120,7 +250,12 @@ def main():
     ap.add_argument("--big", type=int, default=12)
     ap.add_argument("--configs", default=",".join(CONFIGS))
     ap.add_argument("--ab", default="")
+    ap.add_argument("--k1-ab", default="")
+    ap.add_argument("--k1-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.k1_child:
+        k1_child(pathlib.Path(args.k1_child))
+        return 0
     configs = args.configs.split(",")
     unknown = set(configs) - set(CONFIGS)
     if unknown:
@@ -137,6 +272,9 @@ def main():
           f"{torch.version.cuda}", flush=True)
     kernels.load()
     OUT.mkdir(parents=True, exist_ok=True)
+    if args.k1_ab:
+        k1_ab(args.k1_ab)
+        return 0
     for m in (8, args.big):
         text = golomb(m)
         path = OUT / f"golomb{m}.fzn"

@@ -10,15 +10,17 @@ phase 3c). Phases (any failure exits non-zero):
 3. each kernel against its plain torch version on the same CUDA tensors,
    every output exactly equal (tolerance 0: all integer), with the median
    time of both: K1-K3 on 4 seeded random models at D=1024 with randomly
-   narrowed stores and stores fixed at a solution, and on golomb(12) at
-   D=512; K4 (embed and table refill) and K5 (open-branch count) on
+   narrowed stores and stores fixed at a solution, and on golomb(8) at
+   D=1024 and golomb(12) at D=512; K4 (embed and table refill) and K5 (open-branch count) on
    random stores, table rows, masks and stacks at golomb(12)'s shapes
    (W=D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
    K8 (WAC1: outer caps 2 and 10000, inner caps 1 and 16; iters, unconv
    and bot of every lane, the store of every lane that is not bot) and
    K1's other entries (2 and 5 fixed sweeps; the fixpoint on transposed
    (V, D) planes at caps 2 and 10000), each on the shared-memory and the
-   global-memory path. The golomb(12) times go into the JSON line;
+   global-memory path (K1's fixpoint entry at caps 2 and 10000 on both).
+   K1's ``-Xptxas -v`` lines (registers, shared memory, spills) are
+   printed. The golomb(12) times go into the JSON line;
 3b. K6 and K7 (the step's own kernels) against the plain step on the
    same CUDA state, every SearchState field exactly equal after 1, 7 and
    40 steps, and the kernels' step counter equal to the plain steps
@@ -29,7 +31,9 @@ phase 3c). Phases (any failure exits non-zero):
    (``fp_layout="vd"``) on golomb(12) and on random models; then, on
    each golomb(12) state, the time of each kernel entry inside real
    steps (CUDA events between the launches) against the plain step's
-   three parts, and the fixpoint iterations per node;
+   three parts, and the fixpoint iterations per node; then the K1 step
+   again from the same state with K1 built with ``-DTT_K1_NO_SKIP`` (no
+   skip of unmoved rules) and as built, in turns (on, off, off, on);
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
    sync inside a chunk fails the phase), launches per step, wall time
@@ -37,7 +41,8 @@ phase 3c). Phases (any failure exits non-zero):
    time per step, for the kernel route and for the plain step; then the
    same chunk captured once in a CUDA graph and replayed; the same loop
    (without the plain step) under ``wac1``, ``fixed`` and ``vd``, the
-   last against ``dv`` in turns (dv, vd, vd, dv);
+   last against ``dv`` in turns (dv, vd, vd, dv), then K1 without the
+   skip against K1 as built (off, off, on);
 4. the solver API on the card against the port's engine on the CPU with
    the plain versions, on 6 small seeded models, steal and resplit
    stubbed out on both: nodes, failures, solutions and fixpoint
@@ -47,6 +52,11 @@ phase 3c). Phases (any failure exits non-zero):
    resplit) on the same models against the shared numpy oracle: status
    and objective equal;
 5. golomb(8) through the default CLI proven optimal at 34;
+5b. golomb(8) with the cap pinned at 16 (table on, auto D, steal and
+   resplit stubbed out): the kernel engine and the plain engine
+   (``step_plain`` and the plain fixpoint, classify and select, also in
+   the table build) on the card give the same status, objective, nodes,
+   failures, solutions and fixpoint iterations;
 6. the main path: golomb(12) through the default CLI at full width
    (``-or 0``, ``-t 60000``): every printed solution checked against the
    model by ``utils/checker.py``; the table build time, live table rows,
@@ -139,6 +149,19 @@ def nvidia_smi():
             f"nvidia-smi failed: {r.stderr.strip()}"
     except (OSError, subprocess.SubprocessError, IndexError) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def ptxas_lines(log_text, kernel):
+    """The ``-Xptxas -v`` lines of one kernel in a build log: its entry,
+    stack and spills, registers and shared memory."""
+    out, on = [], False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        if on and ("Compiling entry" in line or "spill" in line
+                   or "registers" in line):
+            out.append(line.strip())
+    return out
 
 
 def median_ms(fn, reps=15):
@@ -255,6 +278,9 @@ def phase_kernels(torch, dev):
     """Each kernel vs its plain version on the same CUDA tensors."""
     import numpy as np
     from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.kernels import build as kbuild
+    log("  K1 (-Xptxas -v): " + " | ".join(
+        ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.host.solver import oracle
@@ -266,12 +292,16 @@ def phase_kernels(torch, dev):
                           "fixpoint.fixed_sweeps", "fixpoint.transposed"), 0)
     times = {}
     sweeps = {}
-    # Exactness on 4 random models at D=1024; exactness and the reported
-    # times at the main path's full-width shape, golomb(12) at D=512.
+    # Exactness on 4 random models at D=1024; exactness and times at
+    # golomb(8)'s auto D=1024; exactness and the reported times at the
+    # main path's full-width shape, golomb(12) at D=512 (the last).
+    # (label, model, D, seed of the stores): golomb(12) keeps seed 4, the
+    # stores of the earlier times in PERF.md.
     models = [(f"random_model({100 + i})", random_model(100 + i, n_vars=10,
-                                                        n_cons=40), 1024)
-              for i in range(4)] + [("golomb(12)", golomb(12), 512)]
-    for seed, (label, text, D) in enumerate(models):
+                                                        n_cons=40), 1024, i)
+              for i in range(4)] + [("golomb(8)", golomb(8), 1024, 5),
+                                    ("golomb(12)", golomb(12), 512, 4)]
+    for label, text, D, seed in models:
         tnf = compile_model(parse_fzn_text(text))
         sol = (oracle.solve(tnf, timeout_s=30).best_lb
                if label.startswith("random") else None)
@@ -293,6 +323,8 @@ def phase_kernels(torch, dev):
             ("fixpoint", lambda: kernels.fixpoint(kp, lb, ub, 10000,
                                                   smem=False),
              lambda: pk.fixpoint_plain(lb, ub, 10000)),
+            ("fixpoint", lambda: kernels.fixpoint(kp, lb, ub, 2, smem=False),
+             lambda: pk.fixpoint_plain(lb, ub, 2)),
             ("classify", lambda: kernels.classify(kp, lb, ub),
              lambda: pk.classify_plain(lb, ub)),
         ]
@@ -596,9 +628,44 @@ def phase_step_kernels(torch, dev):
             big.append((label, s, st_k, cap))
     out = None
     for label, s, st, cap in big:
+        st0 = clone_state(st)
         res = time_step_parts(torch, label, s, st, cap)
-        out = out or res  # the JSON line's K6 and K7: the step with K1
+        if out is None:  # the JSON line's K6 and K7: the step with K1
+            out = res
+            k1_turns(torch, label, s, st0, cap)
     return out
+
+
+def k1_turns(torch, label, s, st, cap):
+    """K1's time in the step from the same state ``st``, built without
+    the skip and as built in turns (on, off, off, on)."""
+    from turbo_tpu_torch import kernels
+    kp = s.kernels.kernel_plan
+    for no_skip in (False, True, True, False):
+        name = "without the skip" if no_skip else "as built"
+        with k1_build(no_skip):
+            time_step_parts(torch, f"{label}, K1 {name}", s,
+                            clone_state(st), cap)
+            # K1 alone on the state's stores, by cap: the first sweep
+            # against the later ones.
+            ms = {c: median_ms(lambda c=c: kernels.fixpoint(
+                kp, st.lb, st.ub, c)) for c in (1, 2, 4, 16)}
+            log(f"    K1 alone ({name}), ms by cap: " + ", ".join(
+                f"{c}: {t:.4f}" for c, t in ms.items()))
+
+
+@contextlib.contextmanager
+def k1_build(no_skip):
+    """The wrappers launch from the build without K1's skip (its
+    ``-Xptxas -v`` line logged) when ``no_skip``, else as built."""
+    from turbo_tpu_torch.kernels import build as kbuild
+    if not no_skip:
+        yield
+        return
+    with kbuild.k1_without_skip():
+        log("  -DTT_K1_NO_SKIP: K1 (-Xptxas -v): " + " | ".join(
+            ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
+        yield
 
 
 def time_step_parts(torch, label, s, st, cap, steps=20):
@@ -708,14 +775,20 @@ def profile_steps(torch, fn, steps):
     return len(dev_events) / steps, busy_us / 1e3 / steps
 
 
-def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16):
+def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16,
+                    no_skip=False):
     """3c: the step loop on golomb(12), D=512, under the configuration
     ``kw``: no host sync inside a chunk (sync debug mode "error"),
     launches, wall and device time per step, for the kernels launched one
     by one and the same chunk replayed as a CUDA graph (the route
     ``run_steps`` takes once a chunk repeats); ``full``: the profile of
-    both routes and the plain step too. Returns the graph route's wall
-    ms per step."""
+    both routes and the plain step too; ``no_skip``: K1 from the build
+    without its skip. Returns the graph route's wall ms per step."""
+    with k1_build(no_skip):
+        return _step_loop(torch, dev, label, kw, full, chunk, cap)
+
+
+def _step_loop(torch, dev, label, kw, full, chunk, cap):
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
@@ -779,7 +852,34 @@ def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16):
     log(f"    plain step on the card: wall {wall:.3f} ms per step; " + (
         f"{pprof[0]:.1f} device kernels and {pprof[1]:.3f} ms device busy "
         "per step" if pprof else "profiler: no device time"))
+    # The chunk's live flag (K7 live, once per chunk): it reads the
+    # phases and writes two words.
+    ws, D = s._ws, s.cfg.num_dives
+    live_ms = median_ms(lambda: kernels.step_tail.live(st.phase, ws.live[0],
+                                                       ws.steps))
+    live_bound = bound(4 * D + 8, D)
+    log(f"    K7 live (once per chunk): {live_ms:.4f} ms, bound "
+        f"{live_bound[0]:.7f} ms ({live_bound[1]})")
     return out["CUDA graph"]
+
+
+def plain_engine(s):
+    """Solver ``s`` with the plain versions in place of the kernels: the
+    step is ``step_plain`` and the fixpoint, classify and select (also in
+    the table build) are the plain torch functions. Returns ``s``."""
+    import torch
+    pk = s.kernels
+    pk.fixpoint, pk.classify = pk.fixpoint_plain, pk.classify_plain
+    s._select = s._select_plain
+
+    def run_steps(st, n, cap=0):
+        count = torch.zeros((), dtype=torch.int32, device=st.lb.device)
+        for _ in range(n):
+            st, live = s.step_plain(st, cap)
+            count += live.to(torch.int32)
+        return st, count
+    s.run_steps = run_steps
+    return s
 
 
 def counted(label, fn, required=()):
@@ -835,6 +935,7 @@ def run_path(torch, dev, big=12):
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.host.solver import oracle
+    from turbo_tpu_torch.host.solver.plan import auto_num_dives
     from turbo_tpu_torch.instances import (GOLOMB_OPT, QUEENS_COUNT, golomb,
                                            queens, random_model)
     from turbo_tpu_torch.solver.config import EngineConfig
@@ -910,6 +1011,30 @@ def run_path(torch, dev, big=12):
     log("[5] golomb(8) proof, default CLI")
     paths["default CLI, golomb(8)"] = counted("the default CLI, golomb(8)",
                                               golomb8_proof)
+
+    log("[5b] golomb(8), cap pinned at 16: kernel engine vs plain engine")
+
+    def golomb8_pinned():
+        tnf8 = compile_model(parse_fzn_text(golomb(8)))
+        cfg = EngineConfig(num_dives=auto_num_dives(tnf8), fp_cap_auto=False)
+        res = {}
+        for name in ("kernels", "plain"):
+            s = no_tail(BatchedSolver(tnf8, cfg, device=dev))
+            if name == "plain":
+                plain_engine(s)
+            t0 = time.monotonic()
+            r = s.solve(fp_cap=16)
+            res[name] = (r.status, r.objective, r.nodes, r.fails,
+                         r.solutions, r.fixpoint_iterations)
+            log(f"  {name}: status/obj/nodes/fails/sols/fp_iters {res[name]}"
+                f", {time.monotonic() - t0:.1f} s")
+        if res["kernels"] != res["plain"] or res["kernels"][:2] != (
+                "optimal", 34):
+            fail(f"golomb(8) pinned: kernels {res['kernels']} vs plain "
+                 f"{res['plain']}")
+    paths["golomb(8), cap 16, kernels vs plain"] = counted(
+        "golomb(8), cap 16, kernel engine vs plain engine", golomb8_pinned,
+        required=step_kernels + table_kernels)
 
     text = golomb(big)
     model = parse_fzn_text(text)
@@ -1234,19 +1359,28 @@ def main():
     log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
     kres.update(phase_step_kernels(torch, dev))
     log("[3c] step loop, golomb(12), D=512, cap 16: K1 (dv), K8, fixed "
-        "sweeps, and the vd entry against dv in turns")
-    loops = [("fp_mode fixpoint, layout dv, table on", {}, True),
-             ("fp_mode wac1, table on", dict(fp_mode="wac1"), False),
+        "sweeps, the vd entry against dv and K1 without the skip against "
+        "K1, in turns")
+    loops = [("fp_mode fixpoint, layout dv, table on", {}, True, False),
+             ("fp_mode wac1, table on", dict(fp_mode="wac1"), False, False),
              ("fp_mode fixed (2 sweeps), no table", dict(fp_mode="fixed"),
+              False, False),
+             ("layout vd, table on", dict(fp_layout="vd"), False, False),
+             ("layout vd, table on (again)", dict(fp_layout="vd"), False,
               False),
-             ("layout vd, table on", dict(fp_layout="vd"), False),
-             ("layout vd, table on (again)", dict(fp_layout="vd"), False),
-             ("layout dv, table on (again)", {}, False)]
-    walls = {label: phase_step_loop(torch, dev, label, kw, full)
-             for label, kw, full in loops}
+             ("layout dv, table on (again)", {}, False, False),
+             ("layout dv, table on, K1 without the skip", {}, False, True),
+             ("layout dv, table on, K1 without the skip (again)", {}, False,
+              True),
+             ("layout dv, table on (third)", {}, False, False)]
+    walls = {label: phase_step_loop(torch, dev, label, kw, full, no_skip=n)
+             for label, kw, full, n in loops}
     log("  CUDA-graph wall ms per step, dv / vd / vd / dv: " + " / ".join(
         ", ".join(f"{w:.3f}" for w in walls[loops[i][0]])
         for i in (0, 3, 4, 5)))
+    log("  CUDA-graph wall ms per step, K1 skip on / off / off / on: "
+        + " / ".join(", ".join(f"{w:.3f}" for w in walls[loops[i][0]])
+                     for i in (5, 6, 7, 8)))
     if "--kernels-only" in sys.argv[1:]:
         log("--kernels-only: stopping after phase 3c")
         sys.exit(0)

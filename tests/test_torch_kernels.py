@@ -3,7 +3,8 @@
 The kernels (turbo_tpu_torch/kernels/csrc/*.cu) cannot run here, so
 this file transliterates them line for line into scalar Python over the
 very tables the wrappers upload (``kernel_tables``): one dive at a time,
-phase A then phase B per sweep, CSR combine, conflict fold, block
+K1's scatter-meet into the second store routed by ``slot_tgt``, the
+clamp pass and the skip of rules whose variables did not move; the block
 argmin; K8 (WAC1) pass by pass, candidates first and the meets after;
 and K6/K7 (the step around K1-K3) one lane at a time over the state.
 The emulation must equal the plain torch versions, which
@@ -135,103 +136,163 @@ def member_count(t, i, lx, ux):
     return int(t["m_cnt"][i * (W + 1) + wh]) - int(t["m_cnt"][i * (W + 1) + wl])
 
 
+def tnf_cands(t, p, lb, ub):
+    """(slot, lo, hi) of TNF propagator p's three roles."""
+    P = t["P"]
+    x, y, z = int(t["px"][p]), int(t["py"][p]), int(t["pz"][p])
+    c = deduce(int(t["prop_op"][p]), lb[x], ub[x], lb[y], ub[y], lb[z], ub[z])
+    return [(r * P + p, c[2 * r], c[2 * r + 1]) for r in range(3)]
+
+
+def elem_cands(t, i, lb, ub):
+    P, E, T = t["P"], t["E"], t["T"]
+    n = int(t["e_len"][i])
+    li, ui = lb[t["e_idx"][i]], ub[t["e_idx"][i]]
+    lr, ur = lb[t["e_res"][i]], ub[t["e_res"][i]]
+    ok = [j for j in range(T) if w32(li - 1) <= j <= w32(ui - 1) and j < n
+          and lr <= t["e_tab"][i * T + j] <= ur]
+    vals = [int(t["e_tab"][i * T + j]) for j in ok]
+    return [(3 * P + i, (min(ok) if ok else INF - 1) + 1,
+             (max(ok) if ok else NINF - 1) + 1),
+            (3 * P + E + i, min(vals, default=INF), max(vals, default=NINF))]
+
+
+def member_cands(t, i, lb, ub):
+    P, E, M, W = t["P"], t["E"], t["M"], t["W"]
+    base, top = int(t["m_base"][i]), int(t["m_top"][i])
+    lx, ux = lb[t["m_x"][i]], ub[t["m_x"][i]]
+    c = member_count(t, i, lx, ux)
+    width = ux - lx + 1
+    wl = min(max(w32(lx - base), 0), W - 1)
+    wh = min(max(w32(ux - base), 0), W - 1)
+    nge = INF if lx > top else int(t["m_next_ge"][i * W + wl])
+    ple = NINF if ux < base else int(t["m_prev_le"][i * W + wh])
+    nout = int(t["m_next_out"][i * W + wl]) if base <= lx <= top else lx
+    pout = int(t["m_prev_out"][i * W + wh]) if base <= ux <= top else ux
+    tt, ff = lb[t["m_b"][i]] >= 1, ub[t["m_b"][i]] <= 0
+    s = 3 * P + 2 * E + i
+    return [(s, clip(nge if tt else (nout if ff else NINF)),
+             clip(ple if tt else (pout if ff else INF))),
+            (s + M, int(c == width and width > 0), int(c > 0))]
+
+
+def linear_cands(t, r, lb, ub):
+    """The reified linear row r: its b slot, then one slot per term with
+    a nonzero coefficient."""
+    terms = lin_terms(t, r, lb, ub)
+    smin = sum(a for _, a, _ in terms)
+    smax = sum(b for _, _, b in terms)
+    rhs, is_eq = int(t["l_rhs"][r]), t["l_op"][r] == 1
+    out = [(t["base_linb"] + r,
+            int(smin == rhs == smax) if is_eq else int(smax <= rhs),
+            int(smin <= rhs <= smax) if is_eq else int(smin <= rhs))]
+    tt, ff = lb[t["l_b"][r]] >= 1, ub[t["l_b"][r]] <= 0
+    ge_act, le_act = (is_eq and tt) or (not is_eq and ff), tt
+    rhs2 = rhs if is_eq else rhs + 1
+    for k, (c, tmin, tmax) in enumerate(terms):
+        if c == 0:
+            continue
+        R, R2 = rhs - (smin - tmin), rhs2 - (smax - tmax)
+        if t["l_flags"][r] & 1:
+            q_le = ceil_le = R * c
+            q_ge = ceil_ge = R2 * c
+        else:
+            q_le, q_ge = fdiv(R, c), fdiv(R2, c)
+            ceil_le = q_le + int(R - q_le * c != 0)
+            ceil_ge = q_ge + int(R2 - q_ge * c != 0)
+        hi = min(q_le if le_act and c > 0 else INF,
+                 q_ge if ge_act and c < 0 else INF)
+        lo = max(ceil_le if le_act and c < 0 else NINF,
+                 ceil_ge if ge_act and c > 0 else NINF)
+        out.append((t["base_lin"] + int(t["l_toff"][r]) + k, clip(lo),
+                    clip(hi)))
+    return out
+
+
+def rules(t):
+    """Every rule in the kernel's order, as (its variables, its
+    candidates from a store)."""
+    for p in range(t["P"]):
+        yield ((t["px"][p], t["py"][p], t["pz"][p]),
+               lambda lb, ub, p=p: tnf_cands(t, p, lb, ub))
+    for i in range(t["E"]):
+        yield ((t["e_idx"][i], t["e_res"][i]),
+               lambda lb, ub, i=i: elem_cands(t, i, lb, ub))
+    for i in range(t["M"]):
+        yield ((t["m_x"][i], t["m_b"][i]),
+               lambda lb, ub, i=i: member_cands(t, i, lb, ub))
+    for r in range(t["L"]):
+        o = t["l_toff"][r]
+        yield ((t["l_b"][r], *t["l_var"][o:o + t["l_K"][r]]),
+               lambda lb, ub, r=r: linear_cands(t, r, lb, ub))
+
+
 def phase_a(t, lb, ub):
-    P, E, M = t["P"], t["E"], t["M"]
+    """Every rule's candidates from one store, in the candidate planes
+    (K8 meets a pass's slots after the pass)."""
     cl = [None] * t["n_cand"]
     cu = [None] * t["n_cand"]
-    for p in range(P):
-        x, y, z = int(t["px"][p]), int(t["py"][p]), int(t["pz"][p])
-        c = deduce(int(t["prop_op"][p]), lb[x], ub[x], lb[y], ub[y], lb[z], ub[z])
-        for r in range(3):
-            cl[r * P + p], cu[r * P + p] = c[2 * r], c[2 * r + 1]
-    T = t["T"]
-    for i in range(E):
-        n = int(t["e_len"][i])
-        li, ui = lb[t["e_idx"][i]], ub[t["e_idx"][i]]
-        lr, ur = lb[t["e_res"][i]], ub[t["e_res"][i]]
-        ok = [j for j in range(T) if w32(li - 1) <= j <= w32(ui - 1) and j < n
-              and lr <= t["e_tab"][i * T + j] <= ur]
-        vals = [int(t["e_tab"][i * T + j]) for j in ok]
-        cl[3 * P + i] = (min(ok) if ok else INF - 1) + 1
-        cu[3 * P + i] = (max(ok) if ok else NINF - 1) + 1
-        cl[3 * P + E + i] = min(vals, default=INF)
-        cu[3 * P + E + i] = max(vals, default=NINF)
-    W = t["W"]
-    for i in range(M):
-        base, top = int(t["m_base"][i]), int(t["m_top"][i])
-        lx, ux = lb[t["m_x"][i]], ub[t["m_x"][i]]
-        c = member_count(t, i, lx, ux)
-        width = ux - lx + 1
-        wl = min(max(w32(lx - base), 0), W - 1)
-        wh = min(max(w32(ux - base), 0), W - 1)
-        nge = INF if lx > top else int(t["m_next_ge"][i * W + wl])
-        ple = NINF if ux < base else int(t["m_prev_le"][i * W + wh])
-        nout = int(t["m_next_out"][i * W + wl]) if base <= lx <= top else lx
-        pout = int(t["m_prev_out"][i * W + wh]) if base <= ux <= top else ux
-        tt, ff = lb[t["m_b"][i]] >= 1, ub[t["m_b"][i]] <= 0
-        s = 3 * P + 2 * E + i
-        cl[s] = clip(nge if tt else (nout if ff else NINF))
-        cu[s] = clip(ple if tt else (pout if ff else INF))
-        cl[s + M], cu[s + M] = int(c == width and width > 0), int(c > 0)
-    for r in range(t["L"]):
-        terms = lin_terms(t, r, lb, ub)
-        smin = sum(a for _, a, _ in terms)
-        smax = sum(b for _, _, b in terms)
-        rhs, is_eq = int(t["l_rhs"][r]), t["l_op"][r] == 1
-        s = t["base_linb"] + r
-        cl[s] = int(smin == rhs == smax) if is_eq else int(smax <= rhs)
-        cu[s] = int(smin <= rhs <= smax) if is_eq else int(smin <= rhs)
-        tt, ff = lb[t["l_b"][r]] >= 1, ub[t["l_b"][r]] <= 0
-        ge_act, le_act = (is_eq and tt) or (not is_eq and ff), tt
-        rhs2 = rhs if is_eq else rhs + 1
-        for k, (c, tmin, tmax) in enumerate(terms):
-            if c == 0:
-                continue
-            R, R2 = rhs - (smin - tmin), rhs2 - (smax - tmax)
-            if t["l_flags"][r] & 1:
-                q_le = ceil_le = R * c
-                q_ge = ceil_ge = R2 * c
-            else:
-                q_le, q_ge = fdiv(R, c), fdiv(R2, c)
-                ceil_le = q_le + int(R - q_le * c != 0)
-                ceil_ge = q_ge + int(R2 - q_ge * c != 0)
-            hi = min(q_le if le_act and c > 0 else INF,
-                     q_ge if ge_act and c < 0 else INF)
-            lo = max(ceil_le if le_act and c < 0 else NINF,
-                     ceil_ge if ge_act and c > 0 else NINF)
-            s = t["base_lin"] + int(t["l_toff"][r]) + k
-            cl[s], cu[s] = clip(lo), clip(hi)
+    for _, cands in rules(t):
+        for s, lo, hi in cands(lb, ub):
+            cl[s], cu[s] = lo, hi
     return cl, cu
 
 
-def emulate_fixpoint(t, lb_row, ub_row, cap, fixed=False):
+def emulate_fixpoint(t, lb_row, ub_row, cap, fixed=False, skip=True,
+                     trace=None, seen=None):
     """fixpoint.cu's ``sweep_loop`` and what its kernel writes; ``fixed``:
-    the ``tt_fixed_sweeps`` entry (exactly ``cap`` sweeps)."""
-    lb, ub = [int(v) for v in lb_row], [int(v) for v in ub_row]
-    V, it, iters, m = t["V"], 0, 0, True
+    the ``tt_fixed_sweeps`` entry (exactly ``cap`` sweeps); ``skip``:
+    from the second sweep on, run only the rules with a variable that
+    moved in the sweep before (``skip=False``: the TT_K1_NO_SKIP build).
+    The kernel gathers the TNF rules to run into a worklist first and
+    meets in any order; max and min make the order immaterial, so the
+    rules run here in plan order.
+    ``trace`` collects (A lb, A ub, changed, bot, the indices in
+    ``rules`` order of the rules run) per sweep, ``seen`` the slots phase
+    A handed to the meet."""
+    al, au = [int(v) for v in lb_row], [int(v) for v in ub_row]
+    bl, bu = al[:], au[:]
+    V, tgt, dummy = t["V"], t["slot_tgt"], t["V"] - 1
+    mk = [False] * V
+    it, iters, m = 0, 0, True
     while (m or fixed) and it < cap:
-        cl, cu = phase_a(t, lb, ub)
-        conf = int(any(cl[s] > o or cu[s] < o
-                       for s, o in zip(t["conf_slot"], t["conf_off"])))
+        ran = []
+        for j, (vs, cands) in enumerate(rules(t)):
+            if skip and it > 0 and not any(mk[v] for v in vs):
+                continue
+            ran.append(j)
+            for s, lo, hi in cands(al, au):
+                if seen is not None:
+                    seen.add(s)
+                g, c = tgt[2 * s], tgt[2 * s + 1]
+                if g >= 0:  # atomicMax / atomicMin when past A's bound
+                    if lo > al[g]:
+                        bl[g] = max(bl[g], lo)
+                    if hi < au[g]:
+                        bu[g] = min(bu[g], hi)
+                elif g != -1:  # TT_CONF(k): fold against c = conf_off[k]
+                    if (lo > c or hi < c) and al[dummy] < 1:
+                        bl[dummy] = max(bl[dummy], 1)
         changed = bot = False
         for v in range(V):
-            l, u = lb[v], ub[v]
-            if v < t["n_active"]:
-                for k in range(t["inc_off"][v], t["inc_off"][v + 1]):
-                    s = t["inc_slot"][k]
-                    l, u = max(l, cl[s]), min(u, cu[s])
-            elif v == V - 1 and t["n_conf"] > 0:
-                l = max(l, conf)
-            l, u = min(l, int(t["ub_cap"][v])), max(u, int(t["lb_floor"][v]))
-            changed |= l != lb[v] or u != ub[v]
+            l, u = bl[v], bu[v]
+            mk[v] = False
+            if it == 0 or l != al[v] or u != au[v]:
+                l = min(l, int(t["ub_cap"][v]))
+                u = max(u, int(t["lb_floor"][v]))
+                mk[v] = l != al[v] or u != au[v]
+                al[v] = bl[v] = l
+                au[v] = bu[v] = u
+            changed |= mk[v]
             bot |= l > u
-            lb[v], ub[v] = l, u
         iters += 1
         it += 1
         m = changed and not bot
+        if trace is not None:
+            trace.append((al[:], au[:], changed, bot, ran))
     if fixed:
-        return lb, ub, iters, False
-    return lb, ub, iters + 1, m
+        return al, au, iters, False
+    return al, au, iters + 1, m
 
 
 def meet(t, lb, ub, v, l, u):
@@ -418,7 +479,8 @@ def test_kernel_emulation_matches_plain(seed):
             assert tuple(int(x) for x in emulate_select(t, a[d], b[d], strat[d])) == want
 
 
-def _flat_tables(s):
+def flat_tables(s):
+    """The kernel tables of solver ``s`` as ints and lists of ints."""
     t = kernel_tables(s.dp)
     return {k: ([int(x) for x in v.reshape(-1)]
                 if isinstance(v, np.ndarray) else v) for k, v in t.items()}
@@ -430,7 +492,7 @@ def test_wac1_kernel_emulation_matches_plain(seed):
     lane and output, at outer caps 10000 and 2 and inner caps 16 and 1;
     the group and bucket offsets the kernel walks are the plan's."""
     s, lb, ub, _ = _case(seed)
-    t = _flat_tables(s)
+    t = flat_tables(s)
     assert t["g_off"] == [0] + [b for _, _, b in s.dp.group_slices]
     assert t["G"] == len(s.dp.group_slices) and t["g_off"][-1] == t["P"]
     assert t["LB"] == len(s.dp.lin) and t["lb_off"][-1] == t["L"]
@@ -452,7 +514,7 @@ def test_fixed_and_transposed_entries_match_plain(seed):
     or bot, iters = n), and the fixpoint on the columns of (V, D) planes,
     where dive d's element v lies at [v * D + d]."""
     s, lb, ub, _ = _case(seed)
-    t = _flat_tables(s)
+    t = flat_tables(s)
     D, V = lb.shape
     for n in (1, 3):
         pl, pu, pi, pm = s.kernels.fixed_sweeps_plain(lb, ub, n)
@@ -470,6 +532,119 @@ def test_fixed_and_transposed_entries_match_plain(seed):
             el, eu, ei, em = emulate_fixpoint(t, fl[d::D], fu[d::D], cap)
             assert el == pl[:, d].tolist() and eu == pu[:, d].tolist()
             assert (ei, em) == (int(pi[d]), bool(pm[d])), (cap, d)
+
+
+def slot_var(t, s):
+    """The variable whose candidate slot s holds, from the slot layout of
+    solver/plan.py (None: the neutral slot)."""
+    P, E, M = t["P"], t["E"], t["M"]
+    if s < 3 * P:
+        return t[("px", "py", "pz")[s // P]][s % P]
+    s -= 3 * P
+    if s < 2 * E:
+        return t[("e_idx", "e_res")[s // E]][s % E]
+    s -= 2 * E
+    if s < 2 * M:
+        return t[("m_x", "m_b")[s // M]][s % M]
+    s -= 2 * M
+    n_terms = t["base_linb"] - t["base_lin"]
+    if s < n_terms:
+        return t["l_var"][s]
+    s -= n_terms
+    return t["l_b"][s] if s < t["L"] else None
+
+
+@pytest.mark.parametrize("case", ["golomb6", 0, 5, 7, 10])
+def test_slot_targets_invert_routing(case):
+    """K1's ``slot_tgt`` is the exact inverse of the incidence CSR and the
+    conflict fold: every slot of inc[v] maps to v, every conflict slot to
+    its entry (whose value is its root-fixed variable's), every other
+    slot is unread; and a sweep hands the meet every slot that is read."""
+    if case == "golomb6":
+        s = BatchedSolver(compile_model(parse_fzn_text(golomb(6))),
+                          EngineConfig(num_dives=4, use_table=False,
+                                       fp_cap_auto=False), device="cpu")
+    else:
+        s = _case(case)[0]
+    t = flat_tables(s)
+    V, n_active = t["V"], t["n_active"]
+    tgt, val = t["slot_tgt"][0::2], t["slot_tgt"][1::2]
+    assert len(tgt) == t["n_cand"]
+    read = set()
+    for v in range(n_active):
+        for k in range(t["inc_off"][v], t["inc_off"][v + 1]):
+            assert tgt[t["inc_slot"][k]] == v
+            read.add(t["inc_slot"][k])
+    for k, sl in enumerate(t["conf_slot"]):
+        assert tgt[sl] == -2 - k and val[sl] == t["conf_off"][k]
+        v = slot_var(t, sl)
+        assert n_active <= v < V - 3
+        assert t["conf_off"][k] == t["lb_floor"][v] + 1 == t["ub_cap"][v] - 1
+        read.add(sl)
+    for sl in range(t["n_cand"]):
+        if sl not in read:
+            assert tgt[sl] == -1 and val[sl] == 0, sl
+            v = slot_var(t, sl)
+            assert v is None or v >= V - 3  # neutral, spill or dummies
+        elif tgt[sl] >= 0:
+            assert slot_var(t, sl) == tgt[sl] and val[sl] == 0
+    lb0, ub0 = s.dp.lb0.tolist(), s.dp.ub0.tolist()
+    seen = set()
+    emulate_fixpoint(t, lb0, ub0, 1, seen=seen)
+    assert read <= seen
+    # K1's packed tables repeat the flat ones.
+    assert t["tnf4"] == [v for p in range(t["P"]) for v in (
+        t["prop_op"][p], t["px"][p], t["py"][p], t["pz"][p])]
+    assert t["l_head"] == [v for r in range(t["L"]) for v in (
+        t["l_flags"][r] | t["l_op"][r] << 2, t["l_toff"][r], t["l_K"][r],
+        t["l_b"][r])]
+    assert t["l_term"] == [v for c, x in zip(t["l_coef"], t["l_var"])
+                           for v in (c, x)]
+
+
+@pytest.mark.parametrize("seed", [-1, 0, 5, 7, 10, 12])
+def test_skip_is_exact(seed):
+    """Skipping the rules whose variables did not move gives, sweep by
+    sweep, the same store, changed and bot as running every rule, and the
+    same iters and unconv, at caps 2 and 10000 and under fixed sweeps
+    (tolerance 0); both equal the plain version. The seeds cover TNF,
+    element, membership and linear rows. The skip rests on each rule's
+    candidates depending on its listed variables only: changing every
+    other variable of a random store changes none of them."""
+    s, lb, ub, _ = _case(seed)
+    t = flat_tables(s)
+    rng = np.random.default_rng(seed + 100)
+    lb0, ub0 = s.dp.lb0.tolist(), s.dp.ub0.tolist()
+
+    def narrowed():
+        lo = [int(rng.integers(a, b + 1)) for a, b in zip(lb0, ub0)]
+        return lo, [int(rng.integers(a, b + 1)) for a, b in zip(lo, ub0)]
+
+    for vs, cands in rules(t):
+        for _ in range(4):
+            (al, au), (ol, ou) = narrowed(), narrowed()
+            for v in vs:
+                ol[v], ou[v] = al[v], au[v]
+            assert cands(al, au) == cands(ol, ou), vs
+    ran = {True: 0, False: 0}
+    for cap, fixed in ((10000, False), (2, False), (5, True)):
+        want = (s.kernels.fixed_sweeps_plain(lb, ub, cap) if fixed
+                else s.kernels.fixpoint_plain(lb, ub, cap))
+        for d in range(lb.shape[0]):
+            res, traces = {}, {}
+            for skip in (True, False):
+                traces[skip] = []
+                res[skip] = emulate_fixpoint(t, lb[d].tolist(),
+                                             ub[d].tolist(), cap, fixed,
+                                             skip, traces[skip])
+                ran[skip] += sum(len(x[4]) for x in traces[skip])
+            assert len(traces[True]) == len(traces[False])
+            for a, b in zip(traces[True], traces[False]):
+                assert a[:4] == b[:4], (cap, fixed, d)
+            assert res[True] == res[False], (cap, fixed, d)
+            assert res[True][:2] == (want[0][d].tolist(), want[1][d].tolist())
+            assert res[True][2:] == (int(want[2][d]), bool(want[3][d]))
+    assert ran[True] < ran[False]
 
 
 @pytest.mark.cuda

@@ -46,7 +46,7 @@ class PlanView(ctypes.Structure):
     """Mirror of ``struct PlanView`` in csrc/common.cuh."""
     _fields_ = [(n, ctypes.c_int if t == "i" else ctypes.c_void_p)
                 for n, t in (
-                    ("V", "i"), ("n_active", "i"), ("P", "i"), ("n_cand", "i"),
+                    ("V", "i"), ("P", "i"), ("n_cand", "i"),
                     ("prop_op", "p"), ("px", "p"), ("py", "p"), ("pz", "p"),
                     ("G", "i"), ("g_off", "p"),
                     ("E", "i"), ("T", "i"), ("e_idx", "p"), ("e_res", "p"),
@@ -55,12 +55,11 @@ class PlanView(ctypes.Structure):
                     ("m_top", "p"), ("m_cnt", "p"), ("m_next_ge", "p"),
                     ("m_prev_le", "p"), ("m_next_out", "p"),
                     ("m_prev_out", "p"), ("L", "i"), ("base_lin", "i"),
-                    ("base_linb", "i"), ("l_b", "p"), ("l_op", "p"),
-                    ("l_rhs", "p"), ("l_K", "p"), ("l_toff", "p"),
-                    ("l_flags", "p"), ("l_coef", "p"), ("l_var", "p"),
-                    ("LB", "i"), ("lb_off", "p"),
-                    ("inc_off", "p"), ("inc_slot", "p"), ("n_conf", "i"),
-                    ("conf_slot", "p"), ("conf_off", "p"), ("lb_floor", "p"),
+                    ("base_linb", "i"), ("l_b", "p"), ("l_rhs", "p"),
+                    ("l_K", "p"), ("l_toff", "p"), ("l_coef", "p"),
+                    ("l_var", "p"), ("l_head", "p"), ("l_term", "p"),
+                    ("LB", "i"), ("lb_off", "p"), ("slot_tgt", "p"),
+                    ("tnf4", "p"), ("lb_floor", "p"),
                     ("ub_cap", "p"), ("S", "i"), ("s_off", "p"),
                     ("s_ids", "p"), ("s_vo", "p"), ("s_valo", "p"))]
 
@@ -71,7 +70,12 @@ def kernel_tables(dp) -> dict:
     rows (term offsets into the candidate slots) with the buckets as
     offsets into the rows,
     the bucketed incidence tables as CSR without neutral slots, the
-    conflict fold without neutral entries, concatenated strategies."""
+    conflict fold without neutral entries, K1's routing of every slot
+    (``slot_tgt``, their inverse: (code, value) per slot), the TNF and
+    linear tables packed for one load per rule or term (``tnf4``,
+    ``l_head``, ``l_term``), concatenated strategies. The kernels take
+    the fields of ``PlanView``; the rest (the CSR, the fold, the flat
+    row flags) is what the packed tables are built and tested from."""
     n = lambda t: t.cpu().numpy()
     neutral = dp.n_cand - 1
     inc_off, inc_slot = [0], []
@@ -97,6 +101,23 @@ def kernel_tables(dp) -> dict:
     if dp.conf_idx is not None:
         keep = n(dp.conf_idx) != neutral
         conf_slot, conf_off = n(dp.conf_idx)[keep], n(dp.conf_off)[keep]
+    # K1 routes each candidate slot by the same decision, as (code,
+    # value): (its target var, 0) (the inverse of the CSR), (TT_CONF(k)
+    # = -2 - k, conf_off[k]) for a fold against conf_off[k], or
+    # (TT_UNREAD = -1, 0) for a slot nothing reads.
+    inc_slot = np.asarray(inc_slot, np.int64)
+    conf = conf_slot.astype(np.int64)
+    routed = np.concatenate([inc_slot, conf])
+    # (bincount, not np.unique: the first np.unique of a process costs
+    # about 0.07 s under numpy 2.3, inside the solve window.)
+    assert np.bincount(routed, minlength=1).max() <= 1, \
+        "a slot with two targets"
+    slot_tgt = np.zeros((dp.n_cand, 2), np.int64)
+    slot_tgt[:, 0] = -1
+    slot_tgt[inc_slot, 0] = np.repeat(np.arange(dp.n_active),
+                                      np.diff(inc_off))
+    slot_tgt[conf, 0] = -2 - np.arange(len(conf))
+    slot_tgt[conf, 1] = conf_off
     s_ids = [n(t) for t in dp.strat_ids]
     base_lin = 3 * dp.P + 2 * dp.E + 2 * dp.M
     i32 = np.int32
@@ -116,8 +137,18 @@ def kernel_tables(dp) -> dict:
         l_K=cat(l_K, i32), l_toff=cat(l_toff, i32),
         l_flags=cat(l_flags, i32), l_coef=cat(l_coef, i32),
         l_var=cat(l_var, i32), LB=len(dp.lin), lb_off=lb_off.astype(i32),
-        inc_off=np.asarray(inc_off, i32), inc_slot=np.asarray(inc_slot, i32),
+        # The same rows packed for one load each: (flags | op << 2, toff,
+        # K, b) per row, (coef, var) per term.
+        l_head=np.stack([cat(l_flags, i32) | cat(l_op, i32) << 2,
+                         cat(l_toff, i32), cat(l_K, i32), cat(l_b, i32)],
+                        axis=1).reshape(-1),
+        l_term=np.stack([cat(l_coef, i32), cat(l_var, i32)],
+                        axis=1).reshape(-1),
+        inc_off=np.asarray(inc_off, i32), inc_slot=inc_slot,
         n_conf=len(conf_slot), conf_slot=conf_slot, conf_off=conf_off,
+        slot_tgt=slot_tgt.reshape(-1),
+        tnf4=np.stack([n(dp.prop_op), n(dp.all_x), n(dp.all_y),
+                       n(dp.all_z)], axis=1).reshape(-1),
         lb_floor=n(dp.lb_floor), ub_cap=n(dp.ub_cap),
         S=len(s_ids),
         s_off=np.cumsum([0] + [len(s) for s in s_ids]).astype(i32),
@@ -224,25 +255,45 @@ def _stream(t):
     return _stream_of(t.device)
 
 
-def _fixpoint_out(dp, lb, D):
-    """Fresh outputs of K1 / K8: (lb_out, ub_out, iters, unconv, cand
-    scratch (D, 2, n_cand))."""
+def fixpoint_smem_bytes(view) -> int:
+    """Dynamic shared memory of K1's shared-memory path (csrc/fixpoint.cu
+    ``smem_bytes``) for a PlanView: the flag words, the stores A and B
+    (4 V int32), the worklist (P int32) and a byte per variable."""
+    return 16 + 16 * view.V + 4 * view.P + -(-view.V // 16) * 16
+
+
+def fixpoint_scratch_shape(D: int, view) -> tuple:
+    """K1's global scratch on the global-memory path (``scratch_words``):
+    per dive the store B (2 V int32), the worklist (P int32) and a byte
+    per variable."""
+    return (D, 2 * view.V + view.P + (view.V + 3) // 4)
+
+
+def _fixpoint_out(lb, D, scratch):
+    """Fresh outputs of K1 / K8: (lb_out, ub_out, iters, unconv,
+    scratch)."""
     return (torch.empty_like(lb), torch.empty_like(lb),
             torch.empty(D, dtype=I32, device=lb.device),
-            torch.empty(D, dtype=torch.bool, device=lb.device),
-            torch.empty((D, 2, dp.n_cand), dtype=I32, device=lb.device))
+            torch.empty(D, dtype=torch.bool, device=lb.device), scratch)
 
 
-def _check_fixpoint(dp, lb, ub, out, D, shape):
+def _check_fixpoint(lb, ub, out, D, shape, scratch_shape):
+    """Checks the planes and ``out``; the scratch only when
+    ``scratch_shape`` is not None (the kernel reads it)."""
     _check(lb, "lb", shape)
     _check(ub, "ub", shape)
-    lb_out, ub_out, iters, unconv, cand = out
+    lb_out, ub_out, iters, unconv, scratch = out
     for n, t, sh, dt in (
             ("lb_out", lb_out, shape, I32), ("ub_out", ub_out, shape, I32),
             ("iters", iters, (D,), I32),
-            ("unconv", unconv, (D,), torch.bool),
-            ("cand", cand, (D, 2, dp.n_cand), I32)):
+            ("unconv", unconv, (D,), torch.bool)):
         _check(t, n, sh, dt)
+    if scratch_shape is None:
+        return None
+    if scratch is None:
+        raise ValueError(f"scratch: expected a tensor of {scratch_shape}")
+    _check(scratch, "scratch", scratch_shape)
+    return scratch.data_ptr()
 
 
 def _no_propagators(lb, ub, out):
@@ -264,24 +315,41 @@ class _Fixpoint(_Kernel):
     ENTRY_REPLACES = {"fixed_sweeps": "turbo_tpu/solver/propagate_jax.py:967",
                       "transposed": "turbo_tpu/solver/propagate_jax.py:782"}
 
+    @staticmethod
+    def uses_smem(kp, smem: bool = True) -> bool:
+        """Whether a launch keeps the stores in shared memory; otherwise
+        it needs ``scratch``."""
+        return smem and fixpoint_smem_bytes(kp.view) <= kp.smem_limit
+
+    def scratch(self, kp, D: int, smem: bool = True):
+        """The global scratch of D dives (``fixpoint_scratch_shape``) when
+        the launch does not keep its stores in shared memory, else
+        None."""
+        if self.uses_smem(kp, smem):
+            return None
+        return torch.empty(fixpoint_scratch_shape(D, kp.view), dtype=I32,
+                           device=kp.dp.device)
+
     def _run(self, entry, kp, lb, ub, cap, smem, live, out):
         dp = kp.dp
         transposed = entry == "transposed"
         D = lb.shape[1] if transposed else lb.shape[0]
         shape = (dp.V, D) if transposed else (D, dp.V)
         if out is None:
-            out = _fixpoint_out(dp, lb, D)
-        _check_fixpoint(dp, lb, ub, out, D, shape)
+            out = _fixpoint_out(lb, D, self.scratch(kp, D, smem))
+        scratch = _check_fixpoint(
+            lb, ub, out, D, shape, None if self.uses_smem(kp, smem)
+            else fixpoint_scratch_shape(D, kp.view))
         if dp.P == 0:
             return _no_propagators(lb, ub, out)
-        lb_out, ub_out, iters, unconv, cand = out
+        lb_out, ub_out, iters, unconv, _ = out
         fn = {"fixpoint": "tt_fixpoint", "fixed_sweeps": "tt_fixed_sweeps",
               "transposed": "tt_fixpoint_t"}[entry]
         with torch.cuda.device(lb.device):
             self._launch(lambda lib: getattr(lib, fn), ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
                          ub_out.data_ptr(), iters.data_ptr(),
-                         unconv.data_ptr(), cand.data_ptr(), D, int(cap),
+                         unconv.data_ptr(), scratch, D, int(cap),
                          kp.smem_limit if smem else 0, _live_ptr(live),
                          _stream(lb), entry=entry)
         return lb_out, ub_out, iters, unconv
@@ -289,11 +357,12 @@ class _Fixpoint(_Kernel):
     def __call__(self, kp, lb, ub, cap: int, smem: bool = True, live=None,
                  out=None):
         """(lb, ub, iters (D,) int32, unconv (D,) bool) after AC-1 sweeps
-        to the fixpoint or ``cap``; see csrc/fixpoint.cu. The store sits
-        in shared memory when it fits; ``smem=False`` forces the
+        to the fixpoint or ``cap``; see csrc/fixpoint.cu. The stores sit
+        in shared memory when they fit; ``smem=False`` forces the
         global-memory path that larger stores take. ``out`` = (lb_out,
-        ub_out, iters, unconv, cand scratch (D, 2, n_cand)); lb_out and
-        ub_out may be lb and ub (in place)."""
+        ub_out, iters, unconv, scratch): lb_out and ub_out may be lb and
+        ub (in place); scratch is ``self.scratch(kp, D, smem)`` (None on
+        the shared-memory path)."""
         return self._run("fixpoint", kp, lb, ub, cap, smem, live, out)
 
     def fixed_sweeps(self, kp, lb, ub, n: int, smem: bool = True, live=None,
@@ -314,25 +383,32 @@ class _Wac1(_Kernel):
     source = "turbo_tpu_torch/kernels/csrc/wac1.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:884"
 
+    @staticmethod
+    def cand(dp, D, device):
+        """K8's candidate planes of D dives: (D, 2, n_cand) int32."""
+        return torch.empty((D, 2, dp.n_cand), dtype=I32, device=device)
+
     def __call__(self, kp, lb, ub, cap: int, inner_cap: int = 16,
                  smem: bool = True, live=None, out=None):
         """(lb, ub, sweeps + 1 (D,) int32, unconv (D,) bool) after WAC1
-        sweeps to the fixpoint or ``cap``; see csrc/wac1.cu. ``smem`` and
-        ``out`` as for K1. The stores must lie inside the root box's clamp
-        (lb <= ub0 + 1, ub >= lb0 - 1), as every engine state does."""
+        sweeps to the fixpoint or ``cap``; see csrc/wac1.cu. ``smem`` as
+        for K1; ``out`` = (lb_out, ub_out, iters, unconv, candidate
+        planes ``self.cand(dp, D, device)``). The stores must lie inside
+        the root box's clamp (lb <= ub0 + 1, ub >= lb0 - 1), as every
+        engine state does."""
         dp = kp.dp
         D = lb.shape[0]
         if out is None:
-            out = _fixpoint_out(dp, lb, D)
-        _check_fixpoint(dp, lb, ub, out, D, (D, dp.V))
+            out = _fixpoint_out(lb, D, self.cand(dp, D, lb.device))
+        cand = _check_fixpoint(lb, ub, out, D, (D, dp.V), (D, 2, dp.n_cand))
         if dp.P == 0:
             return _no_propagators(lb, ub, out)
-        lb_out, ub_out, iters, unconv, cand = out
+        lb_out, ub_out, iters, unconv, _ = out
         with torch.cuda.device(lb.device):
             self._launch(lambda lib: lib.tt_wac1, ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
                          ub_out.data_ptr(), iters.data_ptr(),
-                         unconv.data_ptr(), cand.data_ptr(), D, int(cap),
+                         unconv.data_ptr(), cand, D, int(cap),
                          int(inner_cap), kp.smem_limit if smem else 0,
                          _live_ptr(live), _stream(lb))
         return lb_out, ub_out, iters, unconv

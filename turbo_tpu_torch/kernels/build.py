@@ -5,10 +5,13 @@ Hopper (``sm_90a``) by its own nvcc, all started together, and the
 objects are linked into ``_build/libturbo_kernels_<hash>.so``, keyed by
 a hash of the sources and flags, and loaded through ``ctypes``. The
 build happens at first use; a failure raises (nothing falls back to the
-plain torch versions).
+plain torch versions). ``k1_without_skip`` builds and launches from a
+second library whose K1 runs every rule in every sweep, for
+measurements only.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +28,8 @@ SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "embed.cu",
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+_libs = {}          # no_skip -> loaded library
+_no_skip = False    # the wrappers launch from the build without K1's skip
 build_log = ""
 
 
@@ -39,8 +43,8 @@ def _nvcc() -> str:
                        "of turbo_tpu_torch cannot be built")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def _digest(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
@@ -75,19 +79,36 @@ def _bind(lib):
     return lib
 
 
+@contextlib.contextmanager
+def k1_without_skip():
+    """Inside the block every wrapper launches from a library built with
+    ``-DTT_K1_NO_SKIP`` (K1 runs every rule in every sweep), which
+    chip_smoke.py times against the normal build; the solver never uses
+    it. Yields the library."""
+    global _no_skip
+    prev, _no_skip = _no_skip, True
+    try:
+        yield load()
+    finally:
+        _no_skip = prev
+
+
 def load():
     """Build (at first use, once per source hash) and load the kernel
-    library; raises when the kernels cannot be built."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    out = BUILD_DIR / f"libturbo_kernels_{_digest()}.so"
+    library (the one without K1's skip inside ``k1_without_skip``);
+    raises when the kernels cannot be built."""
+    global build_log
+    key = _no_skip
+    if key in _libs:
+        return _libs[key]
+    flags = FLAGS + (("-DTT_K1_NO_SKIP",) if key else ())
+    out = BUILD_DIR / f"libturbo_kernels_{_digest(flags)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         nvcc = _nvcc()
         objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
-        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(o),
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(o),
                                    str(CSRC / s)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(SOURCES, objs)]
@@ -111,5 +132,5 @@ def load():
             raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n"
                                f"{build_log}")
         os.replace(tmp, out)
-    _lib = _bind(ctypes.CDLL(str(out)))
-    return _lib
+    _libs[key] = _bind(ctypes.CDLL(str(out)))
+    return _libs[key]

@@ -20,6 +20,11 @@
 #define TT_NINF (-1073741823)
 #define TT_SUM_CLAMP (1LL << 40)
 #define TT_THREADS 256
+// slot_tgt codes: a slot aimed at the singleton tail is folded against
+// the fixed value conf_off[k] (which slot_tgt carries beside the code);
+// a slot nothing reads is dropped.
+#define TT_UNREAD (-1)
+#define TT_CONF(k) (-2 - (k))
 
 enum { OP_ADD = 0, OP_MUL = 1, OP_DIV = 2, OP_MIN = 3, OP_MAX = 4,
        OP_LE = 5, OP_EQ = 6 };
@@ -28,7 +33,7 @@ enum { OP_ADD = 0, OP_MUL = 1, OP_DIV = 2, OP_MIN = 3, OP_MAX = 4,
 // Candidate slots: [3P roles | E idx | E res | M x | M b | linear terms
 // | linear b], the layout of solver/plan.py.
 struct PlanView {
-  int V, n_active, P, n_cand;
+  int V, P, n_cand;
   const int* prop_op;   // (P,)
   const int* px;        // (P,) x/y/z var ids, group order
   const int* py;
@@ -52,20 +57,19 @@ struct PlanView {
   const int* m_prev_out;
   int L, base_lin, base_linb;
   const int* l_b;       // (L,) reified var
-  const int* l_op;      // (L,) 1 = eq, 0 = le
   const long long* l_rhs;
   const int* l_K;       // (L,) terms per row (bucket width)
   const int* l_toff;    // (L,) first term, = term slot - base_lin
-  const int* l_flags;   // (L,) bit 0: unit coefficients, bit 1: fit32
   const int* l_coef;    // (terms,)
   const int* l_var;
+  const int4* l_head;   // (L,) packed: (flags | op << 2, toff, K, b); flags
+                        // bit 0: unit coefficients, bit 1: fit32; op 1: eq
+  const int2* l_term;   // (terms,) packed: (coef, var)
   int LB;
   const int* lb_off;    // (LB + 1,) linear buckets as row slices
-  const int* inc_off;   // (n_active + 1,) CSR of candidate slots per var
-  const int* inc_slot;
-  int n_conf;
-  const int* conf_slot; // singleton-tail conflict fold
-  const int* conf_off;
+  const int2* slot_tgt; // (n_cand,) K1's routing of a slot: (its target var,
+                        // 0), (TT_CONF(k), conf_off[k]) or (TT_UNREAD, 0)
+  const int4* tnf4;     // (P,) K1's packed TNF table: (op, x, y, z)
   const int* lb_floor;  // (V,) lb0 - 1
   const int* ub_cap;    // (V,) ub0 + 1
   int S;
@@ -238,17 +242,18 @@ struct Plane {
   __device__ __forceinline__ int& operator[](int v) const { return p[v * s]; }
 };
 
+// A linear row's header h = (flags | op << 2, first term, K, b): one
+// 16-byte load, then its terms (coef, var) 8 bytes each.
 template <class S>
-__device__ __forceinline__ void lin_sums(const PlanView& p, int r,
+__device__ __forceinline__ void lin_sums(const PlanView& p, int4 h,
                                          const S& lb, const S& ub,
                                          long long* smin, long long* smax) {
-  bool fit32 = p.l_flags[r] & 2;
+  bool fit32 = h.x & 2;
   long long s0 = 0, s1 = 0;
-  const int* coef = p.l_coef + p.l_toff[r];
-  const int* var = p.l_var + p.l_toff[r];
-  for (int t = 0; t < p.l_K[r]; ++t) {
+  for (int t = 0; t < h.z; ++t) {
+    const int2 c = __ldg(p.l_term + h.y + t);
     long long a, b;
-    lin_term(fit32, coef[t], lb[var[t]], ub[var[t]], &a, &b);
+    lin_term(fit32, c.x, lb[c.y], ub[c.y], &a, &b);
     s0 += a; s1 += b;
   }
   *smin = s0; *smax = s1;
@@ -257,11 +262,12 @@ __device__ __forceinline__ void lin_sums(const PlanView& p, int r,
 // Reified linear row: b = (sum c*x <op> rhs) (_linear_ask_all).
 __device__ __forceinline__ bool lin_ask(const PlanView& p, int r,
                                         const int* lb, const int* ub) {
+  const int4 h = __ldg(p.l_head + r);
   long long smin, smax;
-  lin_sums(p, r, lb, ub, &smin, &smax);
-  long long rhs = p.l_rhs[r];
-  bool is_eq = p.l_op[r] == 1;
-  bool tt = lb[p.l_b[r]] >= 1, ff = ub[p.l_b[r]] <= 0;
+  lin_sums(p, h, lb, ub, &smin, &smax);
+  long long rhs = __ldg(p.l_rhs + r);
+  bool is_eq = (h.x >> 2) == 1;
+  bool tt = lb[h.w] >= 1, ff = ub[h.w] <= 0;
   bool ent_t = is_eq ? (smin == rhs && smax == rhs) : (smax <= rhs);
   bool ent_f = is_eq ? (rhs < smin || rhs > smax) : (smin > rhs);
   return (tt && ent_t) || (ff && ent_f);
@@ -270,17 +276,19 @@ __device__ __forceinline__ bool lin_ask(const PlanView& p, int r,
 // Element row i: values[idx - 1] == res (_element_ask).
 __device__ __forceinline__ bool elem_ask(const PlanView& p, int i,
                                          const int* lb, const int* ub) {
-  int len = p.e_len[i];
-  int li = lb[p.e_idx[i]], ui = ub[p.e_idx[i]];
+  int len = __ldg(p.e_len + i);
+  const int x = __ldg(p.e_idx + i), res = __ldg(p.e_res + i);
+  int li = lb[x], ui = ub[x];
   li = li < 1 ? 1 : li; li = li > len ? len : li;
   ui = ui < 1 ? 1 : ui; ui = ui > len ? len : ui;
-  int lr = lb[p.e_res[i]], ur = ub[p.e_res[i]];
+  int lr = lb[res], ur = ub[res];
   int tmin = TT_INF, tmax = TT_NINF;
   const int* tab = p.e_tab + (long long)i * p.T;
   for (int j = 0; j < p.T; ++j) {
     if (j >= li - 1 && j <= ui - 1 && j < len) {
-      tmin = tab[j] < tmin ? tab[j] : tmin;
-      tmax = tab[j] > tmax ? tab[j] : tmax;
+      const int v = __ldg(tab + j);
+      tmin = v < tmin ? v : tmin;
+      tmax = v > tmax ? v : tmax;
     }
   }
   return lr == ur && tmin == lr && tmax == lr;
@@ -289,71 +297,84 @@ __device__ __forceinline__ bool elem_ask(const PlanView& p, int i,
 // Membership row i: window count of the set's members in [lx, ux].
 __device__ __forceinline__ int member_count(const PlanView& p, int i, int lx,
                                             int ux) {
-  int W = p.W, base = p.m_base[i];
+  int W = p.W, base = __ldg(p.m_base + i);
   int wl = sub32(lx, base), wh = add32(sub32(ux, base), 1);
   wl = wl < 0 ? 0 : (wl > W ? W : wl);
   wh = wh < 0 ? 0 : (wh > W ? W : wh);
   const int* cnt = p.m_cnt + (long long)i * (W + 1);
-  return cnt[wh] - cnt[wl];
+  return __ldg(cnt + wh) - __ldg(cnt + wl);
 }
 
 __device__ __forceinline__ bool member_ask(const PlanView& p, int i,
                                            const int* lb, const int* ub) {
-  int lx = lb[p.m_x[i]], ux = ub[p.m_x[i]];
+  const int x = __ldg(p.m_x + i), b = __ldg(p.m_b + i);
+  int lx = lb[x], ux = ub[x];
   int c = member_count(p, i, lx, ux);
   long long width = (long long)ux - lx + 1;
-  return (lb[p.m_b[i]] >= 1 && c == width && width > 0) ||
-         (ub[p.m_b[i]] <= 0 && c == 0);
+  return (lb[b] >= 1 && c == width && width > 0) || (ub[b] <= 0 && c == 0);
 }
 
-// -- candidates of one propagator, written into the dive's candidate
-// planes cl / cu at the slots of solver/plan.py ------------------------
+// -- candidates of one propagator: each rule hands (slot, lo, hi) for
+// the slots of solver/plan.py to ``out``: K8 writes them into the
+// dive's candidate planes (``Slots``), K1 meets them into its store
+// (fixpoint.cu) ------------------------------------------------------
+
+struct Slots {
+  int* cl;
+  int* cu;
+  __device__ __forceinline__ void operator()(int s, int lo, int hi) const {
+    cl[s] = lo;
+    cu[s] = hi;
+  }
+};
 
 // TNF propagator it: the three roles' intervals (_deduce_group).
-template <class S>
+template <class S, class Out>
 __device__ __forceinline__ void cand_tnf(const PlanView& p, int it,
-                                         const S& lb, const S& ub, int* cl,
-                                         int* cu) {
+                                         const S& lb, const S& ub,
+                                         const Out& out) {
   const int P = p.P;
   int x = p.px[it], y = p.py[it], z = p.pz[it];
   int c[6];
   deduce(p.prop_op[it], lb[x], ub[x], lb[y], ub[y], lb[z], ub[z], c);
-  cl[it] = c[0]; cu[it] = c[1];
-  cl[P + it] = c[2]; cu[P + it] = c[3];
-  cl[2 * P + it] = c[4]; cu[2 * P + it] = c[5];
+  out(it, c[0], c[1]);
+  out(P + it, c[2], c[3]);
+  out(2 * P + it, c[4], c[5]);
 }
 
 // Element row i: windowed min/max of the result, first/last feasible
 // index (_element_cands).
-template <class S>
+template <class S, class Out>
 __device__ __forceinline__ void cand_elem(const PlanView& p, int i,
-                                          const S& lb, const S& ub, int* cl,
-                                          int* cu) {
-  int len = p.e_len[i];
-  int li = lb[p.e_idx[i]], ui = ub[p.e_idx[i]];
-  int lr = lb[p.e_res[i]], ur = ub[p.e_res[i]];
+                                          const S& lb, const S& ub,
+                                          const Out& out) {
+  int len = __ldg(p.e_len + i);
+  const int x = __ldg(p.e_idx + i), res = __ldg(p.e_res + i);
+  int li = lb[x], ui = ub[x];
+  int lr = lb[res], ur = ub[res];
   int jlo = TT_INF - 1, jhi = TT_NINF - 1, rlo = TT_INF, rhi = TT_NINF;
   const int* tab = p.e_tab + (long long)i * p.T;
   int wlo = sub32(li, 1), whi = sub32(ui, 1);
   for (int j = 0; j < p.T; ++j) {
-    int v = tab[j];
+    int v = __ldg(tab + j);
     if (j >= wlo && j <= whi && j < len && v >= lr && v <= ur) {
       jlo = j < jlo ? j : jlo; jhi = j > jhi ? j : jhi;
       rlo = v < rlo ? v : rlo; rhi = v > rhi ? v : rhi;
     }
   }
   int s = 3 * p.P + i;
-  cl[s] = jlo + 1; cu[s] = jhi + 1;
-  cl[s + p.E] = rlo; cu[s + p.E] = rhi;
+  out(s, jlo + 1, jhi + 1);
+  out(s + p.E, rlo, rhi);
 }
 
 // Reified sparse membership row i (_member_cands).
-template <class S>
+template <class S, class Out>
 __device__ __forceinline__ void cand_member(const PlanView& p, int i,
-                                            const S& lb, const S& ub, int* cl,
-                                            int* cu) {
-  int W = p.W, base = p.m_base[i], top = p.m_top[i];
-  int lx = lb[p.m_x[i]], ux = ub[p.m_x[i]];
+                                            const S& lb, const S& ub,
+                                            const Out& out) {
+  int W = p.W, base = __ldg(p.m_base + i), top = __ldg(p.m_top + i);
+  const int x = __ldg(p.m_x + i), b = __ldg(p.m_b + i);
+  int lx = lb[x], ux = ub[x];
   int c = member_count(p, i, lx, ux);
   long long width = (long long)ux - lx + 1;
   int b_lo = c == width && width > 0, b_hi = c > 0;
@@ -361,45 +382,44 @@ __device__ __forceinline__ void cand_member(const PlanView& p, int i,
   wl = wl < 0 ? 0 : (wl > W - 1 ? W - 1 : wl);
   wh = wh < 0 ? 0 : (wh > W - 1 ? W - 1 : wh);
   long long row = (long long)i * W;
-  int nge = lx > top ? TT_INF : p.m_next_ge[row + wl];
-  int ple = ux < base ? TT_NINF : p.m_prev_le[row + wh];
-  int nout = lx >= base && lx <= top ? p.m_next_out[row + wl] : lx;
-  int pout = ux >= base && ux <= top ? p.m_prev_out[row + wh] : ux;
-  bool tt = lb[p.m_b[i]] >= 1, ff = ub[p.m_b[i]] <= 0;
+  int nge = lx > top ? TT_INF : __ldg(p.m_next_ge + row + wl);
+  int ple = ux < base ? TT_NINF : __ldg(p.m_prev_le + row + wh);
+  int nout = lx >= base && lx <= top ? __ldg(p.m_next_out + row + wl) : lx;
+  int pout = ux >= base && ux <= top ? __ldg(p.m_prev_out + row + wh) : ux;
+  bool tt = lb[b] >= 1, ff = ub[b] <= 0;
   int x_lo = tt ? nge : (ff ? nout : TT_NINF);
   int x_hi = tt ? ple : (ff ? pout : TT_INF);
   int s = 3 * p.P + 2 * p.E + i;
-  cl[s] = clip32(x_lo); cu[s] = clip32(x_hi);
-  cl[s + p.M] = b_lo; cu[s + p.M] = b_hi;
+  out(s, clip32(x_lo), clip32(x_hi));
+  out(s + p.M, b_lo, b_hi);
 }
 
 // Reified linear row r: sum bounds, then per-term floor/ceil candidates
-// (_linear_bucket_cands). A padding term (coefficient 0) leaves its
-// slot unwritten: no reader looks at it.
-template <class S>
+// (_linear_bucket_cands). A padding term (coefficient 0) hands nothing
+// for its slot: no reader looks at it.
+template <class S, class Out>
 __device__ __forceinline__ void cand_linear(const PlanView& p, int r,
-                                            const S& lb, const S& ub, int* cl,
-                                            int* cu) {
-  int flags = p.l_flags[r];
-  bool unit = flags & 1, fit32 = flags & 2;
+                                            const S& lb, const S& ub,
+                                            const Out& out) {
+  const int4 h = __ldg(p.l_head + r);
+  bool unit = h.x & 1, fit32 = h.x & 2;
   long long smin, smax;
-  lin_sums(p, r, lb, ub, &smin, &smax);
-  long long rhs = p.l_rhs[r];
-  bool is_eq = p.l_op[r] == 1;
-  cl[p.base_linb + r] = is_eq ? (smin == rhs && smax == rhs) : (smax <= rhs);
-  cu[p.base_linb + r] = is_eq ? (smin <= rhs && rhs <= smax) : (smin <= rhs);
-  bool tt = lb[p.l_b[r]] >= 1, ff = ub[p.l_b[r]] <= 0;
+  lin_sums(p, h, lb, ub, &smin, &smax);
+  long long rhs = __ldg(p.l_rhs + r);
+  bool is_eq = (h.x >> 2) == 1;
+  out(p.base_linb + r,
+      is_eq ? (smin == rhs && smax == rhs) : (smax <= rhs),
+      is_eq ? (smin <= rhs && rhs <= smax) : (smin <= rhs));
+  bool tt = lb[h.w] >= 1, ff = ub[h.w] <= 0;
   bool ge_act = (is_eq && tt) || (!is_eq && ff), le_act = tt;
   long long rhs2 = is_eq ? rhs : rhs + 1;
-  const int* coef = p.l_coef + p.l_toff[r];
-  const int* var = p.l_var + p.l_toff[r];
-  int* tl = cl + p.base_lin + p.l_toff[r];
-  int* tu = cu + p.base_lin + p.l_toff[r];
-  for (int t = 0; t < p.l_K[r]; ++t) {
-    int c = coef[t];
+  const int ts = p.base_lin + h.y;
+  for (int t = 0; t < h.z; ++t) {
+    const int2 term = __ldg(p.l_term + h.y + t);
+    const int c = term.x;
     if (c == 0) continue;
     long long tmin, tmax;
-    lin_term(fit32, c, lb[var[t]], ub[var[t]], &tmin, &tmax);
+    lin_term(fit32, c, lb[term.y], ub[term.y], &tmin, &tmax);
     long long R = rhs - (smin - tmin), R2 = rhs2 - (smax - tmax);
     long long q_le, ceil_le, q_ge, ceil_ge;
     if (unit) {
@@ -416,6 +436,6 @@ __device__ __forceinline__ void cand_linear(const PlanView& p, int r,
     hi = lmin(hi, ge_act && !cpos ? q_ge : TT_INF);
     long long lo = le_act && !cpos ? ceil_le : TT_NINF;
     lo = lmax(lo, ge_act && cpos ? ceil_ge : TT_NINF);
-    tl[t] = clip32(lo); tu[t] = clip32(hi);
+    out(ts + t, clip32(lo), clip32(hi));
   }
 }

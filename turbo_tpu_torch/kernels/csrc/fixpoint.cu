@@ -1,152 +1,321 @@
 // K1: the propagation fixpoint of one dive per thread block.
 //
 // Replaces PropagatorKernels.fixpoint / iteration / _clamp_store of
-// turbo_tpu/solver/propagate_jax.py (with _deduce_group, _inv_mul,
-// _fwd_div, _linear_bucket_cands, _element_cands, _member_cands): AC-1
-// sweeps until the dive's store stops changing, turns bot, or reaches
-// the cap. Returns (lb, ub, iters, unconv) as the JAX function does.
+// turbo_tpu/solver/propagate_jax.py (517-601, 912-965; with the rules
+// _deduce_group, _inv_mul, _fwd_div, _linear_bucket_cands,
+// _element_cands, _member_cands in common.cuh): AC-1 sweeps until the
+// dive's store stops changing, turns bot, or reaches the cap. Returns
+// (lb, ub, iters, unconv) as the JAX function does.
 //
-// What bounds it on an H100: the sweep is gather-bound. Each sweep
-// reads the store at ~6 places per propagator and writes 2 candidate
-// words per role; the per-variable combine reads them back. The
-// arithmetic is int32/int64 compares and a few divisions.
+// What bounds it on an H100: neither bytes nor arithmetic (a golomb(12)
+// launch at D = 512 moves about 10 MB and its sweeps do a few G int32
+// operations: a bound near 0.006 ms). It is latency: one block per dive
+// runs up to cap dependent sweeps (at cap 16 most launches run all 16),
+// each a pass over the rules and the variables between block barriers,
+// four blocks per SM at golomb(12), and every rule waits on loads of the
+// plan's tables from L2 (the blocks' shared memory leaves the SM little
+// L1). The design cuts what a sweep waits on: global round trips,
+// barriers, and rules that need not run.
 //
-// Design: the block keeps its dive's two store planes (2 V int32) in
-// shared memory when they fit (V up to ~28k on 227 KB), so the gathers
-// of phase A hit shared memory; otherwise it works in place on the
-// output rows in global memory. The candidate planes (2 n_cand int32)
-// live in a global scratch row of the dive, written and read by the
-// same block (L1/L2 resident at the shapes the engine runs). Sweeps are
-// Jacobi, as in the JAX sweep: phase A computes every candidate from
-// the current store; phase B combines them per variable (max of lb
-// candidates, min of ub candidates over the CSR incidence list), folds
-// singleton-tail conflicts into the dummy column and clamps to the root
-// box, in place: a variable reads only candidates and its own old
-// bounds. A dive stops at its own convergence; the JAX loop sweeps on
-// until the last lane converges, which is idempotent on converged lanes
-// (bot lanes may differ: the engine discards their store).
+// Design. A sweep is Jacobi, as the JAX sweep: every candidate comes
+// from the store as the sweep found it. JAX gathers each variable's
+// candidates and combines them with max / min; max and min are
+// associative and commutative, so scattering each candidate into a
+// second copy of the store with atomicMax / atomicMin gives the same
+// integers in any order (a scatter-meet).
+// - The block keeps two copies of its dive's store in shared memory, A
+//   (read by the rules) and B (met into), 4 V int32, a worklist of P
+//   int32 and a byte per variable that says it moved in the sweep
+//   before: 53 KB at golomb(12). Each candidate slot is routed by
+//   slot_tgt (code, value), the exact inverse of the plan's incidence
+//   lists and conflict fold (built in kernels/__init__.py): a slot
+//   aimed at an active variable is met into B; one aimed at the
+//   root-fixed singleton tail is folded against the fixed value it
+//   carries, and a conflict raises the dummy column's lb to 1 (the JAX
+//   fold, met like any candidate); the rest is dropped. A candidate not
+//   above A's bound cannot move B (B starts each sweep equal to A and
+//   only tightens) and skips its atomic; most candidates do. No
+//   candidate plane exists in global memory (the JAX layout's 2 n_cand
+//   words per dive, written and read back every sweep, was the old
+//   kernel's largest traffic).
+// - One pass over the variables then clamps B to the root box, writes
+//   the result into both A and B (the next sweep needs no copy), marks
+//   the variables that moved, and ORs "changed" and "bot" into a flag
+//   word of the sweep's parity (warp-reduced first; thread 0 clears the
+//   other word). After the first sweep A lies inside the box, so a
+//   variable that no candidate moved needs neither the box nor a write.
+// - From the second sweep of a launch on, a rule runs only if one of
+//   its variables moved in the sweep before: x, y, z of a TNF
+//   propagator; idx, res of an element row; x, b of a membership row;
+//   the terms and b of a linear row. This is exact: the skipped rule's
+//   candidate is the one it gave when it last ran, and the store has
+//   absorbed that one. From the first clamp on, lb only grows and stays
+//   at or below ub0 + 1, so min(max(lb, c), ub0 + 1) is lb again; the
+//   same holds for ub. So every sweep's store, changed, bot, iters and
+//   unconv are bit for bit those of the full sweep. The first sweep runs
+//   every rule: the kernel does not know what moved before the launch.
+//   The TNF propagators to run are first gathered into the worklist (a
+//   ballot per warp), so that they run on dense warps: at golomb(12)
+//   from a few to three quarters of them run in a sweep, spread over
+//   most warps of a strided loop. So a sweep after the first has three
+//   barriers and the first two (the gather-combine took five). Built with
+//   -DTT_K1_NO_SKIP every sweep runs every rule (only chip_smoke.py
+//   builds that variant, to time the skip against it).
+// - The TNF propagators, most of the work, load (op, x, y, z) as one
+//   int4 through the read-only path; a linear row loads a packed header
+//   and (coef, var) per term. The element, membership and linear rows
+//   follow in loops of their own on the threads after the last TNF
+//   rule's, so no warp iteration mixes a 3-variable rule with a K-term
+//   row or a T-entry scan. Measured and dropped (PERF.md): the rows on
+//   warps of their own, the TNF loads issued four at a time, marking
+//   the rules through a variable-to-rule CSR in place of the worklist's
+//   scan, and 384 or 512 threads per block; none beat this build (256
+//   threads, 4 blocks per SM by registers and shared memory) at
+//   golomb(12) by more than the spread of the readings. The packed TNF
+//   table (16 P bytes, 44 KB at golomb(12)) stays in global memory:
+//   staged in shared memory it would cost a block per SM.
+// - Large stores: when the block's shared memory cannot hold them (V
+//   above about 13k at golomb(12)'s P), the same algorithm runs with A
+//   in the output rows and B, the worklist and the marks in a global
+//   scratch row of the dive, met by global atomics. ``smem=False``
+//   forces that path, and chip_smoke.py holds it to the plain version.
+// A dive stops at its own convergence; the JAX loop sweeps on until the
+// last lane converges, which is idempotent on converged lanes (bot lanes
+// may differ: the engine discards their store).
 //
 // In the search step (solver/step_cuda.py) the kernel runs in place
 // (lb_in == lb_out: each block reads its own rows before it writes
 // them) and returns at once when *live is 0 (every lane was IDLE when the
-// step began); the EPS table build passes no live flag.
+// step began); the EPS table build passes no live flag. It allocates
+// nothing, so a chunk of steps is captured into a CUDA graph.
 //
 // Three entry points share the kernel:
 // - tt_fixpoint: (D, V) planes, sweeps to the fixpoint or the cap;
 // - tt_fixed_sweeps: (D, V) planes, exactly n sweeps with no exit on
 //   convergence or bot, iters = n and unconv = 0
-//   (PropagatorKernels.fixed_sweeps);
+//   (PropagatorKernels.fixed_sweeps); the skip stays exact there, since
+//   a sweep after bot or convergence is still monotone;
 // - tt_fixpoint_t: dive-minor (V, D) planes (PropagatorKernels.fixpoint_t,
 //   iteration_t and the *_cands_t rules, which compute the same values
 //   as the (D, V) forms): dive d's element v lies at [v * D + d]. The
 //   block gathers its strided column into shared memory, sweeps there
-//   and scatters it back; when the store does not fit it sweeps the
-//   strided column in place through a ``Plane``.
+//   and scatters it back; on the global path A is the strided column
+//   itself, read and written through a ``Plane``.
 #include "common.cuh"
 
+#ifdef TT_K1_NO_SKIP
+#define TT_K1_SKIP 0
+#else
+#define TT_K1_SKIP 1
+#endif
+
+// The int32 words of a dive's global scratch row: B (2 V), the worklist
+// (P) and the marks (V bytes).
+__host__ __device__ __forceinline__ long long scratch_words(
+    const PlanView& p) {
+  return 2LL * p.V + p.P + (p.V + 3) / 4;
+}
+
+// Dynamic shared memory: the flag words (16 bytes: changed / bot of two
+// sweep parities and the worklist's length), and on the shared-memory
+// path A, B (4 V int32), the worklist (P int32) and the marks (V bytes,
+// rounded up to 16). Mirrored by kernels.fixpoint_smem_bytes.
+static size_t smem_bytes(const PlanView& p) {
+  return 16 + 16 * (size_t)p.V + 4 * (size_t)p.P +
+         ((size_t)p.V + 15) / 16 * 16;
+}
+
+// Meets a rule's candidate (lo, hi) for slot s into B, routed by
+// slot_tgt; A is the store the sweep reads.
 template <class S>
-__device__ __forceinline__ void phase_a(const PlanView& p, const S& lb,
-                                        const S& ub, int* cl, int* cu) {
+struct Meet {
+  S al, au;
+  int* bl;
+  int* bu;
+  const int2* __restrict__ tgt;
+  int dummy;
+  __device__ __forceinline__ void operator()(int s, int lo, int hi) const {
+    const int2 t = __ldg(tgt + s);
+    if (t.x >= 0) {
+      if (lo > al[t.x]) atomicMax(bl + t.x, lo);
+      if (hi < au[t.x]) atomicMin(bu + t.x, hi);
+    } else if (t.x != TT_UNREAD) {
+      // A deduction (lo, hi) into a var fixed at c = t.y conflicts iff
+      // lo > c or hi < c.
+      if ((lo > t.y || hi < t.y) && al[dummy] < 1) atomicMax(bl + dummy, 1);
+    }
+  }
+};
+
+// The first item of this thread in a loop that continues the block's
+// strided assignment after ``before`` items: item i runs on thread
+// (before + i) % blockDim.x.
+__device__ __forceinline__ int first_item(int before) {
+  return (threadIdx.x + blockDim.x - before % blockDim.x) % blockDim.x;
+}
+
+// Phase A of a sweep: every rule (``all``), or every rule with a marked
+// variable, computes its candidates from A and meets them into B. The
+// TNF propagators to run are first gathered into the worklist wl
+// (length *wn), so that their evaluation runs on dense warps: after the
+// first sweep only a fifth to a half of golomb(12)'s propagators run,
+// but spread so that nearly every warp of a strided loop would hold one.
+template <class S>
+__device__ __forceinline__ void phase_a(const PlanView& p, const Meet<S>& out,
+                                        const unsigned char* mk, int* wl,
+                                        int* wn, bool all) {
+  const S& lb = out.al;
+  const S& ub = out.au;
   const int P = p.P, E = p.E, M = p.M;
-  const int n_items = P + E + M + p.L;
-  for (int it = threadIdx.x; it < n_items; it += blockDim.x) {
-    if (it < P) cand_tnf(p, it, lb, ub, cl, cu);
-    else if (it < P + E) cand_elem(p, it - P, lb, ub, cl, cu);
-    else if (it < P + E + M) cand_member(p, it - P - E, lb, ub, cl, cu);
-    else cand_linear(p, it - P - E - M, lb, ub, cl, cu);
+  if (!all) {
+    // Whole warps take part in each round (the ballot).
+    for (int base = 0; base < P; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      bool run = false;
+      if (i < P) {
+        const int4 r = __ldg(p.tnf4 + i);
+        run = mk[r.y] | mk[r.z] | mk[r.w];
+      }
+      const unsigned ball = __ballot_sync(0xffffffffu, run);
+      const int lane = threadIdx.x & 31;
+      int at = 0;
+      if (lane == 0 && ball) at = atomicAdd(wn, __popc(ball));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (run) wl[at + __popc(ball & ((1u << lane) - 1))] = i;
+    }
+    __syncthreads();
+  }
+  const int n = all ? P : *wn;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int i = all ? k : wl[k];
+    const int4 r = __ldg(p.tnf4 + i);  // (op, x, y, z)
+    int c[6];
+    deduce(r.x, lb[r.y], ub[r.y], lb[r.z], ub[r.z], lb[r.w], ub[r.w], c);
+    out(i, c[0], c[1]);
+    out(P + i, c[2], c[3]);
+    out(2 * P + i, c[4], c[5]);
+  }
+  // The rows follow on the threads after the last TNF rule's.
+  for (int i = first_item(n); i < E; i += blockDim.x)
+    if (all || (mk[__ldg(p.e_idx + i)] | mk[__ldg(p.e_res + i)]))
+      cand_elem(p, i, lb, ub, out);
+  for (int i = first_item(n + E); i < M; i += blockDim.x)
+    if (all || (mk[__ldg(p.m_x + i)] | mk[__ldg(p.m_b + i)]))
+      cand_member(p, i, lb, ub, out);
+  for (int r = first_item(n + E + M); r < p.L; r += blockDim.x) {
+    const int4 h = __ldg(p.l_head + r);  // (flags | op << 2, toff, K, b)
+    bool run = all || mk[h.w];
+    for (int t = 0; !run && t < h.z; ++t)
+      run = mk[__ldg(p.l_term + h.y + t).y];
+    if (run) cand_linear(p, r, lb, ub, out);
   }
 }
 
-// The sweeps of one dive on its store lb / ub. ``fixed``: exactly cap
-// sweeps. Returns the sweeps run; *m_out: still changing at the cap.
+// The sweeps of one dive on stores A (al, au) and B (bl, bu), equal on
+// entry, with the marks mk and the two flag words. ``fixed``: exactly
+// cap sweeps. Returns the sweeps run; *m_out: still changing at the cap.
 template <class S>
-__device__ __forceinline__ int sweep_loop(const PlanView& p, const S& lb,
-                                          const S& ub, int* cl, int* cu,
+__device__ __forceinline__ int sweep_loop(const PlanView& p, S al, S au,
+                                          int* bl, int* bu, int* wl,
+                                          unsigned char* mk, int* flag,
                                           int cap, int fixed, bool* m_out) {
-  const int V = p.V;
+  const Meet<S> out{al, au, bl, bu, p.slot_tgt, p.V - 1};
   int iters = 0;
   bool m = true;
   for (int it = 0; (m || fixed) && it < cap; ++it) {
-    phase_a(p, lb, ub, cl, cu);
+    phase_a(p, out, mk, wl, flag + 2, !TT_K1_SKIP || it == 0);
     __syncthreads();
-    // Singleton-tail conflict fold: a deduction (lo, hi) into a var
-    // fixed at c conflicts iff lo > c or hi < c.
-    int conf = 0;
-    for (int k = threadIdx.x; k < p.n_conf; k += blockDim.x) {
-      int s = p.conf_slot[k], off = p.conf_off[k];
-      conf |= cl[s] > off || cu[s] < off;
-    }
-    conf = __syncthreads_or(conf) ? 1 : 0;
-    int changed = 0, bot = 0;
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      int l0 = lb[v], u0 = ub[v];
-      int l = l0, u = u0;
-      if (v < p.n_active) {
-        for (int k = p.inc_off[v]; k < p.inc_off[v + 1]; ++k) {
-          int s = p.inc_slot[k];
-          l = cl[s] > l ? cl[s] : l;
-          u = cu[s] < u ? cu[s] : u;
+    // Clamp to the root box; A and B take the result; bit 0: changed,
+    // bit 1: bot. After the first sweep A lies inside the clamp, so a
+    // variable no candidate moved (B == A) needs neither the root box
+    // nor a write.
+    unsigned f = 0;
+    for (int v = threadIdx.x; v < p.V; v += blockDim.x) {
+      const int l0 = al[v], u0 = au[v];
+      int l = bl[v], u = bu[v];
+      bool ch = false;
+      if (it == 0 || l != l0 || u != u0) {
+        const int hi = __ldg(p.ub_cap + v), lo = __ldg(p.lb_floor + v);
+        l = l < hi ? l : hi;
+        u = u > lo ? u : lo;
+        ch = l != l0 || u != u0;
+        if (ch) {
+          al[v] = l;
+          au[v] = u;
         }
-      } else if (v == V - 1 && p.n_conf > 0) {
-        l = l > conf ? l : conf;
+        bl[v] = l;
+        bu[v] = u;
       }
-      l = l < p.ub_cap[v] ? l : p.ub_cap[v];
-      u = u > p.lb_floor[v] ? u : p.lb_floor[v];
-      changed |= l != l0 || u != u0;
-      bot |= l > u;
-      lb[v] = l;
-      ub[v] = u;
+      if (TT_K1_SKIP) mk[v] = ch;
+      f |= (ch ? 1u : 0u) | (l > u ? 2u : 0u);
     }
-    changed = __syncthreads_or(changed);
-    bot = __syncthreads_or(bot);
+    f = __reduce_or_sync(0xffffffffu, f);
+    if ((threadIdx.x & 31) == 0 && f) atomicOr(flag + (it & 1), (int)f);
+    // Every thread read the other word, and the worklist's length,
+    // before this sweep's phase A ended.
+    if (threadIdx.x == 0) {
+      flag[(it + 1) & 1] = 0;
+      flag[2] = 0;
+    }
+    __syncthreads();
+    f = flag[it & 1];
     iters += 1;
-    m = changed && !bot;
+    m = (f & 1) && !(f & 2);
   }
   *m_out = m;
   return iters;
 }
 
 // ds / vs: the strides of the dive and of the variable in the planes
-// ((D, V): V and 1; (V, D): 1 and D).
+// ((D, V): V and 1; (V, D): 1 and D). scratch: (D, scratch_words(p))
+// int32, read only on the global path.
 __global__ void __launch_bounds__(TT_THREADS)
 fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
                 int* ub_out, int* iters_out, unsigned char* unconv_out,
-                int* cand, int cap, int use_smem, const int* live,
+                int* scratch, int cap, int use_smem, const int* live,
                 long long ds, long long vs, int fixed) {
   if (live != nullptr && *live == 0) return;
   extern __shared__ int smem[];
   const int V = p.V;
   const long long d = blockIdx.x;
-  int* cl = cand + d * 2LL * p.n_cand;
-  int* cu = cl + p.n_cand;
+  int* flag = smem;
+  int* al = smem + 4;
+  int* au = al + V;
+  int* bl = au + V;
+  if (!use_smem) bl = scratch + d * scratch_words(p);
+  int* bu = bl + V;
+  int* wl = bu + V;
+  unsigned char* mk = reinterpret_cast<unsigned char*>(wl + p.P);
   const bool copy_in = lb_out != lb_in;
-  if (use_smem || copy_in) {
-    int* l = use_smem ? smem : lb_out + d * ds;
-    int* u = use_smem ? smem + V : ub_out + d * ds;
-    long long s = use_smem ? 1 : vs;
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      l[v * s] = lb_in[d * ds + v * vs];
-      u[v * s] = ub_in[d * ds + v * vs];
+  for (int v = threadIdx.x; v < V; v += blockDim.x) {
+    const int l = lb_in[d * ds + v * vs], u = ub_in[d * ds + v * vs];
+    bl[v] = l;
+    bu[v] = u;
+    if (use_smem) {
+      al[v] = l;
+      au[v] = u;
+    } else if (copy_in) {
+      lb_out[d * ds + v * vs] = l;
+      ub_out[d * ds + v * vs] = u;
     }
   }
+  if (threadIdx.x == 0) flag[0] = flag[1] = flag[2] = 0;
   __syncthreads();
   int iters;
   bool m;
   if (use_smem) {
-    int* sl = smem;
-    int* su = smem + V;
-    iters = sweep_loop(p, sl, su, cl, cu, cap, fixed, &m);
+    iters = sweep_loop(p, al, au, bl, bu, wl, mk, flag, cap, fixed, &m);
     for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      lb_out[d * ds + v * vs] = sl[v];
-      ub_out[d * ds + v * vs] = su[v];
+      lb_out[d * ds + v * vs] = al[v];
+      ub_out[d * ds + v * vs] = au[v];
     }
   } else if (vs == 1) {
-    int* gl = lb_out + d * ds;
-    int* gu = ub_out + d * ds;
-    iters = sweep_loop(p, gl, gu, cl, cu, cap, fixed, &m);
+    iters = sweep_loop(p, lb_out + d * ds, ub_out + d * ds, bl, bu, wl, mk,
+                       flag, cap, fixed, &m);
   } else {
-    Plane lb{lb_out + d * ds, vs}, ub{ub_out + d * ds, vs};
-    iters = sweep_loop(p, lb, ub, cl, cu, cap, fixed, &m);
+    iters = sweep_loop(p, Plane{lb_out + d * ds, vs},
+                       Plane{ub_out + d * ds, vs}, bl, bu, wl, mk, flag, cap,
+                       fixed, &m);
   }
   if (threadIdx.x == 0) {
     iters_out[d] = fixed ? iters : iters + 1;
@@ -156,12 +325,16 @@ fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
 
 static int launch(const PlanView* p, const int* lb_in, const int* ub_in,
                   int* lb_out, int* ub_out, int* iters, unsigned char* unconv,
-                  int* cand, int D, int cap, int smem_limit, const int* live,
-                  void* stream, long long ds, long long vs, int fixed) {
+                  int* scratch, int D, int cap, int smem_limit,
+                  const int* live, void* stream, long long ds, long long vs,
+                  int fixed) {
   static int attr_set = -1;
-  size_t smem = 2 * sizeof(int) * (size_t)p->V;
+  size_t smem = smem_bytes(*p);
   int use_smem = smem <= (size_t)smem_limit;
-  if (!use_smem) smem = 0;
+  if (!use_smem) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    smem = 16;
+  }
   if ((int)smem > attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
         fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -170,36 +343,36 @@ static int launch(const PlanView* p, const int* lb_in, const int* ub_in,
     attr_set = (int)smem;
   }
   fixpoint_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
-      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, cap, use_smem,
-      live, ds, vs, fixed);
+      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
+      use_smem, live, ds, vs, fixed);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tt_fixpoint(const PlanView* p, const int* lb_in,
                            const int* ub_in, int* lb_out, int* ub_out,
-                           int* iters, unsigned char* unconv, int* cand,
+                           int* iters, unsigned char* unconv, int* scratch,
                            int D, int cap, int smem_limit, const int* live,
                            void* stream) {
-  return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, D, cap,
-                smem_limit, live, stream, p->V, 1, 0);
+  return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, D,
+                cap, smem_limit, live, stream, p->V, 1, 0);
 }
 
 extern "C" int tt_fixed_sweeps(const PlanView* p, const int* lb_in,
                                const int* ub_in, int* lb_out, int* ub_out,
-                               int* iters, unsigned char* unconv, int* cand,
-                               int D, int n, int smem_limit, const int* live,
-                               void* stream) {
-  return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, D, n,
-                smem_limit, live, stream, p->V, 1, 1);
+                               int* iters, unsigned char* unconv,
+                               int* scratch, int D, int n, int smem_limit,
+                               const int* live, void* stream) {
+  return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, D,
+                n, smem_limit, live, stream, p->V, 1, 1);
 }
 
 extern "C" int tt_fixpoint_t(const PlanView* p, const int* lb_in,
                              const int* ub_in, int* lb_out, int* ub_out,
-                             int* iters, unsigned char* unconv, int* cand,
+                             int* iters, unsigned char* unconv, int* scratch,
                              int D, int cap, int smem_limit, const int* live,
                              void* stream) {
-  return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, D, cap,
-                smem_limit, live, stream, 1, D, 0);
+  return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, D,
+                cap, smem_limit, live, stream, 1, D, 0);
 }
 
 extern "C" const char* tt_error_string(int code) {

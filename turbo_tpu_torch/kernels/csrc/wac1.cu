@@ -84,7 +84,7 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
       const int a = p.g_off[g], b = p.g_off[g + 1];
       for (int inner = 0; inner < inner_cap; ++inner) {
         for (int i = a + threadIdx.x; i < b; i += blockDim.x)
-          cand_tnf(p, i, lb, ub, cl, cu);
+          cand_tnf(p, i, lb, ub, Slots{cl, cu});
         __syncthreads();
         int ch = 0;
         for (int i = a + threadIdx.x; i < b; i += blockDim.x) {
@@ -111,7 +111,7 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
       int ch = 0;
       if (E > 0) {
         for (int i = threadIdx.x; i < E; i += blockDim.x)
-          cand_elem(p, i, lb, ub, cl, cu);
+          cand_elem(p, i, lb, ub, Slots{cl, cu});
         __syncthreads();
         for (int i = threadIdx.x; i < E; i += blockDim.x) {
           int s = 3 * P + i;
@@ -122,7 +122,7 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
       }
       if (M > 0) {
         for (int i = threadIdx.x; i < M; i += blockDim.x)
-          cand_member(p, i, lb, ub, cl, cu);
+          cand_member(p, i, lb, ub, Slots{cl, cu});
         __syncthreads();
         for (int i = threadIdx.x; i < M; i += blockDim.x) {
           int s = 3 * P + 2 * E + i;
@@ -136,7 +136,7 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
       for (int k = 0; k < p.LB; ++k) {
         const int a = p.lb_off[k], b = p.lb_off[k + 1];
         for (int r = a + threadIdx.x; r < b; r += blockDim.x)
-          cand_linear(p, r, lb, ub, cl, cu);
+          cand_linear(p, r, lb, ub, Slots{cl, cu});
         __syncthreads();
         for (int r = a + threadIdx.x; r < b; r += blockDim.x) {
           const int* coef = p.l_coef + p.l_toff[r];

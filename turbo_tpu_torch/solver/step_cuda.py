@@ -46,6 +46,7 @@ class Workspace:
     """Per-solver scratch of the kernel route, on the solver's card."""
 
     def __init__(self, solver):
+        from .. import kernels
         D = solver.cfg.num_dives
         dev = solver.device
         dp = solver.dp
@@ -54,7 +55,12 @@ class Workspace:
             return torch.empty(shape or (D,), dtype=dtype, device=dev)
 
         self.iters, self.unconv = e(I32), e(BOOL)
-        self.cand = e(I32, D, 2, dp.n_cand)
+        # K8's candidate planes; K1's scratch (None: its stores sit in
+        # shared memory).
+        self.cand = (kernels.wac1.cand(dp, D, dev)
+                     if solver.cfg.fp_mode == "wac1" else None)
+        self.fp_scratch = kernels.fixpoint.scratch(
+            solver.kernels.kernel_plan, D)
         if solver.cfg.fp_mode == "fixpoint" and solver.cfg.fp_layout == "vd":
             self.lbT, self.ubT = e(I32, dp.V, D), e(I32, dp.V, D)
         self.bot, self.ent = e(BOOL), e(BOOL)
@@ -178,19 +184,19 @@ def propagate(solver, st, cap, live):
     from .. import kernels
     cfg, ws = solver.cfg, solver._ws
     kp = solver.kernels.kernel_plan
-    out = (st.lb, st.ub, ws.iters, ws.unconv, ws.cand)
+    out = (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch)
     if cfg.fp_mode == "fixed":
         kernels.fixpoint.fixed_sweeps(kp, st.lb, st.ub, cfg.fp_fixed_iters,
                                       live=live, out=out)
     elif cfg.fp_mode == "wac1":
         kernels.wac1(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap, live=live,
-                     out=out)
+                     out=out[:4] + (ws.cand,))
     elif cfg.fp_layout == "vd":
         ws.lbT.copy_(st.lb.t())
         ws.ubT.copy_(st.ub.t())
         kernels.fixpoint.transposed(
             kp, ws.lbT, ws.ubT, cap, live=live,
-            out=(ws.lbT, ws.ubT, ws.iters, ws.unconv, ws.cand))
+            out=(ws.lbT, ws.ubT, ws.iters, ws.unconv, ws.fp_scratch))
         st.lb.copy_(ws.lbT.t())
         st.ub.copy_(ws.ubT.t())
     else:
