@@ -34,6 +34,13 @@ phase 3c). Phases (any failure exits non-zero):
    three parts, and the fixpoint iterations per node; then the K1 step
    again from the same state with K1 built with ``-DTT_K1_NO_SKIP`` (no
    skip of unmoved rules) and as built, in turns (on, off, off, on);
+3d. the step over S=4 EPS shards, lane groups of one state (K6 over
+   every lane, K7 per shard: ``parallel/mesh.py``), against the plain
+   sharded step on the same CUDA state, every field equal after 1, 7
+   and 40 steps and three chunks of 8 (CUDA graph): golomb(12) at D=512
+   a shard with the table on, the 6 random models with the table off,
+   queens(8) with enumerate_all and the rings; then each kernel's time
+   inside 20 real golomb(12) steps at S=4, K7's against 3b's S=1;
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
    sync inside a chunk fails the phase), launches per step, wall time
@@ -87,7 +94,21 @@ phase 3c). Phases (any failure exits non-zero):
 10f. ``-checkpoint``: golomb(9) cut by ``-cutnodes``, resumed from the
    file and closed at 44, on the batched engine and under
    ``-arch hybrid``;
-11. the launch counts of each path driven in phases 4c-10f, each set to
+12. ``-arch multi``, S=4 EPS shards as lane groups on the card
+   (``ShardedSolver(devices=[cuda:0] * 4)``): (a) golomb(12) at full
+   width (auto D=512 a shard, table on) for 20 s, every improving
+   solution checker-valid, with the table's live rows by shard, the
+   rebalance rounds and their time, the state's bytes and one rebalance
+   round timed on it with shard 0 made dry; one solver of
+   D=512 and one of D=2048 for 20 s each, for their nodes/s; (b) golomb(8)
+   proven optimal at 34 under S=4 and through the CLI's ``-arch multi``
+   (one shard a card); (c) ``-a`` on queens(8) under S=4: 92 distinct
+   checker-valid solutions through the shards' rings; (d) golomb(8), S=4
+   x D=8 over 2^8 subproblems (shards drain apart, so ranges are
+   rebalanced), cap pinned at 16: the kernel and plain engines on the
+   card give the same status, objective, nodes, failures, solutions,
+   iterations and redistributions;
+11. the launch counts of each path driven in phases 4c-12, each set to
    0 just before the path and read just after it: the seven kernels of
    the default search (and every entry point of K4, K6 and K7) on the
    main path (6) and on the drain case (8), K1-K3, K6 and K7 on the
@@ -99,10 +120,13 @@ It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
 67 T/s, at the timed shapes and this run's data; ``launches`` is the
 count on the main path, or on the kernel's own path (``path``) where the
-default search does not run it), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.
+default search does not run it; K7 per shard, ``step_tail.sharded``,
+reads K7's launches on the ``-arch multi`` golomb(12) path and its times
+from 3d), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import pathlib
@@ -120,6 +144,10 @@ MAIN = "default CLI, golomb(12)"
 WAC1 = "-fp wac1, golomb(12)"
 FIXED = "fp_mode fixed, golomb(12)"
 VD = "fp_layout vd, golomb(12)"
+# -arch multi: EPS shards as lane groups on one card, and the path whose
+# launch counts K7 per shard reports.
+SHARDS = 4
+MULTI = f"-arch multi, golomb(12), S={SHARDS}"
 
 
 def fail(msg):
@@ -560,6 +588,40 @@ def same_state(label, a, b):
     return 0
 
 
+def steps_equal(label, s, st_k, cap):
+    """Fails unless the kernels' steps of ``st_k`` (solver ``s``) equal
+    the plain step's on a copy, every field after 1, 7 and 40 steps and
+    after three chunks of 8 (eager, captured into a CUDA graph, replayed),
+    with the kernels' step counter equal to the plain steps that found a
+    live lane. Returns the kernels' state."""
+    st_p = clone_state(st_k)
+    done = 0
+    for n in (1, 7, 40):
+        st_k, ran = s.run_steps(st_k, n - done, cap)
+        live = 0
+        for _ in range(n - done):
+            st_p, lv = s.step_plain(st_p, cap)
+            live += int(lv)
+        if int(ran) != live:
+            fail(f"{label}: the kernels counted {int(ran)} steps, the "
+                 f"plain step {live}")
+        done = n
+        same_state(f"{label}, after {n} steps", st_k, st_p)
+    for _ in range(3):
+        st_k, _ = s.run_steps(st_k, 8, cap)
+        for _ in range(8):
+            st_p, _ = s.step_plain(st_p, cap)
+    same_state(f"{label}, after 64 steps (CUDA graph)", st_k, st_p)
+    if not s._ws.graphs:
+        fail(f"{label}: no chunk was captured into a CUDA graph")
+    log(f"  {label}: K6+K7 equal the plain step after 1, 7, 40 steps "
+        f"and 3 chunks of 8 through a CUDA graph "
+        f"(nodes {int(st_k.nodes.sum())}, solutions "
+        f"{int(st_k.sols.sum())}, idle lanes "
+        f"{int((st_k.phase == 2).sum())}/{st_k.phase.shape[0]})")
+    return st_k
+
+
 def phase_step_kernels(torch, dev):
     """3b: K6 + K7 against the plain step on the same CUDA state, and
     their times inside real golomb(12) steps. Returns the kres entries of
@@ -596,34 +658,7 @@ def phase_step_kernels(torch, dev):
     for label, text, kw, cap in cases:
         s = BatchedSolver(compile_model(parse_fzn_text(text)),
                           EngineConfig(fp_cap_auto=False, **kw), device=dev)
-        st_k = s.init_state()
-        st_p = clone_state(st_k)
-        done = 0
-        for n in (1, 7, 40):
-            st_k, ran = s.run_steps(st_k, n - done, cap)
-            live = 0
-            for _ in range(n - done):
-                st_p, lv = s.step_plain(st_p, cap)
-                live += int(lv)
-            if int(ran) != live:
-                fail(f"{label}: the kernels counted {int(ran)} steps, the "
-                     f"plain step {live}")
-            done = n
-            same_state(f"{label}, after {n} steps", st_k, st_p)
-        # Three chunks of 8: eager, captured into a CUDA graph and
-        # replayed, replayed again.
-        for _ in range(3):
-            st_k, _ = s.run_steps(st_k, 8, cap)
-            for _ in range(8):
-                st_p, _ = s.step_plain(st_p, cap)
-        same_state(f"{label}, after 64 steps (CUDA graph)", st_k, st_p)
-        if not s._ws.graphs:
-            fail(f"{label}: no chunk was captured into a CUDA graph")
-        log(f"  {label}: K6+K7 equal the plain step after 1, 7, 40 steps "
-            f"and 3 chunks of 8 through a CUDA graph "
-            f"(nodes {int(st_k.nodes.sum())}, solutions "
-            f"{int(st_k.sols.sum())}, idle lanes "
-            f"{int((st_k.phase == 2).sum())}/{kw['num_dives']})")
+        st_k = steps_equal(label, s, s.init_state(), cap)
         if len(big) < 4:
             big.append((label, s, st_k, cap))
     out = None
@@ -634,6 +669,42 @@ def phase_step_kernels(torch, dev):
             out = res
             k1_turns(torch, label, s, st0, cap)
     return out
+
+
+def phase_sharded_step_kernels(torch, dev, single):
+    """3d: the step over S EPS shards, lane groups of one state (K6 over
+    every lane, K7 per shard), against the plain sharded step on the same
+    CUDA state; then each kernel's time inside real golomb(12) steps at
+    S x D=512, K7's against S=1 (``single``: 3b's entry). Returns the
+    JSON entry of K7 per shard."""
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.instances import golomb, queens, random_model
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver
+    from turbo_tpu_torch.solver.config import EngineConfig
+    cases = ([(f"golomb(12), S={SHARDS} x D=512, table on, cap 16",
+               golomb(12), dict(num_dives=512), 16)]
+             + [(f"random_model({200 + i}), S={SHARDS} x D=64, table off, "
+                 "cap 4", random_model(200 + i, n_vars=8, n_cons=24),
+                 dict(num_dives=64, subproblems_power=8, use_table=False), 4)
+                for i in range(6)]
+             + [(f"queens(8), S={SHARDS} x D=64, enumerate_all, ring 256",
+                 queens(8), dict(num_dives=64, subproblems_power=6,
+                                 enumerate_all=True, sol_ring_size=256),
+                 10000)])
+    first = None
+    for label, text, kw, cap in cases:
+        ms = ShardedSolver(compile_model(parse_fzn_text(text)),
+                           EngineConfig(fp_cap_auto=False, **kw),
+                           devices=[dev] * SHARDS)
+        st = steps_equal(label, ms.solver, ms.init_state(), cap)
+        if first is None:
+            first = (label, ms.solver, st, cap)
+    res = time_step_parts(torch, *first)["step_tail"]
+    log(f"  K7 (scan + copy) per step, golomb(12), D=512 a shard: S={SHARDS} "
+        f"{res[1]:.4f} ms (plain {res[2]:.4f}, bound {res[3]:.5f}), S=1 "
+        f"{single[1]:.4f} ms (plain {single[2]:.4f}, bound {single[3]:.5f})")
+    return res
 
 
 def k1_turns(torch, label, s, st, cap):
@@ -734,7 +805,7 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
         plain["pre"] += pe[0].elapsed_time(pe[1]) / steps
         plain["post"] += pe[2].elapsed_time(pe[3]) / steps
         plain["tail"] += pe[3].elapsed_time(pe[4]) / steps
-    D, V = s.cfg.num_dives, s.dp.V
+    D, V = st.phase.shape[0], s.dp.V  # every lane of every shard
     impr, refill = int(n_impr) / steps, int(n_refill) / steps
     # K6: about 10 scalar words per lane before K1 and 52 after, the
     # incumbent rows of improving lanes (two planes read, two written);
@@ -1298,6 +1369,190 @@ def run_option_paths(torch, dev, big=12):
     return paths
 
 
+def run_multi_paths(torch, dev, big=12):
+    """Phase 12: the paths of ``-arch multi``, S EPS shards as lane groups
+    on one card. Returns their launch counts by label."""
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.host.solver.plan import auto_num_dives
+    from turbo_tpu_torch.host.utils.output import print_solution
+    from turbo_tpu_torch.instances import (GOLOMB_OPT, QUEENS_COUNT, golomb,
+                                           queens)
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver, rebalance_ranges
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.convert import (search_state_from_numpy,
+                                                search_state_to_numpy)
+    from turbo_tpu_torch.solver.engine import IDLE, BatchedSolver
+    paths = {}
+    text = golomb(big)
+    model = parse_fzn_text(text)
+    tnf = compile_model(model)
+    D = auto_num_dives(tnf)
+
+    def block(t, lb):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            print_solution(t, lb)
+        return buf.getvalue()
+
+    def rate(r):
+        return r.nodes / max(r.solve_time, 1e-9)
+
+    def sharded_big():
+        ms = ShardedSolver(tnf, EngineConfig(num_dives=D),
+                           devices=[dev] * SHARDS)
+        found = []
+        r = ms.solve(timeout_s=20, on_improve=found.append)
+        if r.best_lb is None:
+            fail(f"-arch multi, golomb({big}): no solution")
+        for lb in found + [r.best_lb]:
+            check_solution(model, block(tnf, lb))
+        s = ms.solver
+        tb = [s.get_table(g) for g in range(SHARDS)] if s.use_table else []
+        st = ms.init_state()  # the tables are built: shapes only
+        nbytes = sum(getattr(st, f.name).nbytes
+                     for f in dataclasses.fields(st))
+        # One rebalance round as the loop runs it, with shard 0 made dry:
+        # the state to the host, rebalance_ranges, the state back.
+        st, _ = ms.run_steps(st, 30, 8)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fields = search_state_to_numpy(st)
+        fields["phase"][:D] = IDLE
+        fields["next_sub"][:D] = fields["sub_limit"][:D]
+        t1 = time.monotonic()
+        fields, moves = rebalance_ranges(fields, D, SHARDS, s.plan.lb0,
+                                         s.plan.ub0, use_table=s.use_table)
+        t2 = time.monotonic()
+        search_state_from_numpy(fields, dev)
+        torch.cuda.synchronize()
+        t3 = time.monotonic()
+        del st, fields
+        log(f"  one rebalance round on a golomb({big}) S={SHARDS} state "
+            f"({moves} shard revived): {t3 - t0:.3f} s (to the host "
+            f"{t1 - t0:.3f}, rebalance_ranges {t2 - t1:.3f}, back "
+            f"{t3 - t2:.3f})")
+        log(f"  S={SHARDS} x D={D}, k={s.k}, MAXD={s.cfg.max_depth}: "
+            f"{len(found)} improving solution(s) and the best checked; "
+            f"objective {r.objective} (optimum {GOLOMB_OPT[big]}); nodes "
+            f"{r.nodes}, nodes/s {rate(r):.0f}, solveTime {r.solve_time:.3f}"
+            f" s, fixpoint_iterations {r.fixpoint_iterations}, auto cap "
+            f"{s.last_auto_cap}, table_build_time {r.table_build_time:.3f} s"
+            f" (live rows by shard {[t.n_live for t in tb]}, n_pad "
+            f"{tb[0].n_pad if tb else None}); rebalance rounds "
+            f"{ms.rebalance_rounds} ({ms.rebalance_s:.3f} s), "
+            f"eps_redistributions {r.eps_redistributions}; the state "
+            f"{nbytes / 1e6:.1f} MB ({nbytes / SHARDS / 1e6:.1f} MB a shard)")
+
+    def single_big(lanes):
+        def run():
+            s = BatchedSolver(tnf, EngineConfig(num_dives=lanes), device=dev)
+            r = s.solve(timeout_s=20)
+            if r.best_lb is None:
+                fail(f"golomb({big}), D={lanes}: no solution")
+            check_solution(model, block(tnf, r.best_lb))
+            log(f"  one solver, D={lanes}, k={s.k}: objective {r.objective},"
+                f" nodes {r.nodes}, nodes/s {rate(r):.0f}, solveTime "
+                f"{r.solve_time:.3f} s, auto cap {s.last_auto_cap}, "
+                f"eps_redistributions {r.eps_redistributions}")
+        return run
+
+    step_kernels = STEP_KERNELS + TABLE_KERNELS
+    log(f"[12a] -arch multi: golomb({big}) at full width, S={SHARDS} lane "
+        f"groups x D={D}, table on, 20 s, against one solver of D={D} and "
+        f"of D={SHARDS * D} for 20 s each")
+    paths[MULTI] = counted(MULTI, sharded_big, required=step_kernels)
+    for lanes in (D, SHARDS * D):
+        counted(f"one solver, golomb({big}), D={lanes}", single_big(lanes),
+                required=step_kernels)
+
+    t8 = compile_model(parse_fzn_text(golomb(8)))
+    D8 = auto_num_dives(t8)
+
+    def golomb8_multi():
+        ms = ShardedSolver(t8, EngineConfig(num_dives=D8),
+                           devices=[dev] * SHARDS)
+        r = ms.solve()
+        if (r.status, r.objective) != ("optimal", GOLOMB_OPT[8]):
+            fail(f"-arch multi, golomb(8): {r.status} {r.objective}")
+        log(f"  S={SHARDS} x D={D8}: optimal 34, nodes {r.nodes}, solveTime "
+            f"{r.solve_time:.3f} s, eps_redistributions "
+            f"{r.eps_redistributions}, rebalance rounds "
+            f"{ms.rebalance_rounds} ({ms.rebalance_s:.3f} s)")
+        out, _, stats = run_cli([write_model("golomb8", golomb(8)), "-s",
+                                 "-arch", "multi"])
+        if "==========" not in out or int(stats.get("objective", -1)) != 34:
+            fail(f"-arch multi CLI, golomb(8): {stats.get('objective')}")
+        log(f"  CLI -arch multi (one shard a card): optimal 34, nodes "
+            f"{stats['nodes']}, solveTime {float(stats['solveTime']):.3f} s")
+
+    log(f"[12b] golomb(8) proven optimal, S={SHARDS} (solver API) and "
+        "-arch multi (CLI)")
+    paths["-arch multi, golomb(8)"] = counted(
+        "-arch multi, golomb(8)", golomb8_multi, required=step_kernels)
+
+    def queens_multi():
+        q = queens(8)
+        qm = parse_fzn_text(q)
+        qt = compile_model(qm)
+        Dq = auto_num_dives(qt)
+        ms = ShardedSolver(qt, EngineConfig(
+            num_dives=Dq, enumerate_all=True,
+            sol_ring_size=min(4 * Dq, 8192)), devices=[dev] * SHARDS)
+        got = []
+        r = ms.solve(stop_after_n_solutions=0, on_solution=got.append)
+        bodies = set()
+        for lb in got:
+            b = block(qt, lb)
+            check_solution(qm, b)
+            bodies.add(b)
+        if not (len(got) == len(bodies) == r.solutions == QUEENS_COUNT[8]
+                and r.exhaustive):
+            fail(f"-arch multi -a, queens(8): {len(got)} streamed, "
+                 f"{len(bodies)} distinct, {r.solutions} counted")
+        log(f"  S={SHARDS} x D={Dq}: {len(got)} distinct checker-valid "
+            f"solutions through the shards' rings; nodes {r.nodes}, "
+            f"solveTime {r.solve_time:.3f} s")
+
+    log(f"[12c] -a on queens(8), S={SHARDS}, through the rings")
+    paths["-arch multi -a, queens(8)"] = counted(
+        "-arch multi -a, queens(8)", queens_multi,
+        required=STEP_KERNELS)
+
+    # 8 lanes a shard over 2^8 subproblems: shards drain at different
+    # times, so rebalance rounds run on both engines.
+    pin = dict(num_dives=8, subproblems_power=8)
+
+    def golomb8_pinned_multi():
+        cfg = EngineConfig(fp_cap_auto=False, **pin)
+        res = {}
+        for name in ("kernels", "plain"):
+            ms = ShardedSolver(t8, cfg, devices=[dev] * SHARDS)
+            if name == "plain":
+                plain_engine(ms.solver)
+            t0 = time.monotonic()
+            r = ms.solve(fp_cap=16)
+            res[name] = (r.status, r.objective, r.nodes, r.fails,
+                         r.solutions, r.fixpoint_iterations,
+                         r.eps_redistributions)
+            log(f"  {name}: status/obj/nodes/fails/sols/fp_iters/"
+                f"redistributions {res[name]}, "
+                f"{time.monotonic() - t0:.1f} s; rebalance rounds "
+                f"{ms.rebalance_rounds} ({ms.rebalance_s:.3f} s)")
+        if res["kernels"] != res["plain"] or res["kernels"][:2] != (
+                "optimal", 34):
+            fail(f"golomb(8) S={SHARDS} pinned: kernels {res['kernels']} vs "
+                 f"plain {res['plain']}")
+
+    log(f"[12d] golomb(8), S={SHARDS} x D={pin['num_dives']} over 2^"
+        f"{pin['subproblems_power']} subproblems, cap pinned at 16: kernel "
+        "engine vs plain engine")
+    paths[f"-arch multi, golomb(8), cap 16, kernels vs plain"] = counted(
+        "-arch multi, golomb(8), cap 16", golomb8_pinned_multi,
+        required=step_kernels)
+    return paths
+
+
 def steal_round_trip(torch, dev, big, tnf):
     """The host round trip of a golomb(big) table-mode state (D=512) and
     one steal round on it, timed."""
@@ -1358,6 +1613,10 @@ def main():
     kres = phase_kernels(torch, dev)
     log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
     kres.update(phase_step_kernels(torch, dev))
+    log(f"[3d] the step over S={SHARDS} EPS shards (K7 per shard) vs the "
+        "plain sharded step on the same CUDA state (exact)")
+    kres["step_tail.sharded"] = phase_sharded_step_kernels(
+        torch, dev, kres["step_tail"])
     log("[3c] step loop, golomb(12), D=512, cap 16: K1 (dv), K8, fixed "
         "sweeps, the vd entry against dv and K1 without the skip against "
         "K1, in turns")
@@ -1386,6 +1645,7 @@ def main():
         sys.exit(0)
 
     paths = run_path(torch, dev)
+    paths.update(run_multi_paths(torch, dev))
     log("[11] launches by path: " + "; ".join(
         f"{p}: " + ", ".join(f"{k} {n}" for k, n in c.items())
         for p, c in paths.items()))
@@ -1394,19 +1654,26 @@ def main():
     # One entry per kernel, and one per entry point of K1 that replaces a
     # JAX function of its own. ``launches`` is read on the main path, or,
     # for a kernel the default search does not run, on its own path.
+    # (name, kernel, replaces, path, launch-count key)
     k1 = kernels.fixpoint
-    listed = [(k.name, k, k.replaces, WAC1 if k is kernels.wac1 else MAIN)
-              for k in kernels.KERNELS]
-    listed += [(f"{k1.name}.{e}", k1, k1.ENTRY_REPLACES[e], path)
+    listed = [(k.name, k, k.replaces, WAC1 if k is kernels.wac1 else MAIN,
+               k.name) for k in kernels.KERNELS]
+    listed += [(f"{k1.name}.{e}", k1, k1.ENTRY_REPLACES[e], path,
+                f"{k1.name}.{e}")
                for e, path in (("fixed_sweeps", FIXED), ("transposed", VD))]
+    # K7 run per shard stands in for the sharded step of the JAX mesh;
+    # its launches are K7's on the -arch multi path.
+    tail = kernels.step_tail
+    listed.append(("step_tail.sharded", tail, tail.SHARDED_REPLACES, MULTI,
+                   tail.name))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
-         "replaces": replaces, "launches": paths[path][name], "path": path,
-         "launches_by_path": {p: c[name] for p, c in paths.items()},
+         "replaces": replaces, "launches": paths[path][key], "path": path,
+         "launches_by_path": {p: c[key] for p, c in paths.items()},
          "max_abs_err": kres[name][0], "ms": kres[name][1],
          "plain_ms": kres[name][2], "bound_ms": kres[name][3],
          "bound_by": kres[name][4], "library_ms": None}
-        for name, k, replaces, path in listed], "main_path": MAIN}))
+        for name, k, replaces, path, key in listed], "main_path": MAIN}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

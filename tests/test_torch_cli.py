@@ -60,10 +60,40 @@ def test_cli_output_matches_jax_cli(name, tmp_path, capsys):
 def test_unported_options_raise(tmp_path):
     path = tmp_path / "m.fzn"
     path.write_text(MODELS["linear"])
-    for extra, what in ((["-arch", "multi"], "-arch multi"),
-                        (["-hosts", "2"], "-hosts > 1")):
-        with pytest.raises(NotImplementedError, match=what):
-            port_cli.main([str(path), "-platform", "cpu"] + extra)
+    with pytest.raises(NotImplementedError, match="-hosts > 1"):
+        port_cli.main([str(path), "-platform", "cpu", "-hosts", "2"])
+
+
+@pytest.mark.parametrize("name,extra", [("golomb4", []), ("linear", []),
+                                        ("pairs", ["-a"])])
+def test_cli_multi_matches_jax_cli(name, extra, tmp_path, capsys):
+    """``-arch multi``: the port (one shard under ``-platform cpu``)
+    prints the solution blocks, final separator and stat keys of the JAX
+    CLI on its 8 virtual CPU devices (a unique optimum; under ``-a`` on
+    a satisfaction model the same set of blocks)."""
+    path = tmp_path / f"{name}.fzn"
+    path.write_text(MODELS.get(name, PAIRS))
+    args = ["-arch", "multi", "-sub", "4"] + extra
+    out = {}
+    for label, main in (("jax", jax_cli.main), ("port", port_cli.main)):
+        assert main([str(path), "-s", "-platform", "cpu", "-or", "4"]
+                    + args) == 0
+        text = capsys.readouterr().out
+        body = [l for l in text.splitlines() if not l.startswith("%")]
+        blocks = "\n".join(body).split("----------")
+        out[label] = (sorted(blocks[:-1]), blocks[-1],
+                      set(re.findall(r"^%%%mzn-stat: (\w+)=", text, re.M)))
+    assert out["port"] == out["jax"]
+    assert out["port"][1].strip() == "=========="
+    assert len(out["port"][0]) == (6 if extra else 1)
+
+
+PAIRS = """
+var 1..4: x :: output_var;
+var 1..4: y :: output_var;
+constraint int_lt(x, y);
+solve satisfy;
+"""
 
 
 OPTIONS = {

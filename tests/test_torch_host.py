@@ -55,9 +55,10 @@ def _same(a, b, path="root"):
         assert a == b, path
 
 
-def test_cli_never_loads_jax(tmp_path):
-    """The port's CLI on a tiny model, in a fresh interpreter: jax is
-    never imported, by the CLI or by the host layer it shares."""
+def _cli_without_jax(tmp_path, extra=()):
+    """The port's CLI on a tiny model in a fresh interpreter, with the
+    host layer and the solver modules imported; fails if jax or the JAX
+    package was loaded."""
     model = tmp_path / "m.fzn"
     model.write_text(random_model(0))
     mods = ", ".join(repr(f"turbo_tpu_torch.host.{m}") for m in HOST_MODULES)
@@ -67,15 +68,31 @@ def test_cli_never_loads_jax(tmp_path):
         f"for m in ({mods}):\n"
         "    importlib.import_module(m)\n"
         "import turbo_tpu_torch.solver.engine, turbo_tpu_torch.kernels\n"
-        f"rc = cli.main([{str(model)!r}, '-platform', 'cpu', '-s'])\n"
+        "import turbo_tpu_torch.parallel.mesh\n"
+        f"rc = cli.main([{str(model)!r}, '-platform', 'cpu', '-s'] + "
+        f"{list(extra)!r})\n"
         "assert rc == 0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'turbo_tpu' not in sys.modules\n"
         "print('NOJAX')\n")
+    # One torch thread: the suite's other workers hold the cores, and an
+    # oversubscribed pool of threads slows the run several times over.
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr[-2000:]
     assert "NOJAX" in r.stdout and "----------" in r.stdout
+
+
+def test_cli_never_loads_jax(tmp_path):
+    """The port's CLI on a tiny model, in a fresh interpreter: jax is
+    never imported, by the CLI or by the host layer it shares."""
+    _cli_without_jax(tmp_path)
+
+
+def test_cli_multi_never_loads_jax(tmp_path):
+    """The same under ``-arch multi`` (``parallel/mesh.py``)."""
+    _cli_without_jax(tmp_path, ["-arch", "multi", "-or", "4", "-sub", "3"])
 
 
 def test_port_sources_import_no_jax():
@@ -149,6 +166,26 @@ def test_solver_api_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BatchedSolver(tnf, cfg)
     assert BatchedSolver(tnf, cfg, device="cpu").device.type == "cpu"
+
+
+def test_sharded_solver_defaults_to_the_card():
+    """One shard per visible card by default; repeated devices are lane
+    groups on one device."""
+    import torch
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver
+    tnf = compile_model(parse_fzn_text(golomb(4)))
+    cfg = port_config.EngineConfig(num_dives=4)
+    if torch.cuda.device_count() > 1:
+        with pytest.raises(NotImplementedError, match="A12"):
+            ShardedSolver(tnf, cfg)
+    elif torch.cuda.is_available():
+        s = ShardedSolver(tnf, cfg)
+        assert (s.n_shards, s.device.type) == (1, "cuda")
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedSolver(tnf, cfg)
+    s = ShardedSolver(tnf, cfg, devices=["cpu"] * 3)
+    assert (s.n_shards, s.device.type, s.solver.num_shards) == (3, "cpu", 3)
 
 
 @pytest.mark.parametrize("mi", range(len(MODELS)))

@@ -771,13 +771,18 @@ def emulate_run(s, f, n, cap):
     """``solver/step_cuda.run`` over the numpy state ``f`` (updated in
     place): the live flag, then per step K6 pre -> K1-K3 (their plain
     versions) -> K6 post -> K7 scan -> K7 copy, each lane as one block
-    of csrc/step.cu and csrc/step_tail.cu computes it. Returns the steps
-    that ran."""
+    of csrc/step.cu and csrc/step_tail.cu computes it. A state of S * D
+    lanes is S EPS shards: K6 runs over all S * D lanes, K7's scan as
+    one block per shard over the shard's lanes, table rows and ring
+    rows. Returns the steps that ran."""
     dp, cfg = s.dp, s.cfg
-    D, V, MAXD, R = cfg.num_dives, dp.V, cfg.max_depth, cfg.sol_ring_size
+    MAXD, R = cfg.max_depth, cfg.sol_ring_size
     enum, obj, is_opt = cfg.enumerate_all, dp.obj, dp.is_opt
     lb, ub = f["lb"], f["ub"]
-    n_pad = f["tab_lb"].shape[0]
+    D = len(f["phase"])          # every lane of every shard
+    Ds = cfg.num_dives           # the lanes of one shard
+    S = D // Ds
+    n_pad = f["tab_lb"].shape[0] // S
     lb0, ub0 = dp.lb0.numpy(), dp.ub0.numpy()
     live = [int((f["phase"] != IDLE).any()), 0]
     steps = 0
@@ -912,34 +917,42 @@ def emulate_run(s, f, n, cap):
                                    int(f["dec_l1" if c1 else "dec_l0"][d, j]))
                     ub[d, v] = min(int(ub[d, v]),
                                    int(f["dec_u1" if c1 else "dec_u0"][d, j]))
-        # K7 scan (one block).
-        m = max(int(nxt_v[d]) if dleaf_v[d] else 0 for d in range(D))
-        ns = max(int(f["next_sub"][0]), m)
-        limit, w0 = int(f["sub_limit"][0]), int(f["sol_w"][0])
-        total_w, total_i = int(want.sum()), int(impr_v.sum())
-        inc_w, inc_i = np.cumsum(want), np.cumsum(impr_v)
-        newidx = [w32(ns + (int(inc_w[d]) - 1 if want[d] else 0))
-                  for d in range(D)]
-        havework = [bool(want[d]) and newidx[d] < limit for d in range(D)]
-        ridx = [w32(w0 + int(inc_i[d]) - 1) % R
-                if impr_v[d] and R > 0 and total_i - inc_i[d] < R else -1
-                for d in range(D)]
+        # K7 scan, one block per shard; the last block publishes the
+        # live flag.
+        newidx, havework, ridx = [0] * D, [False] * D, [-1] * D
         refill_phase = SOLVE if s.use_table else DIVE
         any_live = False
-        for d in range(D):
-            ph = ((refill_phase if havework[d] else IDLE) if want[d]
-                  else int(f["phase"][d]))
-            any_live |= ph != IDLE
-        f["next_sub"][:] = min(w32(ns + total_w), limit)
-        if R > 0:
-            f["sol_w"][:] = [w32(int(x) + total_i) for x in f["sol_w"]]
+        for sh in range(S):
+            ls = range(sh * Ds, (sh + 1) * Ds)
+            l0 = sh * Ds
+            m = max(int(nxt_v[d]) if dleaf_v[d] else 0 for d in ls)
+            ns = max(int(f["next_sub"][l0]), m)
+            limit, w0 = int(f["sub_limit"][l0]), int(f["sol_w"][l0])
+            total_w = int(want[l0:l0 + Ds].sum())
+            total_i = int(impr_v[l0:l0 + Ds].sum())
+            inc_w = np.cumsum(want[l0:l0 + Ds])
+            inc_i = np.cumsum(impr_v[l0:l0 + Ds])
+            for d in ls:
+                i = d - l0
+                newidx[d] = w32(ns + (int(inc_w[i]) - 1 if want[d] else 0))
+                havework[d] = bool(want[d]) and newidx[d] < limit
+                if impr_v[d] and R > 0 and total_i - inc_i[i] < R:
+                    ridx[d] = w32(w0 + int(inc_i[i]) - 1) % R
+                ph = ((refill_phase if havework[d] else IDLE) if want[d]
+                      else int(f["phase"][d]))
+                any_live |= ph != IDLE
+            f["next_sub"][l0:l0 + Ds] = min(w32(ns + total_w), limit)
+            if R > 0:
+                f["sol_w"][l0:l0 + Ds] = [w32(int(f["sol_w"][d]) + total_i)
+                                          for d in ls]
         live[1 - cur] = int(any_live)
         steps += 1
         # K7 copy, one lane (block) at a time.
         for d in range(D):
+            sh = d // Ds
             if want[d]:
                 if havework[d] and s.use_table:
-                    r = min(max(newidx[d], 0), n_pad - 1)
+                    r = sh * n_pad + min(max(newidx[d], 0), n_pad - 1)
                     lb[d] = f["root_lb"][d] = f["tab_lb"][r]
                     ub[d] = f["root_ub"][d] = f["tab_ub"][r]
                     f["depth"][d], f["remaining"][d] = 0, 0
@@ -952,7 +965,7 @@ def emulate_run(s, f, n, cap):
                     f["subp"][d] = newidx[d]
                 f["phase"][d] = refill_phase if havework[d] else IDLE
             if ridx[d] >= 0:
-                f["sol_ring"][ridx[d]] = f["best_lb"][d]
+                f["sol_ring"][sh * R + ridx[d]] = f["best_lb"][d]
     return steps
 
 
@@ -989,6 +1002,34 @@ def test_step_kernel_emulation_matches_plain_step(name):
                                         fp_cap_auto=False, **kw),
                       device="cpu")
     st = s.init_state()
+    f = {k: v.copy() for k, v in search_state_to_numpy(st).items()}
+    done = 0
+    for n in (1, 7, 20, 32):
+        st, ran = s.run_steps(st, n, 3)
+        assert emulate_run(s, f, n, 3) == int(ran), (name, n)
+        done += n
+        want = search_state_to_numpy(st)
+        for k in want:
+            np.testing.assert_array_equal(f[k], want[k],
+                                          err_msg=f"{name} {done}: {k}")
+    assert int(f["nodes"].sum()) > 0 and done == 60
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_sharded_step_kernel_emulation_matches_plain_step(name):
+    """The same over 3 EPS shards of 4 lanes (``parallel/mesh.py``'s
+    global state): K7 per shard equals the segmented ``step_tail_plain``
+    field for field over 60 steps at cap 3."""
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver
+    from turbo_tpu_torch.solver.convert import search_state_to_numpy
+    text, kw = STEP_CASES[name]
+    tnf = compile_model(parse_fzn_text(text()))
+    ms = ShardedSolver(tnf, EngineConfig(num_dives=4, max_depth=48,
+                                         fp_cap_auto=False, **kw),
+                       devices=["cpu"] * 3)
+    s = ms.solver
+    st = ms.init_state()
+    assert st.phase.shape == (12,)
     f = {k: v.copy() for k, v in search_state_to_numpy(st).items()}
     done = 0
     for n in (1, 7, 20, 32):

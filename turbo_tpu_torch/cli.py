@@ -7,8 +7,11 @@ run the batched engine on the CUDA card (``-platform cpu``: the plain
 torch versions on the CPU) with the JAX CLI's defaults: the EPS
 subproblem table and live fixpoint-cap calibration; ``-arch hybrid``
 runs the host-owned search with batched propagation on the device
-(``solver/hybrid.py``); ``-arch cpu`` runs the numpy oracle. ``-fp wac1``
-propagates with WAC1 (AC-1 below ``-wac1_threshold`` propagators).
+(``solver/hybrid.py``); ``-arch multi`` runs the EPS shards of
+``parallel/mesh.py``, one per visible card as lane groups of one state
+(one shard under ``-platform cpu``); ``-arch cpu`` runs the numpy
+oracle. ``-fp wac1`` propagates with WAC1 (AC-1 below
+``-wac1_threshold`` propagators).
 ``-a``, ``-i`` and ``-n N`` stream every accepted solution through the
 on-device solution ring (``-arch hybrid``: each improving solution as it
 is found). ``-checkpoint FILE`` resumes from FILE when it matches and
@@ -31,8 +34,6 @@ def _unported(cfg: Configuration):
     """The part of the JAX CLI this port does not carry yet, by name."""
     if cfg.hosts > 1:
         return "-hosts > 1 (multi-host EPS)"
-    if cfg.arch == "multi":
-        return "-arch multi"
     return None
 
 
@@ -127,14 +128,20 @@ def run(cfg: Configuration) -> int:
     tb = time.monotonic()
     if hybrid:
         from .solver.hybrid import HybridSolver
-        solver = HybridSolver(tnf, econf, device=device)
+        solver = engine = HybridSolver(tnf, econf, device=device)
+    elif cfg.arch == "multi":
+        from .parallel.mesh import ShardedSolver
+        solver = ShardedSolver(tnf, econf, devices=(
+            [device] if device.type == "cpu" else None))
+        engine = solver.solver
     else:
-        solver = BatchedSolver(tnf, econf, device=device)
+        solver = engine = BatchedSolver(tnf, econf, device=device)
     setup = time.monotonic() - tb
     if cfg.verbose:
-        print(f"% D={num_dives} k={solver.k} MAXD={solver.cfg.max_depth} "
-              f"device={device} setup={setup:.2f}s "
-              f"(kernel build {solver.build_time:.2f}s)", file=sys.stderr)
+        print(f"% D={num_dives} k={engine.k} MAXD={engine.cfg.max_depth} "
+              f"device={device} shards={getattr(solver, 'n_shards', 1)} "
+              f"setup={setup:.2f}s (kernel build {engine.build_time:.2f}s)",
+              file=sys.stderr)
     printed_last = [None]
 
     def on_solution(lb_tnf):
@@ -153,11 +160,11 @@ def run(cfg: Configuration) -> int:
                      verbose=cfg.verbose >= 2, **extra)
     r.init_time = round(init_time + setup, 3)
     if cfg.verbose and not hybrid:
-        tb = solver._table
-        print("% eps table: " + (f"n_live={tb.n_live} of {solver.num_sub_total}"
+        tb = engine._table
+        print("% eps table: " + (f"n_live={tb.n_live} of {engine.num_sub_total}"
                                   f" subproblems, n_pad={tb.n_pad}"
                                   if tb is not None else "off")
-              + f"; fp_cap={solver.last_auto_cap or 'not calibrated'}",
+              + f"; fp_cap={engine.last_auto_cap or 'not calibrated'}",
               file=sys.stderr)
     # Final block, unless the stream printed this very store last; under
     # enumeration a stream that lost nothing printed every solution.

@@ -616,11 +616,11 @@ def _lower_ordered(b: _Builder, c):
     lens = (_parse_values(lens_el.text) if lens_el is not None
             else [0] * (len(vs) - 1))
     if op in ("gt", "ge"):
-        # x_i OP x_{i+1} with gt/ge == reversed chain with lt/le and
-        # lengths folded on the right side.
+        # x_i + l_i (gt|ge) x_{i+1}  ==  x_{i+1} - l_i (lt|le) x_i: the
+        # reversed chain with lt/le and the lengths reversed and negated.
         op = {"gt": "lt", "ge": "le"}[op]
         vs = vs[::-1]
-        lens = lens[::-1]
+        lens = [-l for l in lens[::-1]]
     for i in range(len(vs) - 1):
         # x_i + l_i (lt|le) x_{i+1}  ->  x_i - x_{i+1} <= -l_i (-1)
         rhs = -lens[i] - (1 if op == "lt" else 0)

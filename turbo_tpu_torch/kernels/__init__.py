@@ -187,8 +187,8 @@ class StepView(ctypes.Structure):
     K1-K3's outputs and the step scratch, as pointers (built by
     ``solver/step_cuda.py``)."""
     _fields_ = ([(n, ctypes.c_int) for n in (
-        "D", "V", "n_active", "MAXD", "obj", "is_opt", "enumerate_all",
-        "use_table", "R", "n_pad")]
+        "D", "S", "V", "n_active", "MAXD", "obj", "is_opt",
+        "enumerate_all", "use_table", "R", "n_pad")]
         + [(n, ctypes.c_void_p) for n in (
             "lb", "ub", "root_lb", "root_ub", "best_lb", "best_ub",
             "best_bound", "has_best", "dec_var", "dec_l0", "dec_u0",
@@ -200,7 +200,7 @@ class StepView(ctypes.Structure):
             "tab_path", "lb0", "ub0", "sol_ring", "sol_w", "iters",
             "unconv", "bot", "ent", "found", "var", "nstrat", "c0l", "c0u",
             "c1l", "c1u", "strat0", "want", "impr", "dleaf", "nxt",
-            "newidx", "havework", "ridx", "steps")])
+            "newidx", "havework", "ridx", "steps", "tail_sync")])
 
 
 def _check(t, name, shape, dtype=I32):
@@ -560,6 +560,9 @@ class _StepTail(_Kernel):
     name = "step_tail"
     source = "turbo_tpu_torch/kernels/csrc/step_tail.cu"
     replaces = "turbo_tpu/solver/engine.py:1059"
+    # Run per shard (one scan block each), K7 is the per-shard part of
+    # the JAX mesh's sharded step.
+    SHARDED_REPLACES = "turbo_tpu/parallel/mesh.py:184"
     ENTRIES = ("scan", "copy", "live")
 
     def scan(self, view, live, live_next, device):

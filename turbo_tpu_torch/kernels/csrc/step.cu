@@ -19,7 +19,10 @@
 //
 // Every kernel of a step returns at once when *live is 0 (every lane
 // was IDLE when the step began), so a chunk of steps enqueued without
-// a host read changes nothing after the batch went idle.
+// a host read changes nothing after the batch went idle. Both run over
+// the S*D lanes of every EPS shard: the incumbent min of tt_step_pre
+// over all of them is the JAX mesh's pmin (engine.py:824-827), since
+// ext_bound is the same on every lane.
 //
 // What bounds it on an H100: neither bytes nor operations. A lane's
 // step is a few dozen scalar reads and writes and, for the few lanes
@@ -44,8 +47,9 @@ __global__ void __launch_bounds__(TT_THREADS)
 step_pre_kernel(StepView s, const int* live) {
   if (*live == 0) return;
   __shared__ int warp_min[TT_THREADS / 32];
+  const int n = s.S * s.D;
   int m = 0x7fffffff;
-  for (int i = threadIdx.x; i < s.D; i += blockDim.x) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     int b = s.best_bound[i];
     m = b < m ? b : m;
   }
@@ -59,7 +63,7 @@ step_pre_kernel(StepView s, const int* live) {
   for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
     m = warp_min[w] < m ? warp_min[w] : m;
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= s.D) return;
+  if (d >= n) return;
   const int eb = s.ext_bound[0];
   const int g = m < eb ? m : eb;
   int ph = s.phase[d];
@@ -258,7 +262,7 @@ step_post_kernel(StepView s, const int* live, int use_smem) {
 }
 
 extern "C" int tt_step_pre(const StepView* s, const int* live, void* stream) {
-  const int blocks = (s->D + TT_THREADS - 1) / TT_THREADS;
+  const int blocks = (s->S * s->D + TT_THREADS - 1) / TT_THREADS;
   step_pre_kernel<<<blocks, TT_THREADS, 0, (cudaStream_t)stream>>>(*s, live);
   return (int)cudaGetLastError();
 }
@@ -276,7 +280,7 @@ extern "C" int tt_step_post(const StepView* s, const int* live,
     if (e != cudaSuccess) return (int)e;
     attr_set = (int)smem;
   }
-  step_post_kernel<<<s->D, TT_THREADS, smem, (cudaStream_t)stream>>>(
+  step_post_kernel<<<s->S * s->D, TT_THREADS, smem, (cudaStream_t)stream>>>(
       *s, live, use_smem);
   return (int)cudaGetLastError();
 }

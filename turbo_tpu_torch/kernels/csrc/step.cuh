@@ -5,6 +5,12 @@
 //
 // Booleans are one byte (torch.bool), deds and pscale float32, every
 // other field int32; (D, V) planes and (D, MAXD) stacks are row-major.
+//
+// The state is S EPS shards of D lanes each, concatenated as the JAX
+// mesh's global state (parallel/mesh.py): shard s owns lanes
+// [s*D, (s+1)*D), table rows [s*n_pad, (s+1)*n_pad) and ring rows
+// [s*R, (s+1)*R); its counters next_sub, sub_limit and sol_w are read
+// from its first lane. Per-lane planes below have S*D rows.
 #pragma once
 #include "common.cuh"
 
@@ -13,7 +19,8 @@
 #define TT_IDLE 2
 
 struct StepView {
-  int D, V, n_active, MAXD, obj, is_opt, enumerate_all, use_table, R, n_pad;
+  int D, S, V, n_active, MAXD, obj, is_opt, enumerate_all, use_table, R,
+      n_pad;
   // (D, V) stores
   int* lb;
   int* ub;
@@ -84,7 +91,8 @@ struct StepView {
   int* newidx;
   unsigned char* havework;
   int* ridx;
-  int* steps;  // steps run in this chunk
+  int* steps;      // steps run in this chunk
+  int* tail_sync;  // K7 scan: [0] blocks arrived, [1] some lane live
 };
 
 __device__ __forceinline__ int shl32(int a, int s) {

@@ -35,7 +35,7 @@ FORMAT_VERSION = 5
 def save_state(solver, st, path: str, num_shards: int = 1,
                extras: Optional[dict] = None):
     host = search_state_to_numpy(st)
-    D = solver.cfg.num_dives
+    D = len(host["phase"])  # every lane of every shard
     host["obj"] = np.full(D, solver.dp.obj, dtype=np.int32)
     host["is_opt"] = np.full(D, solver.dp.is_opt, dtype=bool)
     host["fp_cap"] = np.full(D, solver.cfg.fp_max_iters, dtype=np.int32)

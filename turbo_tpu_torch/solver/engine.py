@@ -246,11 +246,16 @@ class _TorchXP:
 
 class BatchedSolver:
     def __init__(self, tnf, config: EngineConfig = EngineConfig(),
-                 device=None):
+                 device=None, num_shards: int = 1):
         """``device`` None: the card (``pick_device``; raises without
-        CUDA). The CPU runs the plain versions only when asked."""
+        CUDA). The CPU runs the plain versions only when asked.
+        ``num_shards``: the EPS shards the subproblem space is split over
+        (``parallel/mesh.py``); shard s's state comes from
+        ``init_state(s)``, and the step takes the shards' states
+        concatenated (see ``step_tail_plain``)."""
         self.tnf = tnf
         self.cfg = config
+        self.num_shards = num_shards
         self.device = pick_device() if device is None else torch.device(device)
         self.plan = build_plan(tnf, disable_simplify=config.disable_simplify,
                                shave=config.shave)
@@ -263,7 +268,7 @@ class BatchedSolver:
         if config.max_depth <= 0:
             self.cfg = config = dataclasses.replace(
                 config, max_depth=auto_max_depth(self.plan))
-        self.k = choose_subproblems_power(tnf, config, 1)
+        self.k = choose_subproblems_power(tnf, config, num_shards)
         self.num_sub_total = 1 << self.k
         self.opt = self.plan.is_opt
         self.dp = DevicePlan.from_plan(self.plan, self.device)
@@ -277,7 +282,7 @@ class BatchedSolver:
                                         str(512 << 20)))
             if 2 * 4 * table_n_pad(self) * self.plan.V > budget:
                 self.use_table = False
-        self._table = None
+        self._tables = {}  # shard -> SubTable
         self._table_deadline = None  # absolute monotonic build deadline
         self._table_aborted_s = 0.0  # wall time of an abandoned build
         self.last_auto_cap = None
@@ -289,20 +294,29 @@ class BatchedSolver:
             kernels.load()
             self.build_time = time.monotonic() - t0
 
-    def get_table(self):
-        """Build (once) the EPS subproblem-root table. Returns None when
-        the build hit its deadline (``_table_deadline``, budgeted from
-        ``-t`` by ``solve``); the caller then falls back to dive-mode
-        refills for the whole run."""
-        if self._table is None:
+    def get_table(self, shard_idx: int = 0):
+        """Build (once per shard) the EPS subproblem-root table. Returns
+        None when the build hit its deadline (``_table_deadline``,
+        budgeted from ``-t`` by ``solve``); the caller then falls back to
+        dive-mode refills for the whole run."""
+        if shard_idx not in self._tables:
             from .eps_table import build_table
-            self._table = build_table(self)
-        return self._table
+            tb = build_table(self, shard_idx)
+            if tb is None:
+                return None
+            self._tables[shard_idx] = tb
+        return self._tables[shard_idx]
+
+    @property
+    def _table(self):
+        """Shard 0's table, or None."""
+        return self._tables.get(0)
 
     def disable_table(self):
-        """Deadline fallback: drop table mode for this solver."""
+        """Deadline fallback: drop table mode for this solver (every
+        shard: a sharded caller rebuilds all shard states)."""
         self.use_table = False
-        self._table = None
+        self._tables = {}
 
     # -- strategies ---------------------------------------------------
 
@@ -357,15 +371,16 @@ class BatchedSolver:
 
     # -- state --------------------------------------------------------
 
-    def init_state(self) -> SearchState:
-        """Fresh search state. Table mode: lanes seed from the first D
-        table leaves in SOLVE phase, and the build's counters fold into
-        lane 0. Dive mode: lane d dives to subproblem d."""
+    def init_state(self, shard_idx: int = 0) -> SearchState:
+        """Fresh search state of shard ``shard_idx`` (D lanes). Table
+        mode: lanes seed from the first D leaves of the shard's table in
+        SOLVE phase, and the build's counters fold into lane 0. Dive
+        mode: lane d dives to the d-th subproblem of the shard's range."""
         D = self.cfg.num_dives
         MAXD = self.cfg.max_depth
         dev = self.device
         dp = self.dp
-        tb = self.get_table() if self.use_table else None
+        tb = self.get_table(shard_idx) if self.use_table else None
         if self.use_table and tb is None:
             # Build deadline hit: fall back to dive-mode refills (sound:
             # the dive path re-derives every subproblem root).
@@ -418,12 +433,13 @@ class BatchedSolver:
                 best_lb[0] = torch.from_numpy(tb.cand_lb).to(dev)
                 best_ub[0] = torch.from_numpy(tb.cand_ub).to(dev)
         else:
-            limit = self.num_sub_total
-            subp = torch.arange(D, dtype=I32, device=dev)
+            from .eps_table import shard_range
+            base, limit = shard_range(self, shard_idx)
+            subp = base + torch.arange(D, dtype=I32, device=dev)
             phase = torch.where(subp < limit, DIVE, IDLE).to(I32)
             remaining = full(self.k)
             strat, snap_strat = full(0), full(0)
-            next_sub = full(min(D, limit))
+            next_sub = full(min(base + D, limit))
             sub_limit = full(limit)
             tab_lb, tab_ub = dp.lb0[None, :].clone(), dp.ub0[None, :].clone()
             tab_strat = torch.zeros(1, dtype=I32, device=dev)
@@ -521,9 +537,10 @@ class BatchedSolver:
 
     def step_pre_plain(self, st: SearchState):
         """K6 ``step.pre``: promote finished dives, the strategy cursor,
-        and (I) the objective tighten from the incumbent (one device:
-        the batch min replaces the mesh pmin). Returns (phase, strat0,
-        ub)."""
+        and (I) the objective tighten from the incumbent. The batch min
+        runs over every shard's lanes, so it is the JAX mesh's pmin
+        (``ext_bound`` is the same on every lane). Returns (phase,
+        strat0, ub)."""
         dp, where = self.dp, torch.where
         promote = (st.phase == DIVE) & (st.remaining == 0)
         phase = where(promote, SOLVE, st.phase)
@@ -693,24 +710,44 @@ class BatchedSolver:
         """K7 ``step_tail``: (IX) the refill of finished lanes from the
         subproblem counter, and the solution-ring append. ``f``: the new
         fields of ``step_post_plain``, updated and returned with
-        next_sub, subp, sol_ring and sol_w."""
+        next_sub, subp, sol_ring and sol_w.
+
+        A state of G*D lanes is G EPS shards (``parallel/mesh.py``),
+        laid out as the JAX mesh's global state: shard g owns lanes
+        [g*D, (g+1)*D), table rows [g*n_pad, (g+1)*n_pad) and ring rows
+        [g*R, (g+1)*R), and reads its counters (next_sub, sub_limit,
+        sol_w) from its first lane. Every scan and total here is per
+        shard."""
         D = self.cfg.num_dives
+        G = want.shape[0] // D
         where = torch.where
-        next_sub = torch.maximum(st.next_sub[0], where(dleaf, nxt, 0).max())
-        shard_limit = st.sub_limit[0]
-        rank = torch.cumsum(want.to(I32), dim=0, dtype=I32) - 1
-        newidx = next_sub + where(want, rank, 0)
-        refill = want & (newidx < shard_limit)
-        next_sub = torch.minimum(next_sub + want.sum().to(I32), shard_limit)
-        f["next_sub"] = next_sub.expand(D).clone()
+        shard = torch.arange(G * D, dtype=I32, device=want.device) // D
+
+        def per_lane(x):  # (G,) -> (G * D,)
+            return x[:, None].expand(G, D).reshape(-1)
+
+        next_sub = torch.maximum(
+            st.next_sub.view(G, D)[:, 0],
+            where(dleaf, nxt, 0).view(G, D).amax(dim=1))
+        shard_limit = st.sub_limit.view(G, D)[:, 0]
+        want_g = want.view(G, D).to(I32)
+        rank = (torch.cumsum(want_g, dim=1, dtype=I32) - 1).view(-1)
+        newidx = per_lane(next_sub) + where(want, rank, 0)
+        refill = want & (newidx < per_lane(shard_limit))
+        next_sub = torch.minimum(next_sub + want_g.sum(dim=1, dtype=I32),
+                                 shard_limit)
+        f["next_sub"] = per_lane(next_sub).clone()
         if self.use_table:
-            # Table refill: the leaf row, straight into SOLVE phase; subp
-            # carries the leaf's real bit-path (the tail resplit reads it).
+            # Table refill: the leaf row of the lane's shard, straight
+            # into SOLVE phase; subp carries the leaf's real bit-path
+            # (the tail resplit reads it).
+            n_pad = st.tab_lb.shape[0] // G
+            idxc = newidx.clamp(0, n_pad - 1) + shard * n_pad
             f["phase"] = where(want, where(refill, SOLVE, IDLE),
                                f["phase"]).to(I32)
-            table_refill(st.tab_lb, st.tab_ub, newidx, refill, f["lb"],
+            table_refill(st.tab_lb, st.tab_ub, idxc, refill, f["lb"],
                          f["ub"], f["root_lb"], f["root_ub"])  # all new
-            idxc = newidx.clamp(0, st.tab_lb.shape[0] - 1).long()
+            idxc = idxc.long()
             tstr = st.tab_strat[idxc]
             f["strat"] = where(refill, tstr, f["strat"])
             f["snap_strat"] = where(refill, tstr, f["snap_strat"])
@@ -728,17 +765,20 @@ class BatchedSolver:
         R = self.cfg.sol_ring_size
         if R > 0:
             # Append the accepted stores (the incumbent rows just written)
-            # in lane order: slot (w0 + rank) mod R. Of more than R
-            # writers in one step only the last R land, so every slot has
-            # one writer (the last); the others go to a spare row R.
-            cnt = torch.cumsum(impr.to(I32), dim=0, dtype=I32)
-            total = cnt[-1]
-            keep = impr & (total - cnt < R)
-            ridx = torch.remainder(st.sol_w[0] + cnt - 1, R)
+            # in lane order: slot (w0 + rank) mod R of the shard's ring.
+            # Of more than R writers in one step only the last R land, so
+            # every slot has one writer (the last); the others go to a
+            # spare row G*R.
+            cnt = torch.cumsum(impr.view(G, D).to(I32), dim=1, dtype=I32)
+            total = cnt[:, -1]
+            cnt = cnt.view(-1)
+            keep = impr & (per_lane(total) - cnt < R)
+            w0 = per_lane(st.sol_w.view(G, D)[:, 0])
+            ridx = torch.remainder(w0 + cnt - 1, R) + shard * R
             ring = torch.cat([st.sol_ring, st.sol_ring[:1]])
-            ring.index_copy_(0, where(keep, ridx, R).long(), f["best_lb"])
-            f["sol_ring"] = ring[:R]
-            f["sol_w"] = st.sol_w + total
+            ring.index_copy_(0, where(keep, ridx, G * R).long(), f["best_lb"])
+            f["sol_ring"] = ring[:G * R]
+            f["sol_w"] = st.sol_w + per_lane(total)
         return f
 
     # -- EPS tail: resplit and stack steal (host numpy surgery) ---------
@@ -970,7 +1010,7 @@ class BatchedSolver:
         first_call = True
         best_seen = None
         best_obj_time = 0.0
-        last_best = INF + 1
+        last_best = INF  # no incumbent yet: on_improve waits for one
         last_steal = 0.0
         steal_wait = 1.0
         # One-shot re-calibration once the range drains, armed only

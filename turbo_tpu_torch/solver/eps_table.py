@@ -67,10 +67,22 @@ class SubTable:
     build_time: float = 0.0
 
 
+def shard_range(solver, shard_idx: int):
+    """[base, limit) of shard ``shard_idx``'s subproblems: equal static
+    ranges, the last shard takes the remainder, so the ranges partition
+    [0, 2^k) for any shard count."""
+    total, n = solver.num_sub_total, solver.num_shards
+    per = max(1, total // n)
+    base = shard_idx * per
+    return base, (total if shard_idx == n - 1 else min(base + per, total))
+
+
 def table_n_pad(solver) -> int:
-    """Static table row count (one device: the whole range), padded."""
+    """Static table row count: the largest shard range (the last
+    shard's), padded."""
     from ..host.solver.plan import quantize
-    return quantize(max(solver.num_sub_total, 1))
+    base, limit = shard_range(solver, solver.num_shards - 1)
+    return quantize(max(limit - base, 1))
 
 
 def embed_plain(lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l, c1u,
@@ -132,8 +144,9 @@ class _Chunk:
         self.paths = paths    # np int64: bit-path per live row
 
 
-def build_table(solver) -> Optional[SubTable]:
-    """Expand the dive tree and return its leaf table.
+def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
+    """Expand the dive tree over shard ``shard_idx``'s range and return
+    its leaf table.
 
     Returns None when the build overruns ``solver._table_deadline`` (an
     absolute ``time.monotonic()`` deadline budgeted from ``-t`` by
@@ -145,7 +158,7 @@ def build_table(solver) -> Optional[SubTable]:
     W = cfg.num_dives
     k = solver.k
     dev = solver.device
-    base, limit = 0, solver.num_sub_total  # one device owns the range
+    base, limit = shard_range(solver, shard_idx)
     t_start = time.monotonic()
     deadline = solver._table_deadline
     last_progress = [t_start]

@@ -43,11 +43,12 @@ BOOL = torch.bool
 
 
 class Workspace:
-    """Per-solver scratch of the kernel route, on the solver's card."""
+    """Per-solver scratch of the kernel route, on the solver's card, for
+    states of ``D`` lanes (S shards of ``cfg.num_dives`` lanes each)."""
 
-    def __init__(self, solver):
+    def __init__(self, solver, D):
         from .. import kernels
-        D = solver.cfg.num_dives
+        self.lanes = D
         dev = solver.device
         dp = solver.dp
 
@@ -72,18 +73,32 @@ class Workspace:
         live = torch.zeros(2, dtype=I32, device=dev)
         self.live = (live[0:1], live[1:2])
         self.steps = torch.zeros(1, dtype=I32, device=dev)
+        # K7 scan's arrival ticket and live word across its shard blocks.
+        self.tail_sync = torch.zeros(2, dtype=I32, device=dev)
         self.graphs = {}     # (n, cap, StepView bytes) -> (graph, counts)
         self.last_key = None
         self.capture_stream = None
 
 
+def shards(solver, st) -> int:
+    """S: the EPS shards of a state of S * num_dives lanes."""
+    D = solver.cfg.num_dives
+    S = st.phase.shape[0] // D
+    if S < 1 or S * D != st.phase.shape[0]:
+        raise ValueError(f"a state of {st.phase.shape[0]} lanes is not a "
+                         f"whole number of shards of {D} lanes")
+    return S
+
+
 def _fields(solver, st):
     """(name, tensor, shape, dtype) of every state field the kernels
-    read or write."""
-    D, V = solver.cfg.num_dives, solver.dp.V
+    read or write: S shards of D lanes, n_pad table rows and R ring rows
+    each, concatenated."""
+    S = shards(solver, st)
+    D, V = S * solver.cfg.num_dives, solver.dp.V
     MAXD = solver.cfg.max_depth
     n_pad = st.tab_lb.shape[0]
-    R = max(1, solver.cfg.sol_ring_size)
+    R = S * max(1, solver.cfg.sol_ring_size)
     shapes = {"lb": (D, V), "ub": (D, V), "root_lb": (D, V),
               "root_ub": (D, V), "best_lb": (D, V), "best_ub": (D, V),
               "tab_lb": (n_pad, V), "tab_ub": (n_pad, V),
@@ -113,14 +128,18 @@ def view(solver, st, ws):
                     ("want", ws.want), ("impr", ws.impr),
                     ("dleaf", ws.dleaf), ("nxt", ws.nxt),
                     ("newidx", ws.newidx), ("havework", ws.havework),
-                    ("ridx", ws.ridx), ("steps", ws.steps)):
+                    ("ridx", ws.ridx), ("steps", ws.steps),
+                    ("tail_sync", ws.tail_sync)):
         ptr[name] = t.data_ptr()
+    S = shards(solver, st)
+    if st.tab_lb.shape[0] % S:
+        raise ValueError(f"{st.tab_lb.shape[0]} table rows for {S} shards")
     return StepView(
-        D=cfg.num_dives, V=dp.V, n_active=dp.n_active, MAXD=cfg.max_depth,
-        obj=dp.obj, is_opt=int(dp.is_opt),
+        D=cfg.num_dives, S=S, V=dp.V, n_active=dp.n_active,
+        MAXD=cfg.max_depth, obj=dp.obj, is_opt=int(dp.is_opt),
         enumerate_all=int(cfg.enumerate_all),
         use_table=int(solver.use_table), R=cfg.sol_ring_size,
-        n_pad=st.tab_lb.shape[0], **ptr)
+        n_pad=st.tab_lb.shape[0] // S, **ptr)
 
 
 MAX_GRAPHS = 8
@@ -131,8 +150,9 @@ def run(solver, st, n: int, cap: int = 0, graph: bool = True):
     ``fp_max_iters``). Returns the number of steps that ran, as a 0-dim
     int32 tensor on the card (no host read). ``graph``: capture a chunk
     that repeats the previous one and replay it."""
-    if solver._ws is None:
-        solver._ws = Workspace(solver)
+    lanes = st.phase.shape[0]
+    if solver._ws is None or solver._ws.lanes != lanes:
+        solver._ws = Workspace(solver, lanes)
     ws = solver._ws
     sv = view(solver, st, ws)
     cap = cap or solver.cfg.fp_max_iters
