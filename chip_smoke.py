@@ -2,7 +2,8 @@
 """Smoke test of turbo_tpu_torch on one CUDA card: ``python3 chip_smoke.py``.
 
 Run from the root of the repository (``--kernels-only`` stops after
-phase 3c). Phases (any failure exits non-zero):
+phase 3c; ``--hosts-only`` runs phases 1, 2 and 13). Phases (any failure
+exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernel build with nvcc (one per source, in parallel) from a cold
@@ -108,13 +109,27 @@ phase 3c). Phases (any failure exits non-zero):
    rebalanced), cap pinned at 16: the kernel and plain engines on the
    card give the same status, objective, nodes, failures, solutions,
    iterations and redistributions;
-11. the launch counts of each path driven in phases 4c-12, each set to
+13. ``-hosts 2``, two processes sharing the card (one shard and one CUDA
+   context each, joined over gloo; any child that fails or hangs fails
+   the phase): (a) golomb(8) through the CLI proven optimal at 34, its
+   subproblems all solved or skipped, host 1 silent; (b) golomb(12) at
+   full width (auto D a process, k as host 0 chooses it) for 20 s
+   through the solver API (``--hosts-worker``), every improving solution
+   checker-valid, with the summed nodes/s, the exchanges, the median
+   ``dcn_allgather`` in the loop and alone, the exchange's share of the
+   wall and the steal moves, beside one process of the same D for 20 s;
+   (c) golomb(8) on hosts of 1 and 2 lane groups of 16 over 2^7
+   subproblems (one steal): the kernel and plain engines give equal
+   statistics; (d) golomb(9) cut by ``-cutnodes``, resumed from the
+   per-host checkpoints, closes at 44;
+11. the launch counts of each path driven in phases 4c-13, each set to
    0 just before the path and read just after it: the seven kernels of
    the default search (and every entry point of K4, K6 and K7) on the
    main path (6) and on the drain case (8), K1-K3, K6 and K7 on the
    table-off path (7) and on ``-a``, K4 too on ``-i``; K8 in place of K1
    on 10b, K1's fixed-sweeps and transposed entries on 10c, K1 and K2 on
-   the hybrid paths.
+   the hybrid paths, K1-K3, K6 and K7 in each process of 13b (summed
+   over both processes into the path ``hosts2``).
 
 It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
@@ -122,8 +137,9 @@ of the bytes it must move over 3.35 TB/s and its int32 operations over
 count on the main path, or on the kernel's own path (``path``) where the
 default search does not run it; K7 per shard, ``step_tail.sharded``,
 reads K7's launches on the ``-arch multi`` golomb(12) path and its times
-from 3d), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+from 3d; ``transports`` holds ``dcn_allgather``, a host transport and
+not a kernel, with its times from 13b), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -148,6 +164,11 @@ VD = "fp_layout vd, golomb(12)"
 # launch counts K7 per shard reports.
 SHARDS = 4
 MULTI = f"-arch multi, golomb(12), S={SHARDS}"
+# -hosts 2: the main path's launch counts (both processes), and the
+# (lanes, k, lane groups by host) of the golomb(8) kernels-vs-plain run,
+# whose hosts steal.
+HOSTS2 = "hosts2"
+HOSTS_PIN = (16, 7, (1, 2))
 
 
 def fail(msg):
@@ -1553,6 +1574,267 @@ def run_multi_paths(torch, dev, big=12):
     return paths
 
 
+def hosts_worker(argv):
+    """``chip_smoke.py --hosts-worker PID N PORT SPEC``: host PID of N of a
+    multi-host run (``parallel/multihost.py``) through the solver API,
+    joined over gloo at localhost:PORT (N=1: no group). SPEC is JSON:
+    the model file, ``num_dives`` (0: auto), ``k`` (0: host 0 chooses),
+    ``seconds``, ``plain`` (the plain engine in place of the kernels),
+    ``platform``, ``shards`` (lane groups by host; default one each). Every improving solution and the best are checked; the
+    last line of stdout is a JSON object of the result, the exchange's
+    times and this process's launch counts."""
+    import torch
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.device import pick_device
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn
+    from turbo_tpu_torch.host.solver.plan import auto_num_dives
+    from turbo_tpu_torch.host.utils.output import print_solution
+    from turbo_tpu_torch.parallel.multihost import (MultiHostSolver,
+                                                    init_distributed,
+                                                    shutdown_distributed)
+    from turbo_tpu_torch.solver.config import EngineConfig
+    pid, n, port = int(argv[0]), int(argv[1]), argv[2]
+    spec = json.loads(argv[3])
+    init_distributed(f"localhost:{port}", n, pid)
+    model = parse_fzn(spec["model"])
+    tnf = compile_model(model)
+    D = spec["num_dives"] or auto_num_dives(tnf)
+    dev = pick_device(spec.get("platform", ""), pid)
+    shards = spec.get("shards", [1] * n)[pid]
+    mh = MultiHostSolver(tnf, EngineConfig(
+        num_dives=D, subproblems_power=spec["k"]), devices=[dev] * shards)
+    if spec["plain"]:
+        plain_engine(mh.sharded.solver)
+    found = []
+    kernels.reset_launches()
+    t0 = time.monotonic()
+    r = mh.solve(timeout_s=spec["seconds"], on_improve=found.append)
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    for lb in found + ([r.best_lb] if r.best_lb is not None else []):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            print_solution(tnf, lb)
+        check_solution(model, buf.getvalue())
+    ag = sorted(mh.allgather_s)
+    # The transport alone: back-to-back allgathers of a snapshot-sized
+    # vector after a barrier, no device work between them.
+    alone = []
+    if n > 1:
+        import numpy as np
+        import torch.distributed as dist
+        from turbo_tpu_torch.parallel.multihost import dcn_allgather
+        vec = np.zeros(6 + 2 * mh.S_max + int(mh.plan.V), dtype=np.int64)
+        dist.barrier()
+        for _ in range(201):
+            t1 = time.monotonic()
+            dcn_allgather(vec)
+            alone.append(time.monotonic() - t1)
+        alone.sort()
+    out = dict(
+        pid=pid, hosts=n, D=D, k=mh.sharded.solver.k,
+        MAXD=mh.sharded.solver.cfg.max_depth, status=r.status,
+        objective=r.objective, exhaustive=r.exhaustive, nodes=r.nodes,
+        fails=r.fails, solutions=r.solutions,
+        fixpoint_iterations=r.fixpoint_iterations, depth_max=r.depth_max,
+        eps_solved=r.eps_solved_subproblems,
+        eps_skipped=r.eps_skipped_subproblems,
+        eps_redistributions=r.eps_redistributions,
+        solve_time=r.solve_time, wall=wall, improvements=len(found),
+        exchanges=len(ag), allgather_ms_median=(ag[len(ag) // 2] * 1e3
+                                                 if ag else None),
+        allgather_ms_max=(ag[-1] * 1e3 if ag else None),
+        transport_ms_median=(alone[len(alone) // 2] * 1e3 if alone
+                             else None),
+        exchange_s=mh.exchange_s, steal_moves=mh.steal_moves,
+        steal_s=mh.steal_s, snapshot_bytes=8 * (6 + 2 * mh.S_max
+                                                + int(mh.plan.V)),
+        launches=counts)
+    shutdown_distributed()
+    print(json.dumps(out), flush=True)
+
+
+def free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def run_hosts(argvs, timeout=300):
+    """Start one process per argv (host i gets argv i) and wait for all;
+    fails if any exits non-zero or outlives ``timeout`` (then every one
+    is killed). Returns each one's (stdout, stderr)."""
+    procs = [subprocess.Popen(a, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    outs, bad = [], []
+    deadline = time.monotonic() + timeout
+    for i, p in enumerate(procs):
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, err = p.communicate()
+            bad.append(f"host {i} ran past {timeout} s")
+        if p.returncode != 0:
+            bad.append(f"host {i} exited {p.returncode}: {err[-3000:]}")
+        outs.append((out, err))
+    if bad:
+        fail("; ".join(bad))
+    return outs
+
+
+def api_hosts(n, spec, timeout=300):
+    """``hosts_worker`` in n processes on the card; their results."""
+    port = str(free_port())
+    outs = run_hosts([[sys.executable, str(ROOT / "chip_smoke.py"),
+                       "--hosts-worker", str(i), str(n), port,
+                       json.dumps(spec)] for i in range(n)], timeout)
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def cli_hosts(args, n=2, timeout=300):
+    """The port's CLI as n hosts (``-hosts n -host_id i``); returns each
+    host's stdout."""
+    port = free_port()
+    return [out for out, _ in run_hosts([
+        [sys.executable, "-m", "turbo_tpu_torch.cli", *args, "-hosts",
+         str(n), "-host_id", str(i), "-coordinator", f"localhost:{port}"]
+        for i in range(n)], timeout)]
+
+
+def run_hosts_paths(torch, dev, big=12, platform=""):
+    """Phase 13: ``-hosts 2``, two processes sharing the one card, each
+    one shard and its own CUDA context, joined over gloo. Returns the
+    launch counts of the main -hosts path (golomb(big), both processes
+    summed) under ``HOSTS2``, and the dcn_allgather entry of the JSON
+    line."""
+    from turbo_tpu_torch.instances import GOLOMB_OPT, golomb
+    plat = ["-platform", platform] if platform else []
+    on_card = dev.type == "cuda"
+
+    g8 = write_model("golomb8", golomb(8))
+    log("[13a] golomb(8) through the CLI, -hosts 2 (two processes, one "
+        "card)")
+    t0 = time.monotonic()
+    outs = cli_hosts([g8, "-s", *plat])
+    stats = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", outs[0], re.M))
+    done = (int(stats.get("eps_solved_subproblems", -1))
+            + int(stats.get("eps_skipped_subproblems", -1)))
+    if ("==========" not in outs[0] or stats.get("objective") != "34"
+            or done != int(stats.get("eps_num_subproblems", 0))):
+        fail(f"-hosts 2, golomb(8): objective {stats.get('objective')}, "
+             f"solved+skipped {done} of {stats.get('eps_num_subproblems')}")
+    if outs[1].strip():
+        fail(f"-hosts 2: host 1 printed {outs[1][:200]!r}")
+    log(f"  optimal 34; solved+skipped {done} = 2^k; nodes {stats['nodes']},"
+        f" solveTime {float(stats['solveTime']):.3f} s, eps_redistributions "
+        f"{stats['eps_redistributions']}; host 1 silent; "
+        f"{time.monotonic() - t0:.1f} s with the processes' start")
+
+    spec = dict(model=write_model(f"golomb{big}", golomb(big)), num_dives=0,
+                k=0, seconds=20, plain=False, platform=platform)
+    log(f"[13b] golomb({big}) at full width (auto D a process, k by host "
+        "0), 20 s as two processes, then one process alone")
+    res = api_hosts(2, spec)
+    paths = {}
+    for r in res:
+        missing = [k for k in STEP_KERNELS if on_card and
+                   r["launches"][k] <= 0]
+        if missing:
+            fail(f"-hosts 2, host {r['pid']}: {missing} not launched")
+    counts = {k: sum(r["launches"][k] for r in res)
+              for k in res[0]["launches"]}
+    paths[HOSTS2] = counts
+    log(f"  launches on {HOSTS2} (both processes): " + ", ".join(
+        f"{k} {n}" for k, n in counts.items()))
+    h0 = res[0]
+    for r in res:
+        log(f"  host {r['pid']}: D={r['D']} k={r['k']} MAXD={r['MAXD']} "
+            f"objective {r['objective']} (optimum {GOLOMB_OPT[big]}), "
+            f"{r['improvements']} improving solution(s) and the best "
+            f"checked; global nodes {r['nodes']}, solveTime "
+            f"{r['solve_time']:.3f} s, exchanges {r['exchanges']}, "
+            f"dcn_allgather median {r['allgather_ms_median']:.4f} ms (max "
+            f"{r['allgather_ms_max']:.4f}; alone, after a barrier "
+            f"{r['transport_ms_median']:.4f}), exchange {r['exchange_s']:.3f} s "
+            f"({100 * r['exchange_s'] / r['wall']:.2f} % of the solve's "
+            f"wall {r['wall']:.3f} s), steal moves {r['steal_moves']} "
+            f"({r['steal_s']:.3f} s), eps_redistributions "
+            f"{r['eps_redistributions']}, snapshot {r['snapshot_bytes']} B")
+    rate2 = h0["nodes"] / h0["solve_time"]
+    one = api_hosts(1, spec)[0]
+    rate1 = one["nodes"] / one["solve_time"]
+    log(f"  -hosts 2 summed: {rate2:.0f} nodes/s; one process of D="
+        f"{one['D']} (k={one['k']}): {rate1:.0f} nodes/s, objective "
+        f"{one['objective']}, exchanges {one['exchanges']} (no peer); "
+        f"ratio {rate2 / rate1:.3f}")
+    allgather = dict(
+        name="dcn_allgather",
+        route="gloo all_gather, host transport (no device arithmetic)",
+        source="turbo_tpu_torch/parallel/multihost.py",
+        replaces="turbo_tpu/parallel/multihost.py:39",
+        path=HOSTS2, exchanges=h0["exchanges"],
+        exchanges_per_s=h0["exchanges"] / h0["wall"],
+        ms=h0["allgather_ms_median"], ms_host1=res[1]["allgather_ms_median"],
+        transport_alone_ms=h0["transport_ms_median"],
+        exchange_share_of_wall=h0["exchange_s"] / h0["wall"],
+        snapshot_bytes=h0["snapshot_bytes"], bound_ms=None,
+        bound="n/a (host transport)", steal_moves=h0["steal_moves"],
+        steal_s=h0["steal_s"])
+
+    # golomb(8) over 2^7 subproblems, hosts of one and two lane groups of
+    # 16 lanes: a host drains its range first and steals once (so does
+    # the port's run of this configuration on the CPU).
+    pin = dict(model=g8, num_dives=HOSTS_PIN[0], k=HOSTS_PIN[1],
+               shards=HOSTS_PIN[2], seconds=600, platform=platform)
+    log(f"[13c] golomb(8), two processes of {pin['shards']} lane groups of "
+        f"D={pin['num_dives']} over 2^{pin['k']} subproblems: kernel engine "
+        "vs plain engine (exact)")
+    got = {}
+    for name in ("kernels", "plain"):
+        t0 = time.monotonic()
+        r = api_hosts(2, dict(pin, plain=name == "plain"), timeout=600)
+        got[name] = [tuple(x[k] for k in (
+            "status", "objective", "nodes", "fails", "solutions",
+            "fixpoint_iterations", "depth_max", "eps_solved", "eps_skipped",
+            "eps_redistributions")) for x in r]
+        log(f"  {name}: status/obj/nodes/fails/sols/fp_iters/depth/solved/"
+            f"skipped/redistributions {got[name][0]}, "
+            f"{time.monotonic() - t0:.1f} s with the processes' start")
+    if (got["kernels"] != got["plain"] or got["kernels"][0] != got[
+            "kernels"][1] or got["kernels"][0][:2] != ("optimal", 34)
+            or got["kernels"][0][-1] < 1):
+        fail(f"-hosts 2 golomb(8): kernels {got['kernels']} vs plain "
+             f"{got['plain']} (a steal is required)")
+
+    g9 = write_model("golomb9", golomb(9))
+    ck = WORK / "hosts.ckpt"
+    log("[13d] -checkpoint over two processes: golomb(9) cut by -cutnodes, "
+        "resumed, closes at 44")
+    base = [g9, "-s", "-checkpoint", str(ck), *plat]
+    cut = cli_hosts(base + ["-cutnodes", "5000"])
+    files = [pathlib.Path(f"{ck}.h{i}").exists() for i in range(2)]
+    if "==========" in cut[0] or not all(files):
+        fail(f"-hosts 2 -checkpoint: the cut run closed or wrote no files "
+             f"{files}")
+    st1 = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", cut[0], re.M))
+    res2 = cli_hosts(base)
+    st2 = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", res2[0], re.M))
+    if "==========" not in res2[0] or st2.get("objective") != "44":
+        fail(f"-hosts 2 -checkpoint: resumed run {st2.get('objective')}")
+    log(f"  cut at {st1['nodes']} nodes (objective {st1.get('objective')}),"
+        f" resumed: optimal 44, nodes {st2['nodes']}, solveTime "
+        f"{float(st2['solveTime']):.3f} s")
+    for i in range(2):  # the states are large: keep them out of WORK
+        pathlib.Path(f"{ck}.h{i}").unlink()
+    return paths, allgather
+
+
 def steal_round_trip(torch, dev, big, tnf):
     """The host round trip of a golomb(big) table-mode state (D=512) and
     one steal round on it, timed."""
@@ -1582,6 +1864,9 @@ def steal_round_trip(torch, dev, big, tnf):
 
 
 def main():
+    if sys.argv[1:2] == ["--hosts-worker"]:
+        sys.path.insert(0, str(ROOT))
+        return hosts_worker(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1609,6 +1894,10 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"    {line.strip()}")
 
+    if "--hosts-only" in sys.argv[1:]:
+        run_hosts_paths(torch, dev)
+        log("--hosts-only: stopping after phase 13")
+        sys.exit(0)
     log("[3] kernels vs plain torch (exact)")
     kres = phase_kernels(torch, dev)
     log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
@@ -1646,6 +1935,8 @@ def main():
 
     paths = run_path(torch, dev)
     paths.update(run_multi_paths(torch, dev))
+    hosts_paths, allgather = run_hosts_paths(torch, dev)
+    paths.update(hosts_paths)
     log("[11] launches by path: " + "; ".join(
         f"{p}: " + ", ".join(f"{k} {n}" for k, n in c.items())
         for p, c in paths.items()))
@@ -1673,7 +1964,9 @@ def main():
          "max_abs_err": kres[name][0], "ms": kres[name][1],
          "plain_ms": kres[name][2], "bound_ms": kres[name][3],
          "bound_by": kres[name][4], "library_ms": None}
-        for name, k, replaces, path, key in listed], "main_path": MAIN}))
+        for name, k, replaces, path, key in listed], "main_path": MAIN,
+        # Not a kernel: the -hosts exchange's transport (PERF.md row 18).
+        "transports": [allgather]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -58,10 +58,16 @@ def test_cli_output_matches_jax_cli(name, tmp_path, capsys):
 
 
 def test_unported_options_raise(tmp_path):
+    """Every option is ported; ``-hosts 2`` without ``-coordinator``
+    raises the JAX CLI's ValueError."""
     path = tmp_path / "m.fzn"
     path.write_text(MODELS["linear"])
-    with pytest.raises(NotImplementedError, match="-hosts > 1"):
-        port_cli.main([str(path), "-platform", "cpu", "-hosts", "2"])
+    argv = [str(path), "-platform", "cpu", "-hosts", "2"]
+    with pytest.raises(ValueError, match="-coordinator") as want:
+        jax_cli.main(argv)
+    with pytest.raises(ValueError, match="-coordinator") as got:
+        port_cli.main(argv)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("name,extra", [("golomb4", []), ("linear", []),

@@ -12,6 +12,10 @@ runs the host-owned search with batched propagation on the device
 (one shard under ``-platform cpu``); ``-arch cpu`` runs the numpy
 oracle. ``-fp wac1`` propagates with WAC1 (AC-1 below
 ``-wac1_threshold`` propagators).
+``-hosts N -host_id i -coordinator HOST:PORT`` runs this process as
+host i of a multi-host EPS run (``parallel/multihost.py``): one shard on
+card i modulo the cards, the hosts joined over gloo, only host 0
+printing.
 ``-a``, ``-i`` and ``-n N`` stream every accepted solution through the
 on-device solution ring (``-arch hybrid``: each improving solution as it
 is found). ``-checkpoint FILE`` resumes from FILE when it matches and
@@ -30,24 +34,21 @@ from .host.utils.output import (MznStats, print_final_separator,
                                 print_mzn_statistics, print_solution)
 
 
-def _unported(cfg: Configuration):
-    """The part of the JAX CLI this port does not carry yet, by name."""
-    if cfg.hosts > 1:
-        return "-hosts > 1 (multi-host EPS)"
-    return None
-
-
 def run(cfg: Configuration) -> int:
-    missing = _unported(cfg)
-    if missing:
-        raise NotImplementedError(f"{missing} is not ported to "
-                                  "turbo_tpu_torch (see ROADMAP.md)")
+    if cfg.hosts > 1 and cfg.host_id != 0:
+        # Only host 0 speaks on stdout; at the fd level, since native
+        # code (gloo) writes straight to fd 1.
+        import os
+
+        os.dup2(os.open(os.devnull, os.O_WRONLY), 1)
     device = None
     if cfg.arch != "cpu":
         import torch
 
         from .device import pick_device
-        device = pick_device(cfg.platform)
+        # One process a card: host h takes card h modulo the cards.
+        device = pick_device(cfg.platform,
+                             cfg.host_id if cfg.hosts > 1 else 0)
         hw = (torch.cuda.get_device_name(device) if device.type == "cuda"
               else "cpu")
     else:
@@ -97,6 +98,8 @@ def run(cfg: Configuration) -> int:
 
     if cfg.arch == "cpu":
         return _run_oracle(cfg, stats, tnf, timeout_s, init_time)
+    if cfg.hosts > 1:
+        return _run_hosts(cfg, stats, tnf, timeout_s, init_time, device)
 
     from .host.solver.plan import auto_num_dives
     from .solver.config import EngineConfig
@@ -179,6 +182,69 @@ def run(cfg: Configuration) -> int:
     if r.sol_ring_overflow:
         stats.stat("sol_ring_overflow", r.sol_ring_overflow)
     print_mzn_statistics(stats, r)
+    return 0
+
+
+def _run_hosts(cfg, stats, tnf, timeout_s, init_time, device) -> int:
+    """-hosts N: this process is host ``-host_id`` of a multi-host EPS
+    run (``parallel/multihost.py``), one shard on its card (or on the CPU
+    under ``-platform cpu``), joined over gloo at ``-coordinator``."""
+    from .host.solver.plan import auto_num_dives
+    from .parallel.multihost import (MultiHostSolver, init_distributed,
+                                     shutdown_distributed)
+    from .solver.config import EngineConfig
+
+    if not cfg.coordinator:
+        raise ValueError("-hosts > 1 requires -coordinator HOST:PORT "
+                         "(or TURBO_TPU_COORDINATOR)")
+    init_distributed(cfg.coordinator, cfg.hosts, cfg.host_id)
+    if tnf.obj_var < 0 and cfg.stop_after_n_solutions != 1:
+        raise ValueError("-a is not supported by the multi-host "
+                         "architecture; run it on a single host")
+    econf = EngineConfig(num_dives=cfg.or_nodes or auto_num_dives(tnf),
+                         subproblems_power=cfg.subproblems_power,
+                         subproblems_factor=cfg.subproblems_factor,
+                         max_depth=cfg.max_depth,
+                         eps_var_order=cfg.eps_var_order,
+                         eps_value_order=cfg.eps_value_order,
+                         seed=cfg.seed,
+                         fp_mode=("wac1" if cfg.fixpoint == "wac1"
+                                  else "fixpoint"),
+                         wac1_threshold=cfg.wac1_threshold,
+                         disable_simplify=cfg.disable_simplify,
+                         shave=cfg.shave)
+    tb = time.monotonic()
+    solver = MultiHostSolver(tnf, econf, devices=[device])
+    setup = time.monotonic() - tb
+    engine = solver.sharded.solver
+    if cfg.verbose:
+        print(f"% host {cfg.host_id}/{cfg.hosts}: D={econf.num_dives} "
+              f"k={engine.k} MAXD={engine.cfg.max_depth} device={device} "
+              f"global shards {solver.host_shards.tolist()} setup="
+              f"{setup:.2f}s (kernel build {engine.build_time:.2f}s)",
+              file=sys.stderr)
+    printed = [None]
+    on_improve = None
+    if cfg.print_intermediate:
+        # The global improving solution rides the exchange; every host
+        # prints it, and only host 0's stdout is live.
+        def on_improve(lb_tnf):
+            printed[0] = list(lb_tnf)
+            print_solution(tnf, lb_tnf)
+    r = solver.solve(timeout_s=timeout_s,
+                     stop_after_n_solutions=cfg.stop_after_n_solutions,
+                     verbose=cfg.verbose >= 2, on_improve=on_improve,
+                     node_limit=cfg.stop_after_n_nodes or 0,
+                     checkpoint_path=cfg.checkpoint_path or "")
+    r.init_time = round(init_time + setup, 3)
+    # Every host holds the same global result.
+    if r.best_lb is not None and printed[0] != list(r.best_lb):
+        print_solution(tnf, r.best_lb)
+    print_final_separator(r.status, tnf.obj_var >= 0,
+                          exhaustive=r.exhaustive)
+    print_mzn_statistics(stats, r)
+    sys.stdout.flush()
+    shutdown_distributed()
     return 0
 
 

@@ -41,15 +41,23 @@ def _load() -> Optional[ctypes.CDLL]:
     if not os.path.exists(_SO) or \
             os.path.getmtime(_SO) < os.path.getmtime(_SRC):
         os.makedirs(os.path.dirname(_SO), exist_ok=True)
+        # Build to a file of this process and rename it into place: two
+        # processes starting cold at once must never load a half-written
+        # library.
+        tmp = f"{_SO}.{os.getpid()}.tmp"
         try:
             subprocess.run(
                 ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                 "-o", _SO, _SRC],
+                 "-o", tmp, _SRC],
                 check=True, capture_output=True)
+            os.replace(tmp, _SO)
         except Exception as e:
             print(f"% native fzn parser unavailable ({e}); using Python "
                   f"parser", file=sys.stderr)
             return None
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     lib = ctypes.CDLL(_SO)
     lib.fzn_parse.restype = ctypes.c_void_p
     lib.fzn_parse.argtypes = [ctypes.c_char_p, ctypes.c_longlong]

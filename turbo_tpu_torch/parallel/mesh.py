@@ -18,8 +18,11 @@ drain under a global ``-n`` budget, ``on_improve``, the host-side
 ``node_limit``, and the checkpoint with the shard count. It has no
 stack steal and no tail resplit, as the JAX mesh loop has neither.
 
-Shards on more than one device (one process per card and a collective
-each step) are not ported yet (ROADMAP A12(b)).
+In a multi-host run (``parallel/multihost.py``) each process builds a
+``ShardedSolver`` over its local shards with ``shard_offset`` and
+``total_shards`` set, so that the processes' shards partition one global
+subproblem space. Shards on more than one device of one process (a
+collective each step) are not ported yet (ROADMAP A12(b)).
 """
 from __future__ import annotations
 
@@ -168,19 +171,34 @@ class ShardedSolver:
     state on one device."""
 
     def __init__(self, tnf, config: EngineConfig = EngineConfig(),
-                 devices=None):
+                 devices=None, shard_offset: int = 0,
+                 total_shards: int | None = None):
         """``devices``: one torch device per shard. None: one shard per
         visible card (the JAX default is every device; ``pick_device``
         raises without CUDA). A list that repeats one device gives that
-        many lane groups on it; distinct devices raise."""
+        many lane groups on it; distinct devices raise.
+
+        ``shard_offset`` / ``total_shards``: local shard i is global shard
+        ``shard_offset + i`` of ``total_shards`` (a multi-host run; the
+        defaults are one process owning every shard). A process that does
+        not own shard 0 runs with the table off, as the multi-host path
+        does: its table rows and K7's copy offsets count local shards."""
         if devices is None:
             devices = ([torch.device("cuda", i)
                         for i in range(torch.cuda.device_count())]
                        if torch.cuda.is_available() else [pick_device()])
         self.device = _one_device(devices)
         self.n_shards = len(devices)
+        self.shard_offset = shard_offset
+        self.total_shards = (self.n_shards if total_shards is None
+                             else total_shards)
         self.solver = BatchedSolver(tnf, config, device=self.device,
-                                    num_shards=self.n_shards)
+                                    num_shards=self.total_shards)
+        if shard_offset > 0 and self.solver.use_table:
+            raise ValueError(
+                f"shard_offset {shard_offset} with the EPS table on: the "
+                "table rows of a process are indexed by local shard; run "
+                "the shards of a multi-host process with use_table=False")
         self.plan = self.solver.plan
         self.opt = self.solver.opt
         self.num_sub_total = self.solver.num_sub_total
@@ -194,11 +212,13 @@ class ShardedSolver:
     # -- global state --------------------------------------------------
 
     def init_state(self) -> SearchState:
-        """Global state: shard i's lanes hold subproblem range i."""
+        """The process's state: local shard i's lanes hold the subproblem
+        range of global shard ``shard_offset + i``."""
         s = self.solver
         while True:
             use_table0 = s.use_table
-            shards = [s.init_state(i) for i in range(self.n_shards)]
+            shards = [s.init_state(self.shard_offset + i)
+                      for i in range(self.n_shards)]
             if s.use_table == use_table0:
                 break
             # A shard's table build hit its deadline and the solver fell

@@ -9,6 +9,10 @@ round: the fields only the JAX state carries (``obj``, ``is_opt``,
 ``fp_cap``) are written as it would write them and ignored on load; the
 resuming run's fixpoint cap wins (the cap is a host integer that
 ``solve`` owns).
+
+A multi-host run (``parallel/multihost.py``) keeps one file per process,
+``host_path(path, pid)``, each holding that process's local shards and
+their count.
 """
 from __future__ import annotations
 
@@ -30,6 +34,11 @@ from .convert import search_state_from_numpy, search_state_to_numpy
 # resplit/steal accounting freeze: a resumed run keeps reporting coarse
 # 2^k subproblem units).
 FORMAT_VERSION = 5
+
+
+def host_path(path: str, pid: int) -> str:
+    """Process ``pid``'s checkpoint file of a multi-host run."""
+    return f"{path}.h{pid}"
 
 
 def save_state(solver, st, path: str, num_shards: int = 1,
