@@ -32,19 +32,23 @@ exits non-zero):
    (``fp_layout="vd"``) on golomb(12) and on random models; then, on
    each golomb(12) state, the time of each kernel entry inside real
    steps (CUDA events between the launches) against the plain step's
-   three parts, and the fixpoint iterations per node; then the K1 step
+   parts (with the lanes whose rows each step moves, for the bounds),
+   and the fixpoint iterations per node; then the K1 step
    again from the same state with K1 built with ``-DTT_K1_NO_SKIP`` (no
    skip of unmoved rules) and as built, in turns (on, off, off, on);
 3d. the step over S=4 EPS shards, lane groups of one state (K6 over
-   every lane, K7 per shard: ``parallel/mesh.py``), against the plain
+   every lane, the shard scan in each shard's last K6 post block:
+   ``parallel/mesh.py``), against the plain
    sharded step on the same CUDA state, every field equal after 1, 7
    and 40 steps and three chunks of 8 (CUDA graph): golomb(12) at D=512
    a shard with the table on, the 6 random models with the table off,
    queens(8) with enumerate_all and the rings; then each kernel's time
-   inside 20 real golomb(12) steps at S=4, K7's against 3b's S=1;
+   inside 20 real golomb(12) steps at S=4, K6 + K7 per step against
+   3b's S=1;
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
-   sync inside a chunk fails the phase), launches per step, wall time
+   sync inside a chunk fails the phase; so do more than 5.2 launches a
+   step: 5 a step and 2 a chunk), launches per step, wall time
    per step, and from ``torch.profiler`` the device kernels and busy
    time per step, for the kernel route and for the plain step; then the
    same chunk captured once in a CUDA graph and replayed; the same loop
@@ -135,9 +139,10 @@ It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
 67 T/s, at the timed shapes and this run's data; ``launches`` is the
 count on the main path, or on the kernel's own path (``path``) where the
-default search does not run it; K7 per shard, ``step_tail.sharded``,
-reads K7's launches on the ``-arch multi`` golomb(12) path and its times
-from 3d; ``transports`` holds ``dcn_allgather``, a host transport and
+default search does not run it; each entry of K6 and K7 has a row of
+its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
+reads K6 post's launches on the ``-arch multi`` golomb(12) path and its
+times from 3d; ``transports`` holds ``dcn_allgather``, a host transport and
 not a kernel, with its times from 13b), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -161,7 +166,7 @@ WAC1 = "-fp wac1, golomb(12)"
 FIXED = "fp_mode fixed, golomb(12)"
 VD = "fp_layout vd, golomb(12)"
 # -arch multi: EPS shards as lane groups on one card, and the path whose
-# launch counts K7 per shard reports.
+# launch counts K6 and K7 over S shards report.
 SHARDS = 4
 MULTI = f"-arch multi, golomb(12), S={SHARDS}"
 # -hosts 2: the main path's launch counts (both processes), and the
@@ -646,7 +651,7 @@ def steps_equal(label, s, st_k, cap):
 def phase_step_kernels(torch, dev):
     """3b: K6 + K7 against the plain step on the same CUDA state, and
     their times inside real golomb(12) steps. Returns the kres entries of
-    step and step_tail."""
+    step and step_tail and of each of their entries."""
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.instances import golomb, queens, random_model
@@ -694,10 +699,10 @@ def phase_step_kernels(torch, dev):
 
 def phase_sharded_step_kernels(torch, dev, single):
     """3d: the step over S EPS shards, lane groups of one state (K6 over
-    every lane, K7 per shard), against the plain sharded step on the same
-    CUDA state; then each kernel's time inside real golomb(12) steps at
-    S x D=512, K7's against S=1 (``single``: 3b's entry). Returns the
-    JSON entry of K7 per shard."""
+    every lane, the shard scan per shard), against the plain sharded step
+    on the same CUDA state; then each kernel's time inside real
+    golomb(12) steps at S x D=512, K6 + K7 against S=1 (``single``: 3b's
+    entries). Returns the JSON entry of K6 and K7 over S shards."""
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.instances import golomb, queens, random_model
@@ -721,11 +726,14 @@ def phase_sharded_step_kernels(torch, dev, single):
         st = steps_equal(label, ms.solver, ms.init_state(), cap)
         if first is None:
             first = (label, ms.solver, st, cap)
-    res = time_step_parts(torch, *first)["step_tail"]
-    log(f"  K7 (scan + copy) per step, golomb(12), D=512 a shard: S={SHARDS} "
-        f"{res[1]:.4f} ms (plain {res[2]:.4f}, bound {res[3]:.5f}), S=1 "
-        f"{single[1]:.4f} ms (plain {single[2]:.4f}, bound {single[3]:.5f})")
-    return res
+    res = time_step_parts(torch, *first)
+    k, k1 = res["step+step_tail"], single["step+step_tail"]
+    log(f"  K6 + K7 per step, golomb(12), D=512 a shard: S={SHARDS} "
+        f"{k[1]:.4f} ms (post {res['step.post'][1]:.4f}; plain {k[2]:.4f}, "
+        f"bound {k[3]:.5f}), S=1 {k1[1]:.4f} ms (post "
+        f"{single['step.post'][1]:.4f}; plain {k1[2]:.4f}, bound "
+        f"{k1[3]:.5f})")
+    return k
 
 
 def k1_turns(torch, label, s, st, cap):
@@ -761,12 +769,18 @@ def k1_build(no_skip):
 
 
 def time_step_parts(torch, label, s, st, cap, steps=20):
-    """Each kernel entry's time inside ``steps`` real steps of ``st``:
-    CUDA events between the launches, all steps enqueued before one
+    """Each kernel entry's time inside one chunk of ``steps`` real steps
+    of ``st``, launched as ``solver/step_cuda.py`` launches them (K7
+    live, per step K6 head, propagation, K2, K3, K6 post, then K7 copy):
+    CUDA events between the launches, all enqueued before one
     synchronize (so the card does not wait on the host between them);
-    and the plain step's three parts on a copy of the same state. The
-    propagation launch is the configuration's (K1, one of its entries
-    with the ``vd`` copies, or K8)."""
+    and the plain step's parts (``step_pre_plain``, ``step_post_plain``,
+    ``shard_scan_plain``, ``lane_copy_plain``) on a copy of the same
+    state, whose lane masks give the rows each step moves for the
+    bounds. The propagation launch is the configuration's (K1, one of
+    its entries with the ``vd`` copies, or K8). Returns the kres entries
+    (max abs err, ms, plain ms, bound ms, bound by) of K6 and K7 per
+    step and of each entry per launch."""
     import dataclasses
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.solver import step_cuda
@@ -774,18 +788,22 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
     ws, kp = s._ws, s.kernels.kernel_plan
     sv = step_cuda.view(s, st, ws)
     plain_st = clone_state(st)
-    names = ("step.pre", "propagation", "classify", "select", "step.post",
-             "step_tail.scan", "step_tail.copy")
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(8)]
-          for _ in range(steps)]
-    n_impr = torch.zeros((), dtype=torch.int64, device=dev)
-    n_refill = torch.zeros((), dtype=torch.int64, device=dev)
+    names = ("step.head", "propagation", "classify", "select", "step.post")
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    ev = [[event() for _ in range(6)] for _ in range(steps)]
+    ends = [event() for _ in range(4)]
     nodes0, fpit0 = int(st.nodes.long().sum()), int(st.fpit.long().sum())
-    kernels.step_tail.live(st.phase, ws.live[0], ws.steps)
+    ends[0].record()
+    kernels.step_tail.live(sv, ws.live[0], dev)
+    ends[1].record()
+    prev = None
     for i in range(steps):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
         ev[i][0].record()
-        kernels.step.pre(sv, cur, dev)
+        kernels.step.head(sv, prev, cur, dev)
         ev[i][1].record()
         step_cuda.propagate(s, st, cap, cur)
         ev[i][2].record()
@@ -793,21 +811,26 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
         ev[i][3].record()
         kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
         ev[i][4].record()
-        kernels.step.post(sv, cur, dev, kp.smem_limit)
+        kernels.step.post(sv, cur, nxt, dev, kp.smem_limit)
         ev[i][5].record()
-        kernels.step_tail.scan(sv, cur, nxt, dev)
-        ev[i][6].record()
-        kernels.step_tail.copy(sv, cur, dev)
-        ev[i][7].record()
-        n_impr += ws.impr.sum()
-        n_refill += ws.havework.sum()
+        prev = cur
+    ends[2].record()
+    kernels.step_tail.copy(sv, prev, dev)
+    ends[3].record()
     torch.cuda.synchronize()
     acc = {n: sum(ev[i][j].elapsed_time(ev[i][j + 1])
                   for i in range(steps)) / steps
            for j, n in enumerate(names)}
-    plain = dict.fromkeys(("pre", "post", "tail"), 0.0)
+    acc["step_tail.live"] = ends[0].elapsed_time(ends[1])
+    acc["step_tail.copy"] = ends[2].elapsed_time(ends[3])
+    plain = dict.fromkeys(("pre", "post", "scan", "copy"), 0.0)
+    # The row work of each step, from the plain step's lane masks.
+    keys = ("no_split", "snap", "solve_br", "impr", "restore", "t",
+            "refill", "ring")
+    work = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in keys}
+    G = st.phase.shape[0] // s.cfg.num_dives
     for _ in range(steps):
-        pe = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        pe = [event() for _ in range(6)]
         p = plain_st
         pe[0].record()
         phase, strat0, ub = s.step_pre_plain(p)
@@ -816,39 +839,82 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
         bot, ent = s.kernels.classify(lb, ub)
         sel = s._select(lb, ub, strat0)
         pe[2].record()
+        w = {}
         new, flags = s.step_post_plain(p, phase, strat0, lb, ub, iters,
-                                       unconv, bot, ent, sel)
+                                       unconv, bot, ent, sel, w)
         pe[3].record()
-        new = s.step_tail_plain(p, new, *flags)
+        newidx, refill, ring_row = s.shard_scan_plain(p, new, *flags)
         pe[4].record()
+        new = s.lane_copy_plain(p, new, flags[0], newidx, refill, ring_row)
+        pe[5].record()
+        w["refill"] = refill
+        w["ring"] = (ring_row < G * s.cfg.sol_ring_size if ring_row
+                     is not None else torch.zeros_like(refill))
+        for k in keys:
+            work[k] += w[k].long().sum()
         torch.cuda.synchronize()
         plain_st = dataclasses.replace(p, **new)
-        plain["pre"] += pe[0].elapsed_time(pe[1]) / steps
-        plain["post"] += pe[2].elapsed_time(pe[3]) / steps
-        plain["tail"] += pe[3].elapsed_time(pe[4]) / steps
-    D, V = st.phase.shape[0], s.dp.V  # every lane of every shard
-    impr, refill = int(n_impr) / steps, int(n_refill) / steps
-    # K6: about 10 scalar words per lane before K1 and 52 after, the
-    # incumbent rows of improving lanes (two planes read, two written);
-    # snapshot and rebuild rows are not counted (a lower bound). K7: 28
-    # bytes per lane in the scan, six table-row planes per refilled lane
-    # (two read, four written) and a ring row per improvement.
-    k6 = bound(D * 62 * 4 + impr * 16 * V + 4 * D, 100 * D)
-    k7 = bound(28 * D + refill * 24 * V + impr * 8 * V, 30 * D)
+        for k, (a, b) in (("pre", (0, 1)), ("post", (2, 3)),
+                          ("scan", (3, 4)), ("copy", (4, 5))):
+            plain[k] += pe[a].elapsed_time(pe[b]) / steps
+    plain_live = median_ms(lambda: ((st.phase != 2).any(),
+                                    st.best_bound.min()))
+    D, V, na = st.phase.shape[0], s.dp.V, s.dp.n_active  # every lane
+    w = {k: int(v) / steps for k, v in work.items()}
+    # Bytes per step, each input read once and each output written once.
+    # The rows after a step (in the next head, or in K7 copy after the
+    # chunk's last step): a table refill reads two table rows and writes
+    # four planes, a table-off refill writes two (the root box read
+    # once), a ring row is read and written; each lane's want and ridx.
+    rows = (w["refill"] * (24 * V if s.use_table else 8 * V)
+            + (0 if s.use_table or not w["refill"] else 8 * V)
+            + w["ring"] * 8 * V + 5 * D)
+    # Head: phase, strat, remaining, eps_strat, best_bound, ub[obj] read,
+    # strat0 written (phase and ub[obj] where they change), bmin and
+    # ext_bound once.
+    head_b = rows + 28 * D + 8
+    # Post: about 32 scalar words read and 22 written per lane; the
+    # parent's stack entry and the child bound; a push writes 7 words;
+    # the incumbent and snapshot rows (two planes read, two written); a
+    # restore reads the two root rows and t decisions (4 words each) and
+    # writes two planes; a no_split lane reads 2 n_active words; the
+    # shard scan reads 5 words of each lane and writes 5.
+    post_b = (D * (216 + 16) + w["solve_br"] * 28 + w["impr"] * 16 * V
+              + w["snap"] * 16 * V + w["restore"] * 16 * V + w["t"] * 16
+              + w["no_split"] * 8 * na + 40 * D)
+    live_b = 8 * D + 12
+    res = {"step.head": (0, acc["step.head"], plain["pre"] + plain["copy"])
+           + bound(head_b, 20 * D),
+           "step.post": (0, acc["step.post"], plain["post"] + plain["scan"])
+           + bound(post_b, 130 * D),
+           "step_tail.live": (0, acc["step_tail.live"], plain_live)
+           + bound(live_b, 2 * D),
+           "step_tail.copy": (0, acc["step_tail.copy"], plain["copy"])
+           + bound(rows, 10 * D)}
+    res["step"] = (0, acc["step.head"] + acc["step.post"],
+                   plain["pre"] + plain["post"] + plain["scan"]
+                   + plain["copy"]) + bound(head_b + post_b, 150 * D)
+    res["step_tail"] = (0, (acc["step_tail.live"] + acc["step_tail.copy"])
+                        / steps, (plain_live + plain["copy"]) / steps) + \
+        bound((live_b + rows) / steps, 12 * D / steps)
+    # K6 and K7 together per step (the shard scans run in the post).
+    res["step+step_tail"] = (0, res["step"][1] + res["step_tail"][1],
+                             res["step"][2] + res["step_tail"][2]) + bound(
+        head_b + post_b + (live_b + rows) / steps, (150 + 12 / steps) * D)
     nodes = int(st.nodes.long().sum()) - nodes0
     fpit = int(st.fpit.long().sum()) - fpit0
     log(f"  {label}: D={D} V={V}, {steps} steps (per step: "
-        f"{impr:.2f} improving, {refill:.2f} refilled lanes, "
-        f"{nodes / steps:.1f} nodes; {fpit / max(nodes, 1):.2f} "
+        + ", ".join(f"{v:.2f} {k}" for k, v in w.items())
+        + f" lanes; {nodes / steps:.1f} nodes; {fpit / max(nodes, 1):.2f} "
         f"fixpoint_iterations per node), ms per step: "
         + ", ".join(f"{n} {acc[n]:.4f}" for n in names)
-        + f"; plain parts: pre {plain['pre']:.4f}, post {plain['post']:.4f},"
-        f" tail {plain['tail']:.4f}; bound ms K6 {k6[0]:.5f} ({k6[1]}), K7 "
-        f"{k7[0]:.5f} ({k7[1]})")
-    return {"step": (0, acc["step.pre"] + acc["step.post"],
-                     plain["pre"] + plain["post"]) + k6,
-            "step_tail": (0, acc["step_tail.scan"] + acc["step_tail.copy"],
-                          plain["tail"]) + k7}
+        + f"; per chunk: step_tail.live {acc['step_tail.live']:.4f}, "
+        f"step_tail.copy {acc['step_tail.copy']:.4f}; plain parts: pre "
+        f"{plain['pre']:.4f}, post {plain['post']:.4f}, scan "
+        f"{plain['scan']:.4f}, copy {plain['copy']:.4f}, live "
+        f"{plain_live:.4f}; bound ms "
+        + ", ".join(f"{k} {v[3]:.5f} ({v[4]})" for k, v in res.items()))
+    return res
 
 
 def profile_steps(torch, fn, steps):
@@ -865,6 +931,11 @@ def profile_steps(torch, fn, steps):
         return None
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
     return len(dev_events) / steps, busy_us / 1e3 / steps
+
+
+# 3c: the most launches a step of a 16-step chunk may take (5.125 with
+# K7 live and K7 copy once a chunk).
+MAX_LAUNCHES_PER_STEP = 5.2
 
 
 def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16,
@@ -913,9 +984,13 @@ def _step_loop(torch, dev, label, kw, full, chunk, cap):
         wall = time.monotonic() - t0
         n = int(ran)
         per = sum(kernels.launch_counts()[k.name] for k in kernels.KERNELS)
-        log(f"    {route}: {n} steps, {per / chunk:.2f} launches of the "
+        log(f"    {route}: {n} steps, {per / chunk:.3f} launches of the "
             f"port's kernels per step, wall {wall / n * 1e3:.3f} ms per step "
             f"(enqueue {enq / n * 1e3:.3f}); no host sync")
+        # 5 launches a step and 2 a chunk (solver/step_cuda.py).
+        if per / chunk > MAX_LAUNCHES_PER_STEP:
+            fail(f"{label}, {route}: {per / chunk:.3f} launches per step "
+                 f"(at most {MAX_LAUNCHES_PER_STEP})")
         out.setdefault(route, []).append(wall / n * 1e3)
     routes = (("kernels one by one", False), ("CUDA graph", True))
     for route, graph in routes if full else routes[1:]:
@@ -945,11 +1020,11 @@ def _step_loop(torch, dev, label, kw, full, chunk, cap):
         f"{pprof[0]:.1f} device kernels and {pprof[1]:.3f} ms device busy "
         "per step" if pprof else "profiler: no device time"))
     # The chunk's live flag (K7 live, once per chunk): it reads the
-    # phases and writes two words.
+    # phases and the incumbents and writes three words.
     ws, D = s._ws, s.cfg.num_dives
-    live_ms = median_ms(lambda: kernels.step_tail.live(st.phase, ws.live[0],
-                                                       ws.steps))
-    live_bound = bound(4 * D + 8, D)
+    sv = step_cuda.view(s, st, ws)
+    live_ms = median_ms(lambda: kernels.step_tail.live(sv, ws.live[0], dev))
+    live_bound = bound(8 * D + 12, 2 * D)
     log(f"    K7 live (once per chunk): {live_ms:.4f} ms, bound "
         f"{live_bound[0]:.7f} ms ({live_bound[1]})")
     return out["CUDA graph"]
@@ -991,8 +1066,7 @@ def counted(label, fn, required=()):
 
 
 STEP_KERNELS = ("fixpoint", "classify", "select", "step", "step_tail",
-                "step.pre", "step.post", "step_tail.scan", "step_tail.copy",
-                "step_tail.live")
+                "step.head", "step.post", "step_tail.live", "step_tail.copy")
 TABLE_KERNELS = ("embed", "embed.embed", "embed.table_refill")
 
 
@@ -1291,8 +1365,8 @@ def run_option_paths(torch, dev, big=12):
         f"-fp wac1, golomb({big})", cli_big("-fp wac1", 30, "-fp", "wac1"),
         required=("wac1",) + rest + table_kernels)
     # K8 ran in every level of the table build and in every step, K1 never.
-    if c["fixpoint"] != 0 or c["wac1"] != c["step.pre"] + c["embed.embed"]:
-        fail(f"-fp wac1: K8 launches {c['wac1']} != steps {c['step.pre']} + "
+    if c["fixpoint"] != 0 or c["wac1"] != c["step.head"] + c["embed.embed"]:
+        fail(f"-fp wac1: K8 launches {c['wac1']} != steps {c['step.head']} + "
              f"table levels {c['embed.embed']}, or K1 ran ({c['fixpoint']})")
 
     log(f"[10c] fp_mode fixed and fp_layout vd: golomb({big}), D=512, solver "
@@ -1902,10 +1976,9 @@ def main():
     kres = phase_kernels(torch, dev)
     log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
     kres.update(phase_step_kernels(torch, dev))
-    log(f"[3d] the step over S={SHARDS} EPS shards (K7 per shard) vs the "
+    log(f"[3d] the step over S={SHARDS} EPS shards (a scan per shard) vs the "
         "plain sharded step on the same CUDA state (exact)")
-    kres["step_tail.sharded"] = phase_sharded_step_kernels(
-        torch, dev, kres["step_tail"])
+    kres["step.sharded"] = phase_sharded_step_kernels(torch, dev, kres)
     log("[3c] step loop, golomb(12), D=512, cap 16: K1 (dv), K8, fixed "
         "sweeps, the vd entry against dv and K1 without the skip against "
         "K1, in turns")
@@ -1952,11 +2025,15 @@ def main():
     listed += [(f"{k1.name}.{e}", k1, k1.ENTRY_REPLACES[e], path,
                 f"{k1.name}.{e}")
                for e, path in (("fixed_sweeps", FIXED), ("transposed", VD))]
-    # K7 run per shard stands in for the sharded step of the JAX mesh;
-    # its launches are K7's on the -arch multi path.
-    tail = kernels.step_tail
-    listed.append(("step_tail.sharded", tail, tail.SHARDED_REPLACES, MULTI,
-                   tail.name))
+    # Each entry of K6 and K7 on its own.
+    listed += [(f"{k.name}.{e}", k, k.replaces, MAIN, f"{k.name}.{e}")
+               for k in (kernels.step, kernels.step_tail) for e in k.ENTRIES]
+    # K6 and K7 over S shards stand in for the sharded step of the JAX
+    # mesh (the shard scans run in K6 post); the launches are K6 post's
+    # on the -arch multi path.
+    step = kernels.step
+    listed.append(("step.sharded", step, step.SHARDED_REPLACES, MULTI,
+                   "step.post"))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": k.source,
          "replaces": replaces, "launches": paths[path][key], "path": path,

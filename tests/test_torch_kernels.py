@@ -765,16 +765,99 @@ def test_cuda_embed_refill_open_count_match_plain(seed):
 # -- K6 step.cu and K7 step_tail.cu, transliterated --------------------
 
 DIVE, SOLVE, IDLE = 0, 1, 2
+WARP, BLOCK = 32, 256   # csrc/common.cuh TT_THREADS
+
+
+def shard_ranks(want, impr):
+    """The shard scan's ranks as K6 post's last block computes them
+    (csrc/step.cu ``shard_scan``): rounds of 256 lanes, per warp of 32 a
+    ballot of each flag and popc(mask & lanemask_lt), per round a prefix
+    over the 8 warps' popc totals, a carry from round to round. Returns
+    the inclusive counts of want and impr in lane order."""
+    n = len(want)
+    inc_w, inc_i = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    carry_w = carry_i = 0
+    for base in range(0, n, BLOCK):
+        masks = []
+        for w in range(BLOCK // WARP):
+            mw = mi = 0
+            for lane in range(WARP):
+                i = base + w * WARP + lane
+                if i < n:
+                    mw |= int(bool(want[i])) << lane
+                    mi |= int(bool(impr[i])) << lane
+            masks.append((mw, mi))
+        tot = [(bin(mw).count("1"), bin(mi).count("1")) for mw, mi in masks]
+        for w, (mw, mi) in enumerate(masks):
+            pre_w = carry_w + sum(t[0] for t in tot[:w])
+            pre_i = carry_i + sum(t[1] for t in tot[:w])
+            for lane in range(WARP):
+                i = base + w * WARP + lane
+                if i >= n:
+                    continue
+                lt = (1 << lane) - 1
+                inc_w[i] = pre_w + bin(mw & lt).count("1") + ((mw >> lane) & 1)
+                inc_i[i] = pre_i + bin(mi & lt).count("1") + ((mi >> lane) & 1)
+        carry_w += sum(t[0] for t in tot)
+        carry_i += sum(t[1] for t in tot)
+    return inc_w, inc_i
+
+
+@pytest.mark.parametrize("S", (1, 3))
+@pytest.mark.parametrize("D", (45, 300, 777))
+def test_shard_ranks_equal_cumsum(S, D):
+    """The ballot/popc ranks and the warp-total prefix of the shard scan
+    equal np.cumsum over each shard's lanes, for shard sizes that are
+    not a multiple of 32 (one, two and four rounds of 256 lanes)."""
+    rng = np.random.default_rng(1000 * S + D)
+    for density in (0.05, 0.5, 0.95):
+        want = rng.random(S * D) < density
+        impr = rng.random(S * D) < density / 2
+        for sh in range(S):
+            sl = slice(sh * D, (sh + 1) * D)
+            inc_w, inc_i = shard_ranks(want[sl], impr[sl])
+            np.testing.assert_array_equal(inc_w, np.cumsum(want[sl]))
+            np.testing.assert_array_equal(inc_i, np.cumsum(impr[sl]))
+
+
+def emulate_lane_copy(s, f, scr, d):
+    """``lane_copy`` of csrc/step.cuh for lane d: the refill row and the
+    ring row after the step whose shard scan wrote ``scr``."""
+    Ds, R = s.cfg.num_dives, s.cfg.sol_ring_size
+    sh = d // Ds
+    n_pad = f["tab_lb"].shape[0] // (len(f["phase"]) // Ds)
+    lb, ub = f["lb"], f["ub"]
+    want, hw, r = scr["want"][d], scr["havework"][d], scr["ridx"][d]
+    if want:
+        if hw and s.use_table:
+            i = sh * n_pad + min(max(scr["newidx"][d], 0), n_pad - 1)
+            lb[d] = f["root_lb"][d] = f["tab_lb"][i]
+            ub[d] = f["root_ub"][d] = f["tab_ub"][i]
+            f["depth"][d], f["remaining"][d] = 0, 0
+            f["strat"][d] = f["snap_strat"][d] = f["tab_strat"][i]
+            f["subp"][d] = f["tab_path"][i]
+        elif hw:
+            lb[d], ub[d] = s.dp.lb0.numpy(), s.dp.ub0.numpy()
+            f["depth"][d], f["strat"][d] = 0, 0
+            f["remaining"][d] = f["kpow"][d]
+            f["subp"][d] = scr["newidx"][d]
+        f["phase"][d] = (SOLVE if s.use_table else DIVE) if hw else IDLE
+    if r >= 0:
+        f["sol_ring"][sh * R + r] = f["best_lb"][d]
 
 
 def emulate_run(s, f, n, cap):
     """``solver/step_cuda.run`` over the numpy state ``f`` (updated in
-    place): the live flag, then per step K6 pre -> K1-K3 (their plain
-    versions) -> K6 post -> K7 scan -> K7 copy, each lane as one block
-    of csrc/step.cu and csrc/step_tail.cu computes it. A state of S * D
-    lanes is S EPS shards: K6 runs over all S * D lanes, K7's scan as
-    one block per shard over the shard's lanes, table rows and ring
-    rows. Returns the steps that ran."""
+    place): K7 live (the flag, the incumbent min ``bmin``), then per step
+    K6 head (under the previous step's live word the previous step's
+    refill and ring rows, then under this step's promote and the tighten
+    from ``bmin``) -> K1-K3 (their plain versions) -> K6 post, each lane
+    as one block of csrc/step.cu computes it, the shard scan once every
+    lane of the shard has posted, and the last shard's live word and
+    ``bmin``; then K7 copy of the last step's rows. A state of S * D
+    lanes is S EPS shards: K6 runs over all S * D lanes, the scan per
+    shard over the shard's lanes, table rows and ring rows. Returns the
+    steps that ran."""
     dp, cfg = s.dp, s.cfg
     MAXD, R = cfg.max_depth, cfg.sol_ring_size
     enum, obj, is_opt = cfg.enumerate_all, dp.obj, dp.is_opt
@@ -782,17 +865,22 @@ def emulate_run(s, f, n, cap):
     D = len(f["phase"])          # every lane of every shard
     Ds = cfg.num_dives           # the lanes of one shard
     S = D // Ds
-    n_pad = f["tab_lb"].shape[0] // S
-    lb0, ub0 = dp.lb0.numpy(), dp.ub0.numpy()
+    # K7 live.
     live = [int((f["phase"] != IDLE).any()), 0]
-    steps = 0
+    bmin = int(f["best_bound"].min())
+    steps, prev = 0, None
+    scr = {}                     # the post's flags and the scan's output
     for i in range(n):
         cur = i % 2
-        if not live[cur]:  # every kernel returns; the scan clears the next
+        # K6 head: the previous step's rows, then promote and tighten.
+        if prev is not None and live[prev]:
+            for d in range(D):
+                emulate_lane_copy(s, f, scr, d)
+        prev = cur
+        if not live[cur]:  # every kernel returns; post clears the next
             live[1 - cur] = 0
             continue
-        # K6 pre.
-        g = min(int(f["best_bound"].min()), int(f["ext_bound"][0]))
+        g = min(bmin, int(f["ext_bound"][0]))
         strat0 = np.zeros(D, np.int32)
         for d in range(D):
             ph, st = int(f["phase"][d]), int(f["strat"][d])
@@ -872,9 +960,11 @@ def emulate_run(s, f, n, cap):
             f["remaining"][d] = rem2
             st0 = int(strat0[d])
             snap_strat = st0 if snap else int(f["snap_strat"][d])
-            dd, par = min(max(dep, 0), MAXD - 1), min(max(dep - 1, 0), MAXD - 1)
-            rope1 = ((dep if f["dec_cur"][d, par] == 0
-                      else int(f["dec_rope1"][d, par])) if dep > 0 else -1)
+            # The second round of loads: the parent's stack entry.
+            par = min(max(dep - 1, 0), MAXD - 1)
+            pcur, prope = int(f["dec_cur"][d, par]), int(f["dec_rope1"][d, par])
+            dd = dep  # dep < MAXD when solve_br
+            rope1 = (dep if pcur == 0 else prope) if dep > 0 else -1
             if solve_br:
                 for k, v in (("dec_var", var[d]), ("dec_l0", c0l[d]),
                              ("dec_u0", c0u[d]), ("dec_l1", c1l[d]),
@@ -887,10 +977,10 @@ def emulate_run(s, f, n, cap):
                 right = dive_br and bit == 1
                 lb[d, v] = max(int(lb[d, v]), int(c1l[d] if right else c0l[d]))
                 ub[d, v] = min(int(ub[d, v]), int(c1u[d] if right else c0u[d]))
+            # After a push the last entry is the new one (t = dep1),
+            # else the parent's.
             bt = act and leaf and in_solve
-            lastd = min(max(dep1 - 1, 0), MAXD - 1)
-            t = dep1 if f["dec_cur"][d, lastd] == 0 else int(
-                f["dec_rope1"][d, lastd])
+            t = dep1 if solve_br or pcur == 0 else prope
             done_sub = bt and (dep1 == 0 or t == -1)
             restore = bt and dep1 > 0 and t != -1
             if restore:
@@ -912,60 +1002,47 @@ def emulate_run(s, f, n, cap):
             if restore:  # atomicMax/atomicMin scatter over j < t
                 lb[d], ub[d] = f["root_lb"][d], f["root_ub"][d]
                 for j in range(t):
-                    v, c1 = int(f["dec_var"][d, j]), f["dec_cur"][d, j] == 1
+                    v = int(f["dec_var"][d, j])
+                    c1 = j == t - 1 or f["dec_cur"][d, j] == 1
                     lb[d, v] = max(int(lb[d, v]),
                                    int(f["dec_l1" if c1 else "dec_l0"][d, j]))
                     ub[d, v] = min(int(ub[d, v]),
                                    int(f["dec_u1" if c1 else "dec_u0"][d, j]))
-        # K7 scan, one block per shard; the last block publishes the
-        # live flag.
+        # The shard scan, in the shard's last block to post; the last
+        # shard publishes the live word and bmin.
         newidx, havework, ridx = [0] * D, [False] * D, [-1] * D
-        refill_phase = SOLVE if s.use_table else DIVE
-        any_live = False
+        any_live, shard_min = False, []
         for sh in range(S):
             ls = range(sh * Ds, (sh + 1) * Ds)
             l0 = sh * Ds
             m = max(int(nxt_v[d]) if dleaf_v[d] else 0 for d in ls)
+            shard_min.append(int(f["best_bound"][l0:l0 + Ds].min()))
             ns = max(int(f["next_sub"][l0]), m)
             limit, w0 = int(f["sub_limit"][l0]), int(f["sol_w"][l0])
-            total_w = int(want[l0:l0 + Ds].sum())
-            total_i = int(impr_v[l0:l0 + Ds].sum())
-            inc_w = np.cumsum(want[l0:l0 + Ds])
-            inc_i = np.cumsum(impr_v[l0:l0 + Ds])
+            inc_w, inc_i = shard_ranks(want[l0:l0 + Ds], impr_v[l0:l0 + Ds])
+            total_w, total_i = int(inc_w[-1]), int(inc_i[-1])
             for d in ls:
                 i = d - l0
                 newidx[d] = w32(ns + (int(inc_w[i]) - 1 if want[d] else 0))
                 havework[d] = bool(want[d]) and newidx[d] < limit
                 if impr_v[d] and R > 0 and total_i - inc_i[i] < R:
                     ridx[d] = w32(w0 + int(inc_i[i]) - 1) % R
-                ph = ((refill_phase if havework[d] else IDLE) if want[d]
-                      else int(f["phase"][d]))
-                any_live |= ph != IDLE
+                # Live after the step: a lane that does not finish and
+                # is not IDLE, or a refilled one.
+                any_live |= bool(havework[d]) or (
+                    not want[d] and int(f["phase"][d]) != IDLE)
             f["next_sub"][l0:l0 + Ds] = min(w32(ns + total_w), limit)
             if R > 0:
                 f["sol_w"][l0:l0 + Ds] = [w32(int(f["sol_w"][d]) + total_i)
                                           for d in ls]
         live[1 - cur] = int(any_live)
+        bmin = min(shard_min)
         steps += 1
-        # K7 copy, one lane (block) at a time.
+        scr = dict(want=want, havework=havework, newidx=newidx, ridx=ridx)
+    # K7 copy: the last step's rows.
+    if prev is not None and live[prev]:
         for d in range(D):
-            sh = d // Ds
-            if want[d]:
-                if havework[d] and s.use_table:
-                    r = sh * n_pad + min(max(newidx[d], 0), n_pad - 1)
-                    lb[d] = f["root_lb"][d] = f["tab_lb"][r]
-                    ub[d] = f["root_ub"][d] = f["tab_ub"][r]
-                    f["depth"][d], f["remaining"][d] = 0, 0
-                    f["strat"][d] = f["snap_strat"][d] = f["tab_strat"][r]
-                    f["subp"][d] = f["tab_path"][r]
-                elif havework[d]:
-                    lb[d], ub[d] = lb0, ub0
-                    f["depth"][d], f["strat"][d] = 0, 0
-                    f["remaining"][d] = f["kpow"][d]
-                    f["subp"][d] = newidx[d]
-                f["phase"][d] = refill_phase if havework[d] else IDLE
-            if ridx[d] >= 0:
-                f["sol_ring"][sh * R + ridx[d]] = f["best_lb"][d]
+            emulate_lane_copy(s, f, scr, d)
     return steps
 
 
@@ -1018,8 +1095,8 @@ def test_step_kernel_emulation_matches_plain_step(name):
 @pytest.mark.parametrize("name", sorted(STEP_CASES))
 def test_sharded_step_kernel_emulation_matches_plain_step(name):
     """The same over 3 EPS shards of 4 lanes (``parallel/mesh.py``'s
-    global state): K7 per shard equals the segmented ``step_tail_plain``
-    field for field over 60 steps at cap 3."""
+    global state): the scan per shard equals the segmented
+    ``shard_scan_plain`` field for field over 60 steps at cap 3."""
     from turbo_tpu_torch.parallel.mesh import ShardedSolver
     from turbo_tpu_torch.solver.convert import search_state_to_numpy
     text, kw = STEP_CASES[name]
@@ -1041,3 +1118,63 @@ def test_sharded_step_kernel_emulation_matches_plain_step(name):
             np.testing.assert_array_equal(f[k], want[k],
                                           err_msg=f"{name} {done}: {k}")
     assert int(f["nodes"].sum()) > 0 and done == 60
+
+
+@pytest.mark.parametrize("n", (1, 2, 16))
+def test_chunk_launch_sequence(n, monkeypatch):
+    """``step_cuda._enqueue`` of a chunk of n steps makes 5n + 2 launches:
+    K7 live, then per step K6 head, the propagation launch, K2, K3 and
+    K6 post, then K7 copy; each reads the right live word (step i reads
+    word i % 2, its post writes the other, its head copies under the
+    previous step's word, the first head copies nothing) on a CPU
+    workspace with the wrappers replaced by recorders. The tickets of
+    the shard scan are sized by the shards (3 + S words, the min
+    accumulator at INT_MAX)."""
+    from types import SimpleNamespace
+
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver
+    from turbo_tpu_torch.solver import step_cuda
+    tnf = compile_model(parse_fzn_text(golomb(5)))
+    ms = ShardedSolver(tnf, EngineConfig(num_dives=4, fp_cap_auto=False),
+                       devices=["cpu"] * 3)
+    s = ms.solver
+    st = ms.init_state()
+    s.kernels._kernel_plan = SimpleNamespace(smem_limit=48 * 1024)
+    monkeypatch.setattr(kernels.fixpoint, "scratch", lambda kp, D: None)
+    ws = s._ws = step_cuda.Workspace(s, st.phase.shape[0])
+    assert ws.tail_sync.tolist() == [0, 0, 2 ** 31 - 1, 0, 0, 0]
+    calls = []
+
+    def rec(name, *words):
+        calls.append((name,) + words)
+
+    monkeypatch.setattr(kernels.step_tail, "live",
+                        lambda sv, live, dev: rec("live", live))
+    monkeypatch.setattr(kernels.step_tail, "copy",
+                        lambda sv, live, dev: rec("copy", live))
+    monkeypatch.setattr(kernels.step, "head",
+                        lambda sv, prev, live, dev: rec("head", prev, live))
+    monkeypatch.setattr(kernels.step, "post",
+                        lambda sv, live, nxt, dev, smem: rec("post", live,
+                                                             nxt))
+    monkeypatch.setattr(step_cuda, "propagate",
+                        lambda solver, st, cap, live: rec("propagate", live))
+    monkeypatch.setattr(kernels, "classify",
+                        lambda kp, lb, ub, live, out: rec("classify", live))
+    monkeypatch.setattr(kernels, "select",
+                        lambda kp, lb, ub, strat, live, out: rec("select",
+                                                                 live))
+    step_cuda._enqueue(s, st, None, n, 16)
+    w = ws.live
+    want = [("live", w[0])]
+    for i in range(n):
+        cur, nxt = w[i % 2], w[1 - i % 2]
+        want += [("head", w[1 - i % 2] if i else None, cur),
+                 ("propagate", cur), ("classify", cur), ("select", cur),
+                 ("post", cur, nxt)]
+    want.append(("copy", w[(n - 1) % 2]))
+    assert len(calls) == 5 * n + 2
+    assert [c[0] for c in calls] == [c[0] for c in want]
+    for got, exp in zip(calls, want):
+        assert all(a is b for a, b in zip(got[1:], exp[1:])), (got, exp)

@@ -13,11 +13,13 @@ one thread block per dive (or table row):
   bound, and (``embed.refill``) the table-row refill that seeds the
   first lanes, in place;
 - ``open_count`` (K5): open right branches on the SOLVE-phase stacks;
-- ``step`` (K6): the per-lane body of a search step, before
-  (``step.pre``) and after (``step.post``) K1-K3, in place;
-- ``step_tail`` (K7): the cross-lane end of a step (``step_tail.scan``,
-  one block), its refill and ring rows (``step_tail.copy``), and the
-  chunk's live flag (``step_tail.live``);
+- ``step`` (K6): a search step around K1-K3, in place: before them
+  (``step.head``: the previous step's refill and ring rows, then
+  promote and tighten) and after them (``step.post``: the per-lane rest
+  of the step, then, in each shard's last block, the shard scan and the
+  next step's live flag);
+- ``step_tail`` (K7): the chunk's live flag (``step_tail.live``) and
+  the last step's refill and ring rows (``step_tail.copy``);
 - ``wac1`` (K8): WAC1 propagation (per op-group local fixpoints, then
   the element, membership and linear passes) to the fixpoint or the cap.
 
@@ -200,7 +202,7 @@ class StepView(ctypes.Structure):
             "tab_path", "lb0", "ub0", "sol_ring", "sol_w", "iters",
             "unconv", "bot", "ent", "found", "var", "nstrat", "c0l", "c0u",
             "c1l", "c1u", "strat0", "want", "impr", "dleaf", "nxt",
-            "newidx", "havework", "ridx", "steps", "tail_sync")])
+            "newidx", "havework", "ridx", "steps", "tail_sync", "bmin")])
 
 
 def _check(t, name, shape, dtype=I32):
@@ -538,56 +540,51 @@ class _Step(_Kernel):
     name = "step"
     source = "turbo_tpu_torch/kernels/csrc/step.cu"
     replaces = "turbo_tpu/solver/engine.py:801"
-    ENTRIES = ("pre", "post")
+    # The shard scan in each shard's last post block is the per-shard
+    # part of the JAX mesh's sharded step.
+    SHARDED_REPLACES = "turbo_tpu/parallel/mesh.py:184"
+    ENTRIES = ("head", "post")
 
-    def pre(self, view, live, device):
-        """Promote, strat0 and the objective tighten of every lane, in
-        place; see csrc/step.cu. ``view``: a StepView of the state."""
+    def head(self, view, prev_live, live, device):
+        """The previous step's refill and ring rows under ``prev_live``
+        (None: the chunk's first step, no copy), then promote, strat0 and
+        the objective tighten under ``live``, in place; see
+        csrc/step.cu. ``view``: a StepView of the state."""
         with torch.cuda.device(device):
-            self._launch(lambda lib: lib.tt_step_pre, ctypes.byref(view),
-                         _live_ptr(live), _stream_of(device), entry="pre")
+            self._launch(lambda lib: lib.tt_step_head, ctypes.byref(view),
+                         _live_ptr(prev_live), _live_ptr(live),
+                         _stream_of(device), entry="head")
 
-    def post(self, view, live, device, smem_limit):
-        """The per-lane rest of the step after K1-K3, in place; see
-        csrc/step.cu."""
+    def post(self, view, live, live_next, device, smem_limit):
+        """The per-lane rest of the step after K1-K3, then the shard
+        scan, the next step's live flag ``live_next`` and the incumbent
+        min, in place; see csrc/step.cu."""
         with torch.cuda.device(device):
             self._launch(lambda lib: lib.tt_step_post, ctypes.byref(view),
-                         _live_ptr(live), int(smem_limit), _stream_of(device),
-                         entry="post")
+                         _live_ptr(live), _live_ptr(live_next),
+                         int(smem_limit), _stream_of(device), entry="post")
 
 
 class _StepTail(_Kernel):
     name = "step_tail"
     source = "turbo_tpu_torch/kernels/csrc/step_tail.cu"
     replaces = "turbo_tpu/solver/engine.py:1059"
-    # Run per shard (one scan block each), K7 is the per-shard part of
-    # the JAX mesh's sharded step.
-    SHARDED_REPLACES = "turbo_tpu/parallel/mesh.py:184"
-    ENTRIES = ("scan", "copy", "live")
+    ENTRIES = ("live", "copy")
 
-    def scan(self, view, live, live_next, device):
-        """The step's cross-lane counts, next_sub, the ring slots and the
-        next step's live flag; see csrc/step_tail.cu."""
+    def live(self, view, live, device):
+        """live[0] = some lane is not IDLE, the step counter 0 and the
+        incumbent min of every lane, at a chunk's start; see
+        csrc/step_tail.cu."""
         with torch.cuda.device(device):
-            self._launch(lambda lib: lib.tt_step_scan, ctypes.byref(view),
-                         _live_ptr(live), _live_ptr(live_next),
-                         _stream_of(device), entry="scan")
+            self._launch(lambda lib: lib.tt_step_live, ctypes.byref(view),
+                         _live_ptr(live), _stream_of(device), entry="live")
 
     def copy(self, view, live, device):
-        """Refill rows and ring rows, in place; see csrc/step_tail.cu."""
+        """The refill and ring rows of the step whose live word is
+        ``live``, in place, at a chunk's end; see csrc/step_tail.cu."""
         with torch.cuda.device(device):
             self._launch(lambda lib: lib.tt_step_copy, ctypes.byref(view),
                          _live_ptr(live), _stream_of(device), entry="copy")
-
-    def live(self, phase, live, steps):
-        """live[0] = some lane of ``phase`` is not IDLE; steps[0] = 0."""
-        D = phase.shape[0]
-        _check(phase, "phase", (D,))
-        _check(steps, "steps", (1,))
-        with torch.cuda.device(phase.device):
-            self._launch(lambda lib: lib.tt_step_live, phase.data_ptr(), D,
-                         _live_ptr(live), steps.data_ptr(), _stream(phase),
-                         entry="live")
 
 
 fixpoint = _Fixpoint()

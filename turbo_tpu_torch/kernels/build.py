@@ -63,16 +63,15 @@ def _bind(lib):
     lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
     lib.tt_table_refill.argtypes = [P] * 8 + [I, I, I, P]
     lib.tt_open_count.argtypes = [P, P, P, P, I, I, P]
-    lib.tt_step_pre.argtypes = [P, P, P]
-    lib.tt_step_post.argtypes = [P, P, I, P]
-    lib.tt_step_scan.argtypes = [P, P, P, P]
+    lib.tt_step_head.argtypes = [P, P, P, P]
+    lib.tt_step_post.argtypes = [P, P, P, I, P]
     lib.tt_step_copy.argtypes = [P, P, P]
-    lib.tt_step_live.argtypes = [P, I, P, P, P]
+    lib.tt_step_live.argtypes = [P, P, P]
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t,
                lib.tt_wac1, lib.tt_classify, lib.tt_select,
                lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
-               lib.tt_step_pre, lib.tt_step_post, lib.tt_step_scan,
-               lib.tt_step_copy, lib.tt_step_live):
+               lib.tt_step_head, lib.tt_step_post, lib.tt_step_copy,
+               lib.tt_step_live):
         fn.restype = I
     lib.tt_error_string.argtypes = [I]
     lib.tt_error_string.restype = ctypes.c_char_p

@@ -9,8 +9,9 @@ laid out as the mesh's global state: shard s owns lanes [s*D, (s+1)*D),
 table rows [s*n_pad, (s+1)*n_pad) and ring rows [s*R, (s+1)*R). The
 step is the batched engine's over all S*D lanes: its incumbent min over
 every lane is the pmin (``ext_bound`` is the same on every lane), and
-its cross-lane end (K7 on the card, ``step_tail_plain`` on the CPU) runs
-per shard, each from its own counter, table and ring.
+its cross-lane end (on the card the shard scan in K6 post's last block
+of each shard, ``shard_scan_plain`` on the CPU) runs per shard, each
+from its own counter, table and ring.
 
 ``solve`` is the mesh host loop: the calibrator, the per-shard ring
 drain under a global ``-n`` budget, ``on_improve``, the host-side

@@ -3,17 +3,18 @@
 Port of ``turbo_tpu/solver/engine.py``: D dives advance in lockstep,
 one search node per ``step``, on (D, ·) tensors on one device.
 
-On a CUDA state a step is seven kernel launches and no host read:
-K6 ``step_pre`` (promote, objective tighten) -> propagation (K1
-fixpoint; by ``fp_mode`` and ``fp_layout`` its fixed-sweeps or
-transposed entry, or K8 WAC1) -> K2
-classify -> K3 select -> K6 ``step_post`` (the per-lane rest of the
-step) -> K7 ``scan`` (the cross-lane prefix counts of the refill and the
-solution ring) -> K7 ``copy`` (refill rows, ring rows), all updating the
-state in place. ``run_steps`` enqueues a whole chunk of steps: each
-kernel returns at once when the device flag ``live`` says every lane
-was IDLE, as the JAX ``while_loop`` stops, and a device counter counts
-the steps that ran. On a CPU state ``step_plain`` runs the same step as
+On a CUDA state a step is five kernel launches and no host read:
+K6 ``step.head`` (the previous step's refill and ring rows, promote,
+objective tighten) -> propagation (K1 fixpoint; by ``fp_mode`` and
+``fp_layout`` its fixed-sweeps or transposed entry, or K8 WAC1) -> K2
+classify -> K3 select -> K6 ``step.post`` (the per-lane rest of the
+step, then in each shard's last block the cross-lane prefix counts of
+the refill and the solution ring), all updating the state in place.
+``run_steps`` enqueues a whole chunk of n steps as 5n + 2 launches (K7
+``step_tail.live`` before them, K7 ``step_tail.copy`` with the last
+step's rows after them): each kernel returns at once when the device
+flag ``live`` says every lane was IDLE, as the JAX ``while_loop``
+stops, and a device counter counts the steps that ran. On a CPU state ``step_plain`` runs the same step as
 plain torch ops; it is the specification the kernels are held to.
 
 With ``use_table`` (the default) the EPS subproblem roots come from a
@@ -252,7 +253,7 @@ class BatchedSolver:
         ``num_shards``: the EPS shards the subproblem space is split over
         (``parallel/mesh.py``); shard s's state comes from
         ``init_state(s)``, and the step takes the shards' states
-        concatenated (see ``step_tail_plain``)."""
+        concatenated (see ``shard_scan_plain``)."""
         self.tnf = tnf
         self.cfg = config
         self.num_shards = num_shards
@@ -501,8 +502,8 @@ class BatchedSolver:
 
     def step_plain(self, st: SearchState, cap: int = 0):
         """The step as plain torch ops (``turbo_tpu/solver/engine.py:
-        801-1117``), on any device and with no host read, in the three
-        parts that K6 and K7 replace around K1-K3. Returns (state, live):
+        801-1117``), on any device and with no host read, in the parts
+        that K6 and K7 replace around K1-K3. Returns (state, live):
         ``live`` (0-dim bool) is whether some lane was not IDLE; when
         none was, the state is returned unchanged."""
         live = (st.phase != IDLE).any()
@@ -513,7 +514,8 @@ class BatchedSolver:
         sel = self._select(lb, ub, strat0)
         new, flags = self.step_post_plain(st, phase, strat0, lb, ub, iters,
                                           unconv, bot, ent, sel)
-        new = self.step_tail_plain(st, new, *flags)
+        new = self.lane_copy_plain(st, new, flags[0],
+                                   *self.shard_scan_plain(st, new, *flags))
         # With every lane IDLE nothing may change (the JAX loop stops);
         # the stacks were rewritten with their own values then.
         new = {k: torch.where(live, v, getattr(st, k))
@@ -536,8 +538,9 @@ class BatchedSolver:
         return k.fixpoint(lb, ub, cap)
 
     def step_pre_plain(self, st: SearchState):
-        """K6 ``step.pre``: promote finished dives, the strategy cursor,
-        and (I) the objective tighten from the incumbent. The batch min
+        """K6 ``step.head`` after the previous step's rows: promote
+        finished dives, the strategy cursor, and (I) the objective
+        tighten from the incumbent. The batch min
         runs over every shard's lanes, so it is the JAX mesh's pmin
         (``ext_bound`` is the same on every lane). Returns (phase,
         strat0, ub)."""
@@ -558,10 +561,13 @@ class BatchedSolver:
         return phase, strat0, ub
 
     def step_post_plain(self, st, phase, strat0, lb, ub, iters, unconv, bot,
-                        ent, sel):
-        """K6 ``step.post``: everything after K1-K3 that reads or writes
-        one lane. The stacks are updated in place. Returns (fields, (want,
-        impr, dleaf, nxt)): the new per-lane fields and K7's inputs."""
+                        ent, sel, work=None):
+        """K6 ``step.post`` up to the shard scan: everything after K1-K3
+        that reads or writes one lane. The stacks are updated in place.
+        Returns (fields, (want, impr, dleaf, nxt)): the new per-lane
+        fields and the scan's inputs. ``work``: a dict that gets the
+        lane masks of the step's row work (no_split, snap, solve_br,
+        impr, restore) and the decisions each restore replays (t)."""
         MAXD = self.cfg.max_depth
         dp = self.dp
         obj = dp.obj
@@ -696,6 +702,9 @@ class BatchedSolver:
         skipped_sub = st.skipped_sub + where(dleaf_left, nxt - st.subp - 1, 0)
         want = dleaf | done_sub
         solved_sub = st.solved_sub + (done_sub | dleaf_left).to(I32)
+        if work is not None:
+            work.update(no_split=no_split, snap=snap, solve_br=solve_br,
+                        impr=impr, restore=restore, t=tr)
         fields = dict(
             lb=lb, ub=ub, root_lb=root_lb, root_ub=root_ub,
             best_lb=best_lb, best_ub=best_ub, best_bound=best_bound,
@@ -706,11 +715,12 @@ class BatchedSolver:
             skipped_sub=skipped_sub)
         return fields, (want, impr, dleaf, nxt)
 
-    def step_tail_plain(self, st, f, want, impr, dleaf, nxt):
-        """K7 ``step_tail``: (IX) the refill of finished lanes from the
-        subproblem counter, and the solution-ring append. ``f``: the new
-        fields of ``step_post_plain``, updated and returned with
-        next_sub, subp, sol_ring and sol_w.
+    def shard_scan_plain(self, st, f, want, impr, dleaf, nxt):
+        """(IX) The refill counter and the ring slots of finished lanes:
+        the shard scan in K6 ``step.post``'s last block of a shard.
+        ``f``: the new fields of ``step_post_plain``; next_sub and sol_w
+        go into it. Returns (newidx, refill, ring row of each lane: G*R,
+        a spare row, for none).
 
         A state of G*D lanes is G EPS shards (``parallel/mesh.py``),
         laid out as the JAX mesh's global state: shard g owns lanes
@@ -737,10 +747,37 @@ class BatchedSolver:
         next_sub = torch.minimum(next_sub + want_g.sum(dim=1, dtype=I32),
                                  shard_limit)
         f["next_sub"] = per_lane(next_sub).clone()
+        R = self.cfg.sol_ring_size
+        ring_row = None
+        if R > 0:
+            # The accepted stores go in lane order to slot (w0 + rank)
+            # mod R of the shard's ring. Of more than R writers in one
+            # step only the last R land, so every slot has one writer
+            # (the last); the others go to a spare row G*R.
+            cnt = torch.cumsum(impr.view(G, D).to(I32), dim=1, dtype=I32)
+            total = cnt[:, -1]
+            cnt = cnt.view(-1)
+            keep = impr & (per_lane(total) - cnt < R)
+            w0 = per_lane(st.sol_w.view(G, D)[:, 0])
+            ridx = torch.remainder(w0 + cnt - 1, R) + shard * R
+            ring_row = where(keep, ridx, G * R)
+            f["sol_w"] = st.sol_w + per_lane(total)
+        return newidx, refill, ring_row
+
+    def lane_copy_plain(self, st, f, want, newidx, refill, ring_row):
+        """The rows after the shard scan, which the next K6
+        ``step.head`` (K7 ``step_tail.copy`` after a chunk's last step)
+        writes: the refill of each finishing lane and the ring row of
+        each accepted solution (the incumbent row just written). Updates
+        and returns ``f``."""
+        D = self.cfg.num_dives
+        G = want.shape[0] // D
+        where = torch.where
         if self.use_table:
             # Table refill: the leaf row of the lane's shard, straight
             # into SOLVE phase; subp carries the leaf's real bit-path
             # (the tail resplit reads it).
+            shard = torch.arange(G * D, dtype=I32, device=want.device) // D
             n_pad = st.tab_lb.shape[0] // G
             idxc = newidx.clamp(0, n_pad - 1) + shard * n_pad
             f["phase"] = where(want, where(refill, SOLVE, IDLE),
@@ -762,23 +799,10 @@ class BatchedSolver:
             f["remaining"] = where(refill, st.kpow, f["remaining"])
             f["subp"] = where(refill, newidx, st.subp)
         f["depth"] = where(refill, 0, f["depth"])
-        R = self.cfg.sol_ring_size
-        if R > 0:
-            # Append the accepted stores (the incumbent rows just written)
-            # in lane order: slot (w0 + rank) mod R of the shard's ring.
-            # Of more than R writers in one step only the last R land, so
-            # every slot has one writer (the last); the others go to a
-            # spare row G*R.
-            cnt = torch.cumsum(impr.view(G, D).to(I32), dim=1, dtype=I32)
-            total = cnt[:, -1]
-            cnt = cnt.view(-1)
-            keep = impr & (per_lane(total) - cnt < R)
-            w0 = per_lane(st.sol_w.view(G, D)[:, 0])
-            ridx = torch.remainder(w0 + cnt - 1, R) + shard * R
+        if ring_row is not None:
             ring = torch.cat([st.sol_ring, st.sol_ring[:1]])
-            ring.index_copy_(0, where(keep, ridx, G * R).long(), f["best_lb"])
-            f["sol_ring"] = ring[:G * R]
-            f["sol_w"] = st.sol_w + per_lane(total)
+            ring.index_copy_(0, ring_row.long(), f["best_lb"])
+            f["sol_ring"] = ring[:st.sol_ring.shape[0]]
         return f
 
     # -- EPS tail: resplit and stack steal (host numpy surgery) ---------

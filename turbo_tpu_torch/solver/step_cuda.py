@@ -1,32 +1,41 @@
-"""The search step on the card: seven kernel launches, no host read.
+"""The search step on the card: five kernel launches, no host read.
 
 A step of ``BatchedSolver.step_plain`` on a CUDA state, in place:
 
-    K6 step.pre -> propagation -> K2 classify -> K3 select
-    -> K6 step.post -> K7 step_tail.scan -> K7 step_tail.copy
+    K6 step.head -> propagation -> K2 classify -> K3 select -> K6 step.post
 
-The propagation launch is K1 (``fp_mode="fixpoint"``, layout ``dv``), its
-fixed-sweeps entry (``"fixed"``), K8 (``"wac1"``), or, for layout
-``vd``, K1's transposed entry between two transposing copies into and
-out of (V, D) planes kept in the ``Workspace``; each runs in place and
-takes the step's ``live`` flag.
+K6 head does the previous step's refill and ring rows, then this step's
+promote and objective tighten; K6 post does the rest of the step lane by
+lane, and the last block of each EPS shard to finish runs the shard's
+scan (ranks of the finishing lanes and of the solutions, next_sub,
+sol_w), the last shard publishing the next step's live flag and the
+incumbent min that the next head reads. The propagation launch is K1
+(``fp_mode="fixpoint"``, layout ``dv``), its fixed-sweeps entry
+(``"fixed"``), K8 (``"wac1"``), or, for layout ``vd``, K1's transposed
+entry between two transposing copies into and out of (V, D) planes kept
+in the ``Workspace``; each runs in place and takes the step's ``live``
+flag.
 
-``run`` enqueues a chunk of n steps after one ``step_tail.live`` launch
-that sets the device flag ``live`` (some lane not IDLE) and zeroes the
-device step counter. Each step reads one of two flag words and its scan
-writes the other, so every kernel of a step after the batch went IDLE
-returns at once, as the JAX ``while_loop`` of ``make_step_budget``
-(``turbo_tpu/solver/engine.py:1316-1377``) stops. The host reads
-nothing: ``solve`` reads the counter with the chunk's other scalars.
+``run`` enqueues a chunk of n steps as 5n + 2 launches: K7
+``step_tail.live`` (the device flag ``live``: some lane not IDLE; the
+step counter to 0; the incumbent min), the n steps, and K7
+``step_tail.copy`` with the last step's refill and ring rows, so the
+state is complete when the host reads it. Each step reads one of two
+flag words and its post writes the other, so every kernel of a step
+after the batch went IDLE returns at once, as the JAX ``while_loop`` of
+``make_step_budget`` (``turbo_tpu/solver/engine.py:1316-1377``) stops.
+The host reads nothing: ``solve`` reads the counter with the chunk's
+other scalars.
 
-The scratch of the step (K1-K3's outputs, the flags K6 hands to K7) is
-allocated once per solver (``Workspace``); the state's tensors are
-passed to the kernels as pointers in one ``StepView``.
+The scratch of the step (K1-K3's outputs, the flags K6 post hands to the
+next head, the tickets of the shard scan) is allocated once per solver
+(``Workspace``); the state's tensors are passed to the kernels as
+pointers in one ``StepView``.
 
 A chunk whose launches repeat those of the chunk before (the same step
 count, cap and StepView, i.e. the same state tensors) is captured once
 into a CUDA graph and replayed from then on: one launch per chunk in
-place of seven per step. The graph bakes in pointers only, so a replay
+place of five per step. The graph bakes in pointers only, so a replay
 is right whenever the StepView's bytes match. The capture launches
 nothing, so it counts no launch; each replay adds the captured launches
 to the wrappers' counts.
@@ -73,8 +82,13 @@ class Workspace:
         live = torch.zeros(2, dtype=I32, device=dev)
         self.live = (live[0:1], live[1:2])
         self.steps = torch.zeros(1, dtype=I32, device=dev)
-        # K7 scan's arrival ticket and live word across its shard blocks.
-        self.tail_sync = torch.zeros(2, dtype=I32, device=dev)
+        # K6 post's tickets (csrc/step.cuh): shards scanned, the live
+        # word, the min accumulator (INT_MAX between launches), then one
+        # lane ticket per shard; and the incumbent min for K6 head.
+        S = D // solver.cfg.num_dives
+        self.tail_sync = torch.zeros(3 + S, dtype=I32, device=dev)
+        self.tail_sync[2] = torch.iinfo(I32).max
+        self.bmin = torch.zeros(1, dtype=I32, device=dev)
         self.graphs = {}     # (n, cap, StepView bytes) -> (graph, counts)
         self.last_key = None
         self.capture_stream = None
@@ -129,7 +143,7 @@ def view(solver, st, ws):
                     ("dleaf", ws.dleaf), ("nxt", ws.nxt),
                     ("newidx", ws.newidx), ("havework", ws.havework),
                     ("ridx", ws.ridx), ("steps", ws.steps),
-                    ("tail_sync", ws.tail_sync)):
+                    ("tail_sync", ws.tail_sync), ("bmin", ws.bmin)):
         ptr[name] = t.data_ptr()
     S = shards(solver, st)
     if st.tab_lb.shape[0] % S:
@@ -224,18 +238,21 @@ def propagate(solver, st, cap, live):
 
 
 def _enqueue(solver, st, sv, n, cap):
-    """Launch the live flag and n steps on the current stream."""
+    """Launch the live flag, n steps and the closing copy on the current
+    stream: 5n + 2 launches."""
     from .. import kernels
     ws = solver._ws
     dev = st.lb.device
     kp = solver.kernels.kernel_plan
-    kernels.step_tail.live(st.phase, ws.live[0], ws.steps)
+    kernels.step_tail.live(sv, ws.live[0], dev)
+    prev = None
     for i in range(n):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
-        kernels.step.pre(sv, cur, dev)
+        kernels.step.head(sv, prev, cur, dev)
         propagate(solver, st, cap, cur)
         kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
         kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
-        kernels.step.post(sv, cur, dev, kp.smem_limit)
-        kernels.step_tail.scan(sv, cur, nxt, dev)
-        kernels.step_tail.copy(sv, cur, dev)
+        kernels.step.post(sv, cur, nxt, dev, kp.smem_limit)
+        prev = cur
+    if prev is not None:
+        kernels.step_tail.copy(sv, prev, dev)
