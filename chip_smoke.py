@@ -10,7 +10,10 @@ exits non-zero):
    ``turbo_tpu_torch/kernels/_build``;
 3. each kernel against its plain torch version on the same CUDA tensors,
    every output exactly equal (tolerance 0: all integer), with the median
-   time of both: K1-K3 on 4 seeded random models at D=1024 with randomly
+   time of both: K1-K3 and K1's step entry (K1, then K2 and K3 in the
+   same blocks: its 14 outputs against the plain fixpoint, classify and
+   select on the plain fixpoint's result, caps 2 and 10000, shared- and
+   global-memory paths) on 4 seeded random models at D=1024 with randomly
    narrowed stores and stores fixed at a solution, and on golomb(8) at
    D=1024 and golomb(12) at D=512; K4 (embed and table refill) and K5 (open-branch count) on
    random stores, table rows, masks and stacks at golomb(12)'s shapes
@@ -20,8 +23,10 @@ exits non-zero):
    K1's other entries (2 and 5 fixed sweeps; the fixpoint on transposed
    (V, D) planes at caps 2 and 10000), each on the shared-memory and the
    global-memory path (K1's fixpoint entry at caps 2 and 10000 on both).
-   K1's ``-Xptxas -v`` lines (registers, shared memory, spills) are
-   printed. The golomb(12) times go into the JSON line;
+   The ``-Xptxas -v`` lines (registers, shared memory, spills) of K1 and
+   of its step entry, their resident blocks per SM at golomb(12) and the
+   step entry's epilogue bound are printed. The golomb(12) times go into
+   the JSON line;
 3b. K6 and K7 (the step's own kernels) against the plain step on the
    same CUDA state, every SearchState field exactly equal after 1, 7 and
    40 steps, and the kernels' step counter equal to the plain steps
@@ -33,8 +38,10 @@ exits non-zero):
    each golomb(12) state, the time of each kernel entry inside real
    steps (CUDA events between the launches) against the plain step's
    parts (with the lanes whose rows each step moves, for the bounds),
-   and the fixpoint iterations per node; then the K1 step
-   again from the same state with K1 built with ``-DTT_K1_NO_SKIP`` (no
+   and the fixpoint iterations per node; then, from the same state, K1's
+   step entry against K1's fixpoint entry followed by K2 and K3 as
+   launches of their own, in turns (step entry, alone, alone, step
+   entry), and the K1 step with K1 built with ``-DTT_K1_NO_SKIP`` (no
    skip of unmoved rules) and as built, in turns (on, off, off, on);
 3d. the step over S=4 EPS shards, lane groups of one state (K6 over
    every lane, the shard scan in each shard's last K6 post block:
@@ -47,8 +54,9 @@ exits non-zero):
    3b's S=1;
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
-   sync inside a chunk fails the phase; so do more than 5.2 launches a
-   step: 5 a step and 2 a chunk), launches per step, wall time
+   sync inside a chunk fails the phase; so do more than 3.2 launches a
+   step: 3 a step and 2 a chunk, or 5.2 under ``wac1``, ``fixed`` and
+   ``vd``, where K2 and K3 run on their own), launches per step, wall time
    per step, and from ``torch.profiler`` the device kernels and busy
    time per step, for the kernel route and for the plain step; then the
    same chunk captured once in a CUDA graph and replayed; the same loop
@@ -128,19 +136,24 @@ exits non-zero):
    per-host checkpoints, closes at 44;
 11. the launch counts of each path driven in phases 4c-13, each set to
    0 just before the path and read just after it: the seven kernels of
-   the default search (and every entry point of K4, K6 and K7) on the
-   main path (6) and on the drain case (8), K1-K3, K6 and K7 on the
-   table-off path (7) and on ``-a``, K4 too on ``-i``; K8 in place of K1
-   on 10b, K1's fixed-sweeps and transposed entries on 10c, K1 and K2 on
-   the hybrid paths, K1-K3, K6 and K7 in each process of 13b (summed
-   over both processes into the path ``hosts2``).
+   the default search (and every entry point of K4, K6 and K7, and K1's
+   step entry) on the main path (6) and on the drain case (8), on the
+   main path and the table-off path K1's step entry once a step and K2
+   and K3 only in the table build (once a level); K1 with its step
+   entry, K6 and K7 on the table-off path (7) and on ``-a``, K2-K4 too
+   on ``-i``; K8 in place of K1, with K2 and K3, on 10b, K1's
+   fixed-sweeps and transposed entries with K2 and K3 on 10c, K1 and K2
+   on the hybrid paths, K1 with its step entry, K6 and K7 in each
+   process of 13b (summed over both processes into the path
+   ``hosts2``).
 
 It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
 67 T/s, at the timed shapes and this run's data; ``launches`` is the
 count on the main path, or on the kernel's own path (``path``) where the
-default search does not run it; each entry of K6 and K7 has a row of
-its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
+default search does not run it; each entry of K6 and K7, and K1's step
+entry (with its epilogue's own bound and its blocks per SM), has a row
+of its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
 reads K6 post's launches on the ``-arch multi`` golomb(12) path and its
 times from 3d; ``transports`` holds ``dcn_allgather``, a host transport and
 not a kernel, with its times from 13b), the card's name and power
@@ -335,6 +348,8 @@ def phase_kernels(torch, dev):
     from turbo_tpu_torch.kernels import build as kbuild
     log("  K1 (-Xptxas -v): " + " | ".join(
         ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
+    log("  K1's step entry (-Xptxas -v): " + " | ".join(
+        ptxas_lines(kbuild.build_log, "fixpoint_step_kernel")))
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.host.solver import oracle
@@ -342,8 +357,9 @@ def phase_kernels(torch, dev):
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
 
-    errs = dict.fromkeys(("fixpoint", "classify", "select", "wac1",
-                          "fixpoint.fixed_sweeps", "fixpoint.transposed"), 0)
+    errs = dict.fromkeys(("fixpoint", "fixpoint.step", "classify", "select",
+                          "wac1", "fixpoint.fixed_sweeps",
+                          "fixpoint.transposed"), 0)
     times = {}
     sweeps = {}
     # Exactness on 4 random models at D=1024; exactness and times at
@@ -402,12 +418,23 @@ def phase_kernels(torch, dev):
             keep = (~b)[:, None].to(res[0].dtype)
             return (res[0] * keep, res[1] * keep, res[2], res[3], b)
 
+        def step_plain(cap):
+            # K1's step entry: the fixpoint, then K2 and K3 on its result.
+            w = pk.fixpoint_plain(lb, ub, cap)
+            return (w + pk.classify_plain(w[0], w[1])
+                    + s._select_plain(w[0], w[1], strat))
+
         # A 4th element keys the plain result (it does not depend on the
         # memory path, so it is computed once for both); a 5th is applied
         # to both results before they are compared, outside the timing.
         memo = {}
         for smem in (True, False):
             for cap in (10000, 2):
+                cases.append((
+                    "fixpoint.step",
+                    lambda c=cap, m=smem: kernels.fixpoint.step(
+                        kp, lb, ub, c, strat, smem=m),
+                    lambda c=cap: step_plain(c), ("s", cap)))
                 cases.append((
                     "fixpoint.transposed",
                     lambda c=cap, m=smem: kernels.fixpoint.transposed(
@@ -469,7 +496,7 @@ def phase_kernels(torch, dev):
         n_ent = int(pk.all_entailed(fl, fu).sum())
         log(f"  {label}: D={D} V={s.dp.V} P={s.dp.P} lin_fit32="
             f"{[b.fit32 for b in s.dp.lin]} bot lanes={n_bot} "
-            f"entailed lanes={n_ent}: fixpoint (3 entries)/classify/select/"
+            f"entailed lanes={n_ent}: fixpoint (4 entries)/classify/select/"
             f"wac1 exact; sweeps over all lanes: AC-1 "
             f"{sweeps[label, 'fixpoint']}, WAC1 outer {sweeps[label, 'wac1']}"
             f"; ms " + ", ".join(f"{k} {times[label, k][0]:.4f} (plain "
@@ -482,8 +509,33 @@ def phase_kernels(torch, dev):
     tabs = plan_bytes(kp)
     fp_bytes = 2 * planes + tabs + 5 * D
     g12 = "golomb(12)"
+    terms = sum(b.coef.numel() for b in dp.lin)
+    cls_ops = D * (10 * dp.P + 4 * terms + dp.V)
+    sel_ops = 6 * D * sum(int(t.numel()) for t in dp.strat_ids)
+    # K1's step entry: K1's bytes and operations, then K2's and K3's on
+    # the store in shared memory: the cursors read, bot, ent, found and
+    # seven int32 outputs written (35 bytes a dive), and the tables the
+    # epilogue alone reads (its own bound).
+    epi_bytes = sum(kp.tensors[n].numel() * kp.tensors[n].element_size()
+                    for n in EPILOGUE_TABLES) + 35 * D
+    epi_bound = bound(epi_bytes, cls_ops + sel_ops)
+    blocks = {e: kernels.fixpoint.blocks_per_sm(kp, step=e == "step")
+              for e in ("fixpoint", "step")}
+    ROW_EXTRA["fixpoint.step"] = {"epilogue_bound_ms": epi_bound[0],
+                                  "epilogue_bound_by": epi_bound[1],
+                                  "blocks_per_sm": blocks["step"]}
+    log(f"  golomb(12), D={D}: K1's step entry "
+        f"{times[g12, 'fixpoint.step'][0]:.4f} ms against K1 "
+        f"{times[g12, 'fixpoint'][0]:.4f}, K2 "
+        f"{times[g12, 'classify'][0]:.4f}, K3 {times[g12, 'select'][0]:.4f}"
+        f"; the epilogue's own bound {epi_bound[0]:.5f} ms ({epi_bound[1]}"
+        f", {epi_bytes} bytes); resident blocks per SM: K1 "
+        f"{blocks['fixpoint']}, K1's step entry {blocks['step']}")
     bounds = {
         "fixpoint": bound(fp_bytes, sweeps[g12, "fixpoint"] * sweep_ops(dp)),
+        "fixpoint.step": bound(
+            fp_bytes + 35 * D, sweeps[g12, "fixpoint.step"] * sweep_ops(dp)
+            + cls_ops + sel_ops),
         "fixpoint.transposed": bound(
             fp_bytes, sweeps[g12, "fixpoint.transposed"] * sweep_ops(dp)),
         "fixpoint.fixed_sweeps": bound(
@@ -492,15 +544,20 @@ def phase_kernels(torch, dev):
         # iterations beyond a group's first are not counted (the kernel
         # does not return them), so this stays a lower bound.
         "wac1": bound(fp_bytes, sweeps[g12, "wac1"] * sweep_ops(dp)),
-        "classify": bound(planes + tabs + 2 * D,
-                          D * (10 * dp.P + 4 * sum(b.coef.numel()
-                                                   for b in dp.lin) + dp.V)),
-        "select": bound(planes + 9 * 4 * D,
-                        6 * D * sum(int(t.numel()) for t in dp.strat_ids)),
+        "classify": bound(planes + tabs + 2 * D, cls_ops),
+        "select": bound(planes + 9 * 4 * D, sel_ops),
     }
     kres = {k: (errs[k],) + times["golomb(12)", k] + bounds[k] for k in errs}
     kres.update(phase_table_kernels(torch, dev, s, tnf))
     return kres
+
+
+# The plan tables K2's and K3's bodies read (the step entry's epilogue).
+EPILOGUE_TABLES = ("tnf4", "e_idx", "e_res", "e_len", "e_tab", "m_x", "m_b",
+                   "m_base", "m_cnt", "l_head", "l_term", "l_rhs", "s_off",
+                   "s_ids", "s_vo", "s_valo")
+# Keys beyond the contract's that a kernel's row of the JSON line adds.
+ROW_EXTRA = {}
 
 
 def exact(name, got, want):
@@ -690,9 +747,10 @@ def phase_step_kernels(torch, dev):
     out = None
     for label, s, st, cap in big:
         st0 = clone_state(st)
-        res = time_step_parts(torch, label, s, st, cap)
+        res = time_step_parts(torch, label, s, st, cap)[0]
         if out is None:  # the JSON line's K6 and K7: the step with K1
             out = res
+            fused_turns(torch, label, s, st0, cap)
             k1_turns(torch, label, s, st0, cap)
     return out
 
@@ -726,7 +784,7 @@ def phase_sharded_step_kernels(torch, dev, single):
         st = steps_equal(label, ms.solver, ms.init_state(), cap)
         if first is None:
             first = (label, ms.solver, st, cap)
-    res = time_step_parts(torch, *first)
+    res = time_step_parts(torch, *first)[0]
     k, k1 = res["step+step_tail"], single["step+step_tail"]
     log(f"  K6 + K7 per step, golomb(12), D=512 a shard: S={SHARDS} "
         f"{k[1]:.4f} ms (post {res['step.post'][1]:.4f}; plain {k[2]:.4f}, "
@@ -763,15 +821,19 @@ def k1_build(no_skip):
         yield
         return
     with kbuild.k1_without_skip():
-        log("  -DTT_K1_NO_SKIP: K1 (-Xptxas -v): " + " | ".join(
-            ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
+        for what, kernel in (("K1", "fixpoint_kernel"),
+                             ("K1's step entry", "fixpoint_step_kernel")):
+            log(f"  -DTT_K1_NO_SKIP: {what} (-Xptxas -v): " + " | ".join(
+                ptxas_lines(kbuild.build_log, kernel)))
         yield
 
 
-def time_step_parts(torch, label, s, st, cap, steps=20):
+def time_step_parts(torch, label, s, st, cap, steps=20, alone=False):
     """Each kernel entry's time inside one chunk of ``steps`` real steps
     of ``st``, launched as ``solver/step_cuda.py`` launches them (K7
-    live, per step K6 head, propagation, K2, K3, K6 post, then K7 copy):
+    live, per step K6 head, K1's step entry or the propagation, K2 and
+    K3, K6 post, then K7 copy; ``alone``: K1's fixpoint entry, K2 and K3
+    as launches of their own in place of the step entry):
     CUDA events between the launches, all enqueued before one
     synchronize (so the card does not wait on the host between them);
     and the plain step's parts (``step_pre_plain``, ``step_post_plain``,
@@ -780,7 +842,8 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
     bounds. The propagation launch is the configuration's (K1, one of
     its entries with the ``vd`` copies, or K8). Returns the kres entries
     (max abs err, ms, plain ms, bound ms, bound by) of K6 and K7 per
-    step and of each entry per launch."""
+    step and of each entry per launch, and the ms per step of each launch
+    of the step by name."""
     import dataclasses
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.solver import step_cuda
@@ -788,12 +851,21 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
     ws, kp = s._ws, s.kernels.kernel_plan
     sv = step_cuda.view(s, st, ws)
     plain_st = clone_state(st)
-    names = ("step.head", "propagation", "classify", "select", "step.post")
+    fused = step_cuda.fused(s.cfg) and not alone
+    names = (("step.head", "fixpoint.step", "step.post") if fused else
+             ("step.head", "propagation", "classify", "select", "step.post"))
+
+    def propagate(cur):
+        if alone and step_cuda.fused(s.cfg):  # K1's fixpoint entry
+            kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur, out=(
+                st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch))
+        else:
+            step_cuda.propagate(s, st, cap, cur)
 
     def event():
         return torch.cuda.Event(enable_timing=True)
 
-    ev = [[event() for _ in range(6)] for _ in range(steps)]
+    ev = [[event() for _ in range(len(names) + 1)] for _ in range(steps)]
     ends = [event() for _ in range(4)]
     nodes0, fpit0 = int(st.nodes.long().sum()), int(st.fpit.long().sum())
     ends[0].record()
@@ -802,17 +874,19 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
     prev = None
     for i in range(steps):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
+        parts = [lambda: kernels.step.head(sv, prev, cur, dev),
+                 lambda: propagate(cur)]
+        if not fused:
+            parts += [lambda: kernels.classify(kp, st.lb, st.ub, live=cur,
+                                               out=(ws.bot, ws.ent)),
+                      lambda: kernels.select(kp, st.lb, st.ub, ws.strat0,
+                                             live=cur, out=ws.sel)]
+        parts.append(lambda: kernels.step.post(sv, cur, nxt, dev,
+                                               kp.smem_limit))
         ev[i][0].record()
-        kernels.step.head(sv, prev, cur, dev)
-        ev[i][1].record()
-        step_cuda.propagate(s, st, cap, cur)
-        ev[i][2].record()
-        kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
-        ev[i][3].record()
-        kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
-        ev[i][4].record()
-        kernels.step.post(sv, cur, nxt, dev, kp.smem_limit)
-        ev[i][5].record()
+        for j, part in enumerate(parts):
+            part()
+            ev[i][j + 1].record()
         prev = cur
     ends[2].record()
     kernels.step_tail.copy(sv, prev, dev)
@@ -914,7 +988,29 @@ def time_step_parts(torch, label, s, st, cap, steps=20):
         f"{plain['scan']:.4f}, copy {plain['copy']:.4f}, live "
         f"{plain_live:.4f}; bound ms "
         + ", ".join(f"{k} {v[3]:.5f} ({v[4]})" for k, v in res.items()))
-    return res
+    return res, {n: acc[n] for n in names}
+
+
+def fused_turns(torch, label, s, st, cap):
+    """K1's step entry against K1's fixpoint entry followed by K2 and K3
+    as launches of their own, each inside 20 real steps from the same
+    state ``st``, in turns (step entry, alone, alone, step entry): the
+    epilogue's cost in the step entry against the separate K2 + K3."""
+    runs = []
+    for alone in (False, True, True, False):
+        name = "K1, K2, K3 alone" if alone else "K1's step entry"
+        runs.append(time_step_parts(torch, f"{label}, {name}", s,
+                                    clone_state(st), cap, alone=alone)[1])
+    step = [r["fixpoint.step"] for r in runs if "fixpoint.step" in r]
+    k1 = [r["propagation"] for r in runs if "propagation" in r]
+    k23 = [r["classify"] + r["select"] for r in runs if "classify" in r]
+    mean = lambda xs: sum(xs) / len(xs)
+    log(f"  in turns (step entry, alone, alone, step entry), ms per step: "
+        f"K1's step entry {', '.join(f'{x:.4f}' for x in step)}; K1 alone "
+        f"{', '.join(f'{x:.4f}' for x in k1)}; K2 + K3 alone "
+        f"{', '.join(f'{x:.4f}' for x in k23)}; the epilogue in the step "
+        f"entry {mean(step) - mean(k1):.4f} against K2 + K3 "
+        f"{mean(k23):.4f}")
 
 
 def profile_steps(torch, fn, steps):
@@ -933,9 +1029,10 @@ def profile_steps(torch, fn, steps):
     return len(dev_events) / steps, busy_us / 1e3 / steps
 
 
-# 3c: the most launches a step of a 16-step chunk may take (5.125 with
-# K7 live and K7 copy once a chunk).
-MAX_LAUNCHES_PER_STEP = 5.2
+# 3c: the most launches a step of a 16-step chunk may take, by whether
+# K1's step entry classifies and selects (3.125 with K7 live and K7 copy
+# once a chunk) or K2 and K3 run as launches of their own (5.125).
+MAX_LAUNCHES_PER_STEP = {True: 3.2, False: 5.2}
 
 
 def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16,
@@ -987,10 +1084,12 @@ def _step_loop(torch, dev, label, kw, full, chunk, cap):
         log(f"    {route}: {n} steps, {per / chunk:.3f} launches of the "
             f"port's kernels per step, wall {wall / n * 1e3:.3f} ms per step "
             f"(enqueue {enq / n * 1e3:.3f}); no host sync")
-        # 5 launches a step and 2 a chunk (solver/step_cuda.py).
-        if per / chunk > MAX_LAUNCHES_PER_STEP:
+        # 3 launches a step (5 unless fused) and 2 a chunk
+        # (solver/step_cuda.py).
+        most = MAX_LAUNCHES_PER_STEP[step_cuda.fused(s.cfg)]
+        if per / chunk > most:
             fail(f"{label}, {route}: {per / chunk:.3f} launches per step "
-                 f"(at most {MAX_LAUNCHES_PER_STEP})")
+                 f"(at most {most})")
         out.setdefault(route, []).append(wall / n * 1e3)
     routes = (("kernels one by one", False), ("CUDA graph", True))
     for route, graph in routes if full else routes[1:]:
@@ -1065,9 +1164,23 @@ def counted(label, fn, required=()):
     return counts
 
 
-STEP_KERNELS = ("fixpoint", "classify", "select", "step", "step_tail",
+def fused_only(label, c):
+    """Fails unless every step of the path ran K1's step entry and K2 and
+    K3 ran only in the table build (once a level each). Returns ``c``."""
+    if c["fixpoint.step"] != c["step.head"] or not (
+            c["classify"] == c["select"] == c["embed.embed"]):
+        fail(f"{label}: K1's step entry {c['fixpoint.step']} for "
+             f"{c['step.head']} steps; K2 {c['classify']}, K3 "
+             f"{c['select']} for {c['embed.embed']} table levels")
+    return c
+
+
+# The default step's kernels (K2 and K3 run inside K1's step entry),
+# and the table build's (K4, then K1, K2 and K3 a level).
+STEP_KERNELS = ("fixpoint", "fixpoint.step", "step", "step_tail",
                 "step.head", "step.post", "step_tail.live", "step_tail.copy")
-TABLE_KERNELS = ("embed", "embed.embed", "embed.table_refill")
+TABLE_KERNELS = ("embed", "embed.embed", "embed.table_refill", "classify",
+                 "select")
 
 
 def api_run(dev, big, tnf, model, seconds, **kw):
@@ -1233,17 +1346,17 @@ def run_path(torch, dev, big=12):
     # The main path: the default CLI at full width, which builds the
     # table, refills from it, drains the range and reaches the steal gate.
     log(f"[6] golomb({big}), default CLI, -or 0, -t 60000")
-    paths[MAIN] = counted(f"the default CLI, golomb({big})", golomb_big,
-                          required=all_kernels)
+    paths[MAIN] = fused_only(MAIN, counted(
+        f"the default CLI, golomb({big})", golomb_big, required=all_kernels))
 
     tnf_big = compile_model(model)
 
     log(f"[7] table-off path: golomb({big}), D=512, solver API, 15 s")
-    paths[f"table off, golomb({big})"] = counted(
+    paths[f"table off, golomb({big})"] = fused_only("table off", counted(
         f"the table-off path, golomb({big})",
         api_run(dev, big, tnf_big, model, 15, use_table=False,
                 fp_cap_auto=False),
-        required=step_kernels)
+        required=step_kernels))
 
     def drain():
         s = BatchedSolver(compile_model(parse_fzn_text(golomb(8))),
@@ -1325,7 +1438,10 @@ def run_option_paths(torch, dev, big=12):
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.instances import GOLOMB_OPT, golomb
     step_kernels, table_kernels = STEP_KERNELS, TABLE_KERNELS
-    rest = tuple(k for k in step_kernels if k != "fixpoint")
+    # The step's kernels besides its propagation launch, where K2 and K3
+    # run as launches of their own.
+    rest = ("classify", "select") + tuple(
+        k for k in step_kernels if not k.startswith("fixpoint"))
     paths = {}
     text = golomb(big)
     model = parse_fzn_text(text)
@@ -2024,7 +2140,8 @@ def main():
                k.name) for k in kernels.KERNELS]
     listed += [(f"{k1.name}.{e}", k1, k1.ENTRY_REPLACES[e], path,
                 f"{k1.name}.{e}")
-               for e, path in (("fixed_sweeps", FIXED), ("transposed", VD))]
+               for e, path in (("step", MAIN), ("fixed_sweeps", FIXED),
+                               ("transposed", VD))]
     # Each entry of K6 and K7 on its own.
     listed += [(f"{k.name}.{e}", k, k.replaces, MAIN, f"{k.name}.{e}")
                for k in (kernels.step, kernels.step_tail) for e in k.ENTRIES]
@@ -2040,7 +2157,8 @@ def main():
          "launches_by_path": {p: c[key] for p, c in paths.items()},
          "max_abs_err": kres[name][0], "ms": kres[name][1],
          "plain_ms": kres[name][2], "bound_ms": kres[name][3],
-         "bound_by": kres[name][4], "library_ms": None}
+         "bound_by": kres[name][4], "library_ms": None,
+         **ROW_EXTRA.get(name, {})}
         for name, k, replaces, path, key in listed], "main_path": MAIN,
         # Not a kernel: the -hosts exchange's transport (PERF.md row 18).
         "transports": [allgather]}))

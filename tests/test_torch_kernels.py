@@ -28,6 +28,7 @@ from turbo_tpu_torch.solver.config import EngineConfig
 from turbo_tpu_torch.solver.engine import BatchedSolver
 
 SUM_CLAMP = 1 << 40
+WARP, BLOCK = 32, 256   # csrc/common.cuh TT_THREADS
 
 
 def w32(x):
@@ -366,70 +367,121 @@ def emulate_wac1(t, lb_row, ub_row, cap, inner_cap):
     return lb, ub, sweeps + 1, m
 
 
-def emulate_classify(t, lb, ub):
+def tnf_ask(t, i, lb, ub):
+    op, x, y, z = t["tnf4"][4 * i:4 * i + 4]  # one int4 load
+    return ask(op, lb[x], ub[x], lb[y], ub[y], lb[z], ub[z])
+
+
+def elem_ask(t, i, lb, ub):
+    T, n = t["T"], int(t["e_len"][i])
+    li = min(max(lb[t["e_idx"][i]], 1), n)
+    ui = min(max(ub[t["e_idx"][i]], 1), n)
+    win = [int(t["e_tab"][i * T + j]) for j in range(T)
+           if li - 1 <= j <= ui - 1 and j < n]
+    lr, ur = lb[t["e_res"][i]], ub[t["e_res"][i]]
+    return (lr == ur and min(win, default=INF) == lr
+            and max(win, default=NINF) == lr)
+
+
+def member_ask(t, i, lb, ub):
+    lx, ux = lb[t["m_x"][i]], ub[t["m_x"][i]]
+    c, width = member_count(t, i, lx, ux), ux - lx + 1
+    return ((lb[t["m_b"][i]] >= 1 and c == width and width > 0)
+            or (ub[t["m_b"][i]] <= 0 and c == 0))
+
+
+def lin_ask(t, r, lb, ub):
+    terms = lin_terms(t, r, lb, ub)
+    smin, smax = sum(a for _, a, _ in terms), sum(b for _, _, b in terms)
+    rhs, is_eq = int(t["l_rhs"][r]), t["l_op"][r] == 1
+    tt, ff = lb[t["l_b"][r]] >= 1, ub[t["l_b"][r]] <= 0
+    ent_t = smin == rhs == smax if is_eq else smax <= rhs
+    ent_f = (rhs < smin or rhs > smax) if is_eq else smin > rhs
+    return (tt and ent_t) or (ff and ent_f)
+
+
+def emulate_classify(t, lb, ub, stats=None):
+    """classify.cuh's ``classify_block``: the bot pass, then each
+    thread's rules in the block's strided order (the TNF rules from
+    ``tnf4``, then the element, membership and linear rows), the threads
+    advancing in lockstep; a thread stops at its own first failure, and
+    every thread at the round after the first failure of any (the
+    shared "failed" word). ``stats`` collects the rules asked
+    (``asked``) out of all (``rules``)."""
     lb, ub = [int(v) for v in lb], [int(v) for v in ub]
     bot = any(l > u for l, u in zip(lb, ub))
-    ok = all(ask(int(t["prop_op"][p]), lb[t["px"][p]], ub[t["px"][p]],
-                 lb[t["py"][p]], ub[t["py"][p]], lb[t["pz"][p]], ub[t["pz"][p]])
-             for p in range(t["P"]))
-    T = t["T"]
-    for i in range(t["E"]):
-        n = int(t["e_len"][i])
-        li = min(max(lb[t["e_idx"][i]], 1), n)
-        ui = min(max(ub[t["e_idx"][i]], 1), n)
-        win = [int(t["e_tab"][i * T + j]) for j in range(T)
-               if li - 1 <= j <= ui - 1 and j < n]
-        lr, ur = lb[t["e_res"][i]], ub[t["e_res"][i]]
-        ok &= lr == ur and min(win, default=INF) == lr and max(win, default=NINF) == lr
-    for i in range(t["M"]):
-        lx, ux = lb[t["m_x"][i]], ub[t["m_x"][i]]
-        c, width = member_count(t, i, lx, ux), ux - lx + 1
-        ok &= ((lb[t["m_b"][i]] >= 1 and c == width and width > 0)
-               or (ub[t["m_b"][i]] <= 0 and c == 0))
-    for r in range(t["L"]):
-        terms = lin_terms(t, r, lb, ub)
-        smin, smax = sum(a for _, a, _ in terms), sum(b for _, _, b in terms)
-        rhs, is_eq = int(t["l_rhs"][r]), t["l_op"][r] == 1
-        tt, ff = lb[t["l_b"][r]] >= 1, ub[t["l_b"][r]] <= 0
-        ent_t = smin == rhs == smax if is_eq else smax <= rhs
-        ent_f = (rhs < smin or rhs > smax) if is_eq else smin > rhs
-        ok &= (tt and ent_t) or (ff and ent_f)
-    return bot, bool(ok)
+    if t["P"] == 0:
+        return bot, True
+    fams = ((t["P"], tnf_ask), (t["E"], elem_ask), (t["M"], member_ask),
+            (t["L"], lin_ask))
+    todo = [[(fn, i) for n, fn in fams for i in range(tid, n, BLOCK)]
+            for tid in range(BLOCK)]
+    ok, failed, asked = [True] * BLOCK, False, 0
+    for k in range(max(len(x) for x in todo)):
+        stop = failed  # the word as this round began
+        for tid in range(BLOCK):
+            if ok[tid] and not stop and k < len(todo[tid]):
+                fn, i = todo[tid][k]
+                ok[tid] = fn(t, i, lb, ub)
+                failed |= not ok[tid]
+                asked += 1
+    if stats is not None:
+        stats["asked"] = stats.get("asked", 0) + asked
+        stats["rules"] = stats.get("rules", 0) + sum(n for n, _ in fams)
+    return bot, all(ok)
 
 
 def emulate_select(t, lb, ub, strat):
+    """select.cuh's ``select_block``: per strategy each thread's least
+    packed (key, position) over its strided positions, the least of each
+    warp, and an OR of "splittable" ends the strategy; warp 0 folds the
+    per-warp minima of the strategy that ends the walk."""
     lb, ub = [int(v) for v in lb], [int(v) for v in ub]
 
-    def argmin(s):
+    def pack(key, pos):
+        return (((key & 0xFFFFFFFF) ^ 0x80000000) << 32) | pos
+
+    def scan(s):
         b, e = t["s_off"][s], t["s_off"][s + 1]
         vo = t["s_vo"][s]
-        best, found = None, False
+        best, found = [2 ** 64 - 1] * BLOCK, False
         for i in range(e - b):
             v = int(t["s_ids"][b + i])
             l, u = lb[v], ub[v]
             ok = l < u and l > NINF and u < INF
             size = w32(u - l)
             key = [i, size, w32(-size), l][vo] if vo < 4 else w32(-u)
-            k = (key if ok else 2 ** 31 - 1, i)
-            best = k if best is None or k < best else best
+            tid = i % BLOCK
+            best[tid] = min(best[tid], pack(key if ok else 2 ** 31 - 1, i))
             found |= ok
-        return best, found
+        return [min(best[w:w + WARP]) for w in range(0, BLOCK, WARP)], found
 
     found, chosen = False, 0
     for s in range(max(int(strat), 0), t["S"]):
-        best, found = argmin(s)
+        wmin, found = scan(s)
         if found:
             chosen = s
             break
     if not found:
-        best, _ = argmin(0)
-    var = int(t["s_ids"][t["s_off"][chosen] + best[1]])
+        wmin, _ = scan(0)
+    pos = min(wmin) & 0xFFFFFFFF  # warp 0's fold
+    var = int(t["s_ids"][t["s_off"][chosen] + pos])
     valo = int(t["s_valo"][chosen])
     lo, hi = lb[var], ub[var]
     mid = w32(lo + (w32(hi - lo) >> 1))
     ch = {0: (lo, lo, w32(lo + 1), hi), 1: (hi, hi, lo, w32(hi - 1)),
           2: (lo, mid, w32(mid + 1), hi), 3: (w32(mid + 1), hi, lo, mid)}
     return (found, var, chosen, valo) + ch.get(valo, (0, 0, 0, 0))
+
+
+def emulate_fixpoint_step(t, lb_row, ub_row, cap, strat, stats=None):
+    """fixpoint.cu's ``tt_fixpoint_step`` for one dive: the fixpoint of
+    ``tt_fixpoint``, then ``classify_block`` and ``select_block`` on the
+    block's final store. Returns the 14 outputs of
+    ``kernels.fixpoint.step``, lanes as lists."""
+    el, eu, ei, em = emulate_fixpoint(t, lb_row, ub_row, cap)
+    return ((el, eu, ei, em) + emulate_classify(t, el, eu, stats)
+            + tuple(emulate_select(t, el, eu, strat)))
 
 
 def _case(seed):
@@ -477,6 +529,67 @@ def test_kernel_emulation_matches_plain(seed):
             assert emulate_classify(t, a[d], b[d]) == (bool(bot[d]), bool(ent[d]))
             want = tuple(int(x[d]) for x in sel)
             assert tuple(int(x) for x in emulate_select(t, a[d], b[d], strat[d])) == want
+
+
+def _fused_case(case):
+    """A _case (seed) or golomb(8) at D=8, with lane 0's cursor past
+    every strategy (the strategy-0 default) and lane 1 bot."""
+    if case == "golomb8":
+        tnf = compile_model(parse_fzn_text(golomb(8)))
+        s = BatchedSolver(tnf, EngineConfig(num_dives=8, max_depth=64,
+                                            use_table=False,
+                                            fp_cap_auto=False), device="cpu")
+        rng = np.random.default_rng(8)
+        plan = s.plan
+        lb = np.tile(plan.lb0, (8, 1)).astype(np.int32)
+        ub = np.tile(plan.ub0, (8, 1)).astype(np.int32)
+        sol = oracle.solve(tnf, timeout_s=60).best_lb
+        keep = ~plan.dropped
+        lb[2, plan.perm[keep]] = ub[2, plan.perm[keep]] = sol[keep]
+        for d in range(3, 8):  # the first marks fixed at random
+            for v in range(d):
+                lb[d, v] = ub[d, v] = rng.integers(lb[d, v], ub[d, v] + 1)
+        strat = rng.integers(0, len(s.dp.strat_ids) + 1, 8).astype(np.int32)
+        lb, ub, strat = map(torch.as_tensor, (lb, ub, strat))
+    else:
+        s, lb, ub, strat = _case(case)
+    strat[0] = len(s.dp.strat_ids)
+    v = int(np.argmax((ub[1] > lb[1]).numpy()))
+    lb[1, v] = ub[1, v] + 1
+    return s, lb, ub, strat
+
+
+@pytest.mark.parametrize("case", [-1, 0, 1, 2, 3, "golomb8"])
+def test_fixpoint_step_emulation_matches_plain(case):
+    """K1's step entry (the fixpoint, then K2 and K3 on the block's final
+    store) as transliterated above equals ``fixpoint_plain``, then
+    ``classify_plain`` and ``_select_plain`` on its result, on every
+    lane and output at caps 10000 and 2: bot lanes, entailed lanes and a
+    cursor past every strategy included. The block-wide early exit asks
+    fewer rules than there are on a lane that is not entailed."""
+    s, lb, ub, strat = _fused_case(case)
+    t = flat_tables(s)
+    seen = {"bot": 0, "ent": 0, "default": 0}
+    for cap in (10000, 2):
+        pl, pu, pi, pm = s.kernels.fixpoint_plain(lb, ub, cap)
+        bot, ent = s.kernels.classify_plain(pl, pu)
+        sel = s._select_plain(pl, pu, strat)
+        for d in range(lb.shape[0]):
+            stats = {}
+            got = emulate_fixpoint_step(t, lb[d].tolist(), ub[d].tolist(),
+                                        cap, int(strat[d]), stats)
+            want = (pl[d].tolist(), pu[d].tolist(), int(pi[d]),
+                    bool(pm[d]), bool(bot[d]), bool(ent[d]),
+                    *(int(x[d]) for x in sel))
+            assert got[:4] == want[:4], (cap, d)
+            assert tuple(int(x) for x in got[4:]) == tuple(
+                int(x) for x in want[4:]), (cap, d)
+            if not ent[d] and t["P"]:
+                assert stats["asked"] < stats["rules"], (cap, d)
+            seen["bot"] += bool(bot[d])
+            seen["ent"] += bool(ent[d] & ~bot[d])
+            seen["default"] += not bool(sel[0][d])
+    assert all(seen.values()), seen
 
 
 def flat_tables(s):
@@ -700,6 +813,31 @@ def test_cuda_kernels_match_plain(seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [-1, 0, 1, "golomb8"])
+def test_cuda_fixpoint_step_matches_plain(case):
+    """K1's step entry against ``fixpoint_plain``, then ``classify_plain``
+    and ``_select_plain`` on its result, every output exactly, on the
+    shared- and the global-memory path at caps 10000 and 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from turbo_tpu_torch import kernels
+    s, lb, ub, strat = _fused_case(case)
+    dev = torch.device("cuda:0")
+    sc = BatchedSolver(s.tnf, s.cfg, device=dev)
+    kp, pk = sc.kernels.kernel_plan, sc.kernels
+    glb, gub, gst = lb.to(dev), ub.to(dev), strat.to(dev)
+    for smem in (True, False):
+        for cap in (10000, 2):
+            want = pk.fixpoint_plain(glb, gub, cap)
+            want += pk.classify_plain(*want[:2])
+            want += sc._select_plain(*want[:2], gst)
+            got = kernels.fixpoint.step(kp, glb, gub, cap, gst, smem=smem)
+            assert len(got) == len(want) == 14
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (smem, cap)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed", [-1, 0, 1])
 def test_cuda_engine_matches_cpu_engine(seed):
     """The engine on the card (kernels) walks the same tree as on the CPU
@@ -765,7 +903,6 @@ def test_cuda_embed_refill_open_count_match_plain(seed):
 # -- K6 step.cu and K7 step_tail.cu, transliterated --------------------
 
 DIVE, SOLVE, IDLE = 0, 1, 2
-WARP, BLOCK = 32, 256   # csrc/common.cuh TT_THREADS
 
 
 def shard_ranks(want, impr):
@@ -1120,35 +1257,52 @@ def test_sharded_step_kernel_emulation_matches_plain_step(name):
     assert int(f["nodes"].sum()) > 0 and done == 60
 
 
+@pytest.mark.parametrize("mode", ("fixpoint", "wac1"))
 @pytest.mark.parametrize("n", (1, 2, 16))
-def test_chunk_launch_sequence(n, monkeypatch):
-    """``step_cuda._enqueue`` of a chunk of n steps makes 5n + 2 launches:
-    K7 live, then per step K6 head, the propagation launch, K2, K3 and
-    K6 post, then K7 copy; each reads the right live word (step i reads
-    word i % 2, its post writes the other, its head copies under the
-    previous step's word, the first head copies nothing) on a CPU
-    workspace with the wrappers replaced by recorders. The tickets of
-    the shard scan are sized by the shards (3 + S words, the min
-    accumulator at INT_MAX)."""
+def test_chunk_launch_sequence(n, mode, monkeypatch):
+    """``step_cuda._enqueue`` of a chunk of n steps makes 3n + 2 launches
+    under the default ``fp_mode="fixpoint"``: K7 live, then per step K6
+    head, K1's step entry (K2 and K3 in its blocks, writing the
+    workspace's bot, ent and selection from strat0) and K6 post, then K7
+    copy; under ``fp_mode="wac1"`` 5n + 2, with K8, K2 and K3 in place of
+    the step entry. Each reads the right live word (step i reads word
+    i % 2, its post writes the other, its head copies under the previous
+    step's word, the first head copies nothing) on a CPU workspace with
+    the wrappers replaced by recorders. The tickets of the shard scan
+    are sized by the shards (3 + S words, the min accumulator at
+    INT_MAX)."""
     from types import SimpleNamespace
 
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.parallel.mesh import ShardedSolver
     from turbo_tpu_torch.solver import step_cuda
     tnf = compile_model(parse_fzn_text(golomb(5)))
-    ms = ShardedSolver(tnf, EngineConfig(num_dives=4, fp_cap_auto=False),
+    ms = ShardedSolver(tnf, EngineConfig(num_dives=4, fp_cap_auto=False,
+                                         fp_mode=mode),
                        devices=["cpu"] * 3)
     s = ms.solver
     st = ms.init_state()
     s.kernels._kernel_plan = SimpleNamespace(smem_limit=48 * 1024)
-    monkeypatch.setattr(kernels.fixpoint, "scratch", lambda kp, D: None)
-    ws = s._ws = step_cuda.Workspace(s, st.phase.shape[0])
-    assert ws.tail_sync.tolist() == [0, 0, 2 ** 31 - 1, 0, 0, 0]
     calls = []
 
     def rec(name, *words):
         calls.append((name,) + words)
 
+    class K1:
+        def scratch(self, kp, D):
+            return None
+
+        def step(self, kp, lb, ub, cap, strat, live, out):
+            ws = s._ws
+            assert lb is st.lb and ub is st.ub and strat is ws.strat0
+            assert all(a is b for a, b in zip(
+                out, (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch,
+                      ws.bot, ws.ent) + ws.sel)) and len(out) == 15
+            rec("fixpoint.step", live)
+
+    monkeypatch.setattr(kernels, "fixpoint", K1())
+    ws = s._ws = step_cuda.Workspace(s, st.phase.shape[0])
+    assert ws.tail_sync.tolist() == [0, 0, 2 ** 31 - 1, 0, 0, 0]
     monkeypatch.setattr(kernels.step_tail, "live",
                         lambda sv, live, dev: rec("live", live))
     monkeypatch.setattr(kernels.step_tail, "copy",
@@ -1158,8 +1312,9 @@ def test_chunk_launch_sequence(n, monkeypatch):
     monkeypatch.setattr(kernels.step, "post",
                         lambda sv, live, nxt, dev, smem: rec("post", live,
                                                              nxt))
-    monkeypatch.setattr(step_cuda, "propagate",
-                        lambda solver, st, cap, live: rec("propagate", live))
+    monkeypatch.setattr(kernels, "wac1",
+                        lambda kp, lb, ub, cap, inner, live, out: rec(
+                            "wac1", live))
     monkeypatch.setattr(kernels, "classify",
                         lambda kp, lb, ub, live, out: rec("classify", live))
     monkeypatch.setattr(kernels, "select",
@@ -1167,14 +1322,15 @@ def test_chunk_launch_sequence(n, monkeypatch):
                                                                  live))
     step_cuda._enqueue(s, st, None, n, 16)
     w = ws.live
+    middle = (("fixpoint.step",) if mode == "fixpoint"
+              else ("wac1", "classify", "select"))
     want = [("live", w[0])]
     for i in range(n):
         cur, nxt = w[i % 2], w[1 - i % 2]
-        want += [("head", w[1 - i % 2] if i else None, cur),
-                 ("propagate", cur), ("classify", cur), ("select", cur),
-                 ("post", cur, nxt)]
+        want += ([("head", w[1 - i % 2] if i else None, cur)]
+                 + [(m, cur) for m in middle] + [("post", cur, nxt)])
     want.append(("copy", w[(n - 1) % 2]))
-    assert len(calls) == 5 * n + 2
+    assert len(calls) == (3 if mode == "fixpoint" else 5) * n + 2
     assert [c[0] for c in calls] == [c[0] for c in want]
     for got, exp in zip(calls, want):
         assert all(a is b for a, b in zip(got[1:], exp[1:])), (got, exp)

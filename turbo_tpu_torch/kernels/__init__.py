@@ -6,6 +6,8 @@ one thread block per dive (or table row):
 - ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap, on
   (D, V) planes; ``fixpoint.fixed_sweeps``: exactly n sweeps;
   ``fixpoint.transposed``: the fixpoint on dive-minor (V, D) planes;
+  ``fixpoint.step``: the fixpoint, then K2's and K3's bodies on each
+  dive's result in the same block (the search step's launch);
 - ``classify`` (K2): per dive, some domain empty / every propagator
   entailed;
 - ``select`` (K3): branch variable and the two children;
@@ -13,9 +15,9 @@ one thread block per dive (or table row):
   bound, and (``embed.refill``) the table-row refill that seeds the
   first lanes, in place;
 - ``open_count`` (K5): open right branches on the SOLVE-phase stacks;
-- ``step`` (K6): a search step around K1-K3, in place: before them
+- ``step`` (K6): a search step around K1's step entry, in place: before it
   (``step.head``: the previous step's refill and ring rows, then
-  promote and tighten) and after them (``step.post``: the per-lane rest
+  promote and tighten) and after it (``step.post``: the per-lane rest
   of the step, then, in each shard's last block, the shard scan and the
   next step's live flag);
 - ``step_tail`` (K7): the chunk's live flag (``step_tail.live``) and
@@ -257,6 +259,11 @@ def _stream(t):
     return _stream_of(t.device)
 
 
+# Static shared memory that K1's launches leave beside the dynamic one
+# (csrc/fixpoint.cu ``TT_STATIC_SMEM``: the step entry's K2 and K3 words).
+FIXPOINT_STATIC_SMEM = 128
+
+
 def fixpoint_smem_bytes(view) -> int:
     """Dynamic shared memory of K1's shared-memory path (csrc/fixpoint.cu
     ``smem_bytes``) for a PlanView: the flag words, the stores A and B
@@ -313,15 +320,19 @@ class _Fixpoint(_Kernel):
     name = "fixpoint"
     source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:912"
-    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed")
+    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed", "step")
+    # The step entry replaces the fixpoint (912), all_entailed / is_bot
+    # (983) and _select / _children (engine.py:550) of one JAX step.
     ENTRY_REPLACES = {"fixed_sweeps": "turbo_tpu/solver/propagate_jax.py:967",
-                      "transposed": "turbo_tpu/solver/propagate_jax.py:782"}
+                      "transposed": "turbo_tpu/solver/propagate_jax.py:782",
+                      "step": "turbo_tpu/solver/propagate_jax.py:912"}
 
     @staticmethod
     def uses_smem(kp, smem: bool = True) -> bool:
         """Whether a launch keeps the stores in shared memory; otherwise
         it needs ``scratch``."""
-        return smem and fixpoint_smem_bytes(kp.view) <= kp.smem_limit
+        return smem and (fixpoint_smem_bytes(kp.view) + FIXPOINT_STATIC_SMEM
+                         <= kp.smem_limit)
 
     def scratch(self, kp, D: int, smem: bool = True):
         """The global scratch of D dives (``fixpoint_scratch_shape``) when
@@ -378,6 +389,64 @@ class _Fixpoint(_Kernel):
         """The fixpoint of ``__call__`` on dive-minor planes: lbT, ubT
         and the first two outputs are (V, D)."""
         return self._run("transposed", kp, lbT, ubT, cap, smem, live, out)
+
+    def step(self, kp, lb, ub, cap: int, strat, smem: bool = True,
+             live=None, out=None):
+        """The fixpoint of ``__call__``, then K2 and K3 on each dive's
+        result in the same block: (lb, ub, iters, unconv, bot, ent, found,
+        var, chosen, valo, c0l, c0u, c1l, c1u), the outputs of
+        ``__call__``, ``classify`` and ``select`` (from the cursors
+        ``strat``) in one launch. ``out``: the five tensors of
+        ``__call__``'s ``out``, then the ten of ``classify`` and
+        ``select``. With no propagator (P == 0) the fixpoint is the
+        copy of ``__call__``, and K2 and K3 run as their own launches."""
+        dp = kp.dp
+        D = lb.shape[0]
+        _check(strat, "strat", (D,))
+        if out is None:
+            out = _fixpoint_out(lb, D, self.scratch(kp, D, smem)) + (
+                *(torch.empty(D, dtype=torch.bool, device=lb.device)
+                  for _ in range(3)),
+                *(torch.empty(D, dtype=I32, device=lb.device)
+                  for _ in range(7)))
+        fp_out, sel_out = out[:5], out[7:]
+        scratch = _check_fixpoint(
+            lb, ub, fp_out, D, (D, dp.V), None if self.uses_smem(kp, smem)
+            else fixpoint_scratch_shape(D, kp.view))
+        for n, t in (("bot", out[5]), ("ent", out[6]),
+                     ("found", sel_out[0])):
+            _check(t, n, (D,), torch.bool)
+        for i, o in enumerate(sel_out[1:]):
+            _check(o, f"out[{i + 8}]", (D,))
+        if dp.P == 0:
+            res = _no_propagators(lb, ub, fp_out)
+            return res + classify(kp, res[0], res[1], live, out[5:7]) + \
+                select(kp, res[0], res[1], strat, live, sel_out)
+        lb_out, ub_out, iters, unconv, _ = fp_out
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: lib.tt_fixpoint_step,
+                         ctypes.byref(kp.view), lb.data_ptr(), ub.data_ptr(),
+                         lb_out.data_ptr(), ub_out.data_ptr(),
+                         iters.data_ptr(), unconv.data_ptr(), scratch, D,
+                         int(cap), kp.smem_limit if smem else 0,
+                         _live_ptr(live), _stream(lb), strat.data_ptr(),
+                         *(t.data_ptr() for t in out[5:]), entry="step")
+        return (lb_out, ub_out, iters, unconv) + tuple(out[5:])
+
+    def blocks_per_sm(self, kp, step: bool = True) -> int:
+        """Resident blocks per SM of a shared-memory launch of the step
+        entry (``step``) or of the other entries, at this plan's shared
+        memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+        blocks = ctypes.c_int(0)
+        lib = load()
+        with torch.cuda.device(kp.dp.device):
+            rc = lib.tt_fixpoint_blocks_per_sm(ctypes.byref(kp.view),
+                                               int(step), kp.smem_limit,
+                                               ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"fixpoint occupancy query failed: "
+                               f"{lib.tt_error_string(rc).decode()} ({rc})")
+        return blocks.value
 
 
 class _Wac1(_Kernel):

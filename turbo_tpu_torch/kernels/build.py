@@ -57,6 +57,8 @@ def _bind(lib):
     I = ctypes.c_int
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t):
         fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, P]
+    lib.tt_fixpoint_step.argtypes = [P] * 8 + [I, I, I, P, P] + [P] * 11
+    lib.tt_fixpoint_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_wac1.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P, P]
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
@@ -68,6 +70,7 @@ def _bind(lib):
     lib.tt_step_copy.argtypes = [P, P, P]
     lib.tt_step_live.argtypes = [P, P, P]
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t,
+               lib.tt_fixpoint_step, lib.tt_fixpoint_blocks_per_sm,
                lib.tt_wac1, lib.tt_classify, lib.tt_select,
                lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
                lib.tt_step_head, lib.tt_step_post, lib.tt_step_copy,

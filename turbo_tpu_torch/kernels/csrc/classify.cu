@@ -1,59 +1,49 @@
-// K2: classify each dive's store: bot (some domain empty) and ent
-// (every propagator entailed), one dive per thread block.
+// K2: classify each dive's store, bot (some domain empty) and ent
+// (every propagator entailed), one dive per thread block; the body is
+// classify_block (classify.cuh), which K1's step entry also runs.
 //
 // Replaces PropagatorKernels.is_bot and all_entailed of
-// turbo_tpu/solver/propagate_jax.py (with _ask_group, _linear_ask_all,
-// _element_ask, _member_ask). `ent` is not masked by `bot`; the engine
-// does that, as the JAX step does.
+// turbo_tpu/solver/propagate_jax.py (see classify.cuh).
 //
-// What bounds it on an H100: one pass of gathers over the store (about
-// 3 reads per propagator, K per linear row, T per element row) and a
-// block-wide AND; no arithmetic to speak of. Launch latency dominates
-// at small D.
+// What bounds it on an H100: one read of the store (2 V int32 a dive)
+// and of the plan's rule tables; no arithmetic to speak of. Launch
+// latency and the chains of dependent gathers dominate at small D.
 //
-// Design: threads stride over the V variables (bot) and then over all
-// rows of every family, padding rows included (they are entailed by
-// construction, as in the JAX sum over padded groups); two block
-// reductions (__syncthreads_or / __syncthreads_and) give the answers.
-// The store is read from global memory: each word is read a few times
-// per launch, so L1 serves the repeats.
-#include "common.cuh"
+// Design: the search step no longer launches it (K1's step entry runs
+// the body on the store in its shared memory); the EPS table build,
+// the hybrid rounds and the steps of the other propagation modes do.
+// Each block first stages its dive's two rows into shared memory in one
+// coalesced pass (16-byte loads; 20 KB at golomb(12)), so the rules'
+// gathers wait on shared memory and not on L2. Rows above the default
+// 48 KB of shared memory (V > 6144) are read where they lie.
+#include "classify.cuh"
 
 __global__ void __launch_bounds__(TT_THREADS)
 classify_kernel(PlanView p, const int* __restrict__ lb_all,
                 const int* __restrict__ ub_all, unsigned char* bot_out,
-                unsigned char* ent_out, const int* live) {
+                unsigned char* ent_out, const int* live, int staged) {
   if (live != nullptr && *live == 0) return;  // every lane IDLE
+  extern __shared__ int4 stage4[];
   const long long d = blockIdx.x;
   const int* lb = lb_all + d * p.V;
   const int* ub = ub_all + d * p.V;
-  int bot = 0;
-  for (int v = threadIdx.x; v < p.V; v += blockDim.x) bot |= lb[v] > ub[v];
-  int ok = 1;
-  if (p.P > 0) {
-    for (int i = threadIdx.x; i < p.P && ok; i += blockDim.x) {
-      int x = p.px[i], y = p.py[i], z = p.pz[i];
-      ok = ask(p.prop_op[i], lb[x], ub[x], lb[y], ub[y], lb[z], ub[z]);
-    }
-    for (int i = threadIdx.x; i < p.E && ok; i += blockDim.x)
-      ok = elem_ask(p, i, lb, ub);
-    for (int i = threadIdx.x; i < p.M && ok; i += blockDim.x)
-      ok = member_ask(p, i, lb, ub);
-    for (int r = threadIdx.x; r < p.L && ok; r += blockDim.x)
-      ok = lin_ask(p, r, lb, ub);
+  if (staged) {
+    int* sl = reinterpret_cast<int*>(stage4);
+    stage_store(lb, ub, sl, sl + p.V, p.V);
+    lb = sl;
+    ub = sl + p.V;
+    __syncthreads();
   }
-  bot = __syncthreads_or(bot);
-  ok = __syncthreads_and(ok);
-  if (threadIdx.x == 0) {
-    bot_out[d] = bot != 0;
-    ent_out[d] = ok != 0;
-  }
+  classify_block(p, lb, ub, bot_out + d, ent_out + d);
 }
 
 extern "C" int tt_classify(const PlanView* p, const int* lb, const int* ub,
                            unsigned char* bot, unsigned char* ent, int D,
                            const int* live, void* stream) {
-  classify_kernel<<<D, TT_THREADS, 0, (cudaStream_t)stream>>>(*p, lb, ub,
-                                                                bot, ent, live);
+  const size_t smem = 8 * (size_t)p->V;
+  const int staged = smem <= 48 * 1024;
+  classify_kernel<<<D, TT_THREADS, staged ? smem : 0,
+                    (cudaStream_t)stream>>>(*p, lb, ub, bot, ent, live,
+                                            staged);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // Shared device code of the solver kernels (fixpoint.cu, wac1.cu,
-// classify.cu and select.cu use all of it; embed.cu and open_count.cu
+// classify.cuh and select.cuh use all of it; embed.cu and open_count.cu
 // only the block size): the plan tables as one struct passed by
 // value, and the per-propagator rules of
 // turbo_tpu/solver/propagate_jax.py written for one thread. The rules
@@ -216,6 +216,29 @@ __device__ __forceinline__ bool ask(int op, int lx, int ux, int ly, int uy,
     default:
       return (lx >= 1 && ly == uy && lz == uz && ly == lz) ||
              (ux <= 0 && (uy < lz || ly > uz));
+  }
+}
+
+// Copies one dive's rows (lb, ub: V int32 each, in global memory) into
+// shared memory (sl, su) in one coalesced pass, 16 bytes a thread where
+// the rows' alignment and V allow it. The caller synchronises.
+__device__ __forceinline__ void stage_store(const int* lb, const int* ub,
+                                            int* sl, int* su, int V) {
+  const unsigned long long a = reinterpret_cast<unsigned long long>(lb) |
+                               reinterpret_cast<unsigned long long>(ub) |
+                               reinterpret_cast<unsigned long long>(su);
+  if (V % 4 == 0 && (a & 15) == 0) {
+    const int4* l4 = reinterpret_cast<const int4*>(lb);
+    const int4* u4 = reinterpret_cast<const int4*>(ub);
+    for (int i = threadIdx.x; i < V / 4; i += blockDim.x) {
+      reinterpret_cast<int4*>(sl)[i] = __ldg(l4 + i);
+      reinterpret_cast<int4*>(su)[i] = __ldg(u4 + i);
+    }
+  } else {
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      sl[v] = __ldg(lb + v);
+      su[v] = __ldg(ub + v);
+    }
   }
 }
 

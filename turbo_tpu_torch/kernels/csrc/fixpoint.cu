@@ -89,7 +89,7 @@
 // step began); the EPS table build passes no live flag. It allocates
 // nothing, so a chunk of steps is captured into a CUDA graph.
 //
-// Three entry points share the kernel:
+// Four entry points share the kernel's body:
 // - tt_fixpoint: (D, V) planes, sweeps to the fixpoint or the cap;
 // - tt_fixed_sweeps: (D, V) planes, exactly n sweeps with no exit on
 //   convergence or bot, iters = n and unconv = 0
@@ -100,8 +100,16 @@
 //   as the (D, V) forms): dive d's element v lies at [v * D + d]. The
 //   block gathers its strided column into shared memory, sweeps there
 //   and scatters it back; on the global path A is the strided column
-//   itself, read and written through a ``Plane``.
-#include "common.cuh"
+//   itself, read and written through a ``Plane``;
+// - tt_fixpoint_step, the search step's launch (a kernel of its own,
+//   fixpoint_step_kernel): tt_fixpoint, then K2's and K3's bodies
+//   (classify.cuh, select.cuh) on the block's final store, A in shared
+//   memory (or the output rows on the global path), so that the step
+//   needs no launch of K2 or K3 and reads the store back from nowhere.
+//   On a bot lane the store is K1's, as the separate launches read it.
+//   It is built for at most 64 registers, to keep four blocks per SM.
+#include "classify.cuh"
+#include "select.cuh"
 
 #ifdef TT_K1_NO_SKIP
 #define TT_K1_SKIP 0
@@ -266,14 +274,35 @@ __device__ __forceinline__ int sweep_loop(const PlanView& p, S al, S au,
   return iters;
 }
 
-// ds / vs: the strides of the dive and of the variable in the planes
-// ((D, V): V and 1; (V, D): 1 and D). scratch: (D, scratch_words(p))
-// int32, read only on the global path.
-__global__ void __launch_bounds__(TT_THREADS)
-fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
-                int* ub_out, int* iters_out, unsigned char* unconv_out,
-                int* scratch, int cap, int use_smem, const int* live,
-                long long ds, long long vs, int fixed) {
+// The step entry's extra arguments: K3's cursors (strat0) and K2's and
+// K3's outputs, each indexed by the dive.
+struct StepOut {
+  const int* strat;
+  unsigned char* bot;
+  unsigned char* ent;
+  SelectOut sel;
+};
+
+// K2 and K3 on the block's final store (lb, ub), complete and visible
+// to the block: every thread calls it.
+__device__ __forceinline__ void step_epilogue(const PlanView& p,
+                                              const int* lb, const int* ub,
+                                              const StepOut& so,
+                                              long long d) {
+  classify_block(p, lb, ub, so.bot + d, so.ent + d);
+  select_block(p, lb, ub, so.strat[d], so.sel, d);
+}
+
+// The kernel's body. ds / vs: the strides of the dive and of the
+// variable in the planes ((D, V): V and 1; (V, D): 1 and D). scratch:
+// (D, scratch_words(p)) int32, read only on the global path. STEP: the
+// step entry (only (D, V) planes), which ends with step_epilogue.
+template <bool STEP>
+__device__ __forceinline__ void fixpoint_body(
+    const PlanView& p, const int* lb_in, const int* ub_in, int* lb_out,
+    int* ub_out, int* iters_out, unsigned char* unconv_out, int* scratch,
+    int cap, int use_smem, const int* live, long long ds, long long vs,
+    int fixed, const StepOut& so) {
   if (live != nullptr && *live == 0) return;
   extern __shared__ int smem[];
   const int V = p.V;
@@ -301,18 +330,22 @@ fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
   }
   if (threadIdx.x == 0) flag[0] = flag[1] = flag[2] = 0;
   __syncthreads();
-  int iters;
-  bool m;
+  int iters = 0;
+  bool m = false;
   if (use_smem) {
     iters = sweep_loop(p, al, au, bl, bu, wl, mk, flag, cap, fixed, &m);
     for (int v = threadIdx.x; v < V; v += blockDim.x) {
       lb_out[d * ds + v * vs] = al[v];
       ub_out[d * ds + v * vs] = au[v];
     }
+    if constexpr (STEP) step_epilogue(p, al, au, so, d);
   } else if (vs == 1) {
+    // sweep_loop ends on a block barrier: the rows are visible.
     iters = sweep_loop(p, lb_out + d * ds, ub_out + d * ds, bl, bu, wl, mk,
                        flag, cap, fixed, &m);
-  } else {
+    if constexpr (STEP) step_epilogue(p, lb_out + d * ds, ub_out + d * ds,
+                                      so, d);
+  } else if constexpr (!STEP) {
     iters = sweep_loop(p, Plane{lb_out + d * ds, vs},
                        Plane{ub_out + d * ds, vs}, bl, bu, wl, mk, flag, cap,
                        fixed, &m);
@@ -323,25 +356,71 @@ fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
   }
 }
 
+__global__ void __launch_bounds__(TT_THREADS)
+fixpoint_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
+                int* ub_out, int* iters_out, unsigned char* unconv_out,
+                int* scratch, int cap, int use_smem, const int* live,
+                long long ds, long long vs, int fixed) {
+  fixpoint_body<false>(p, lb_in, ub_in, lb_out, ub_out, iters_out,
+                       unconv_out, scratch, cap, use_smem, live, ds, vs,
+                       fixed, StepOut{});
+}
+
+// The step entry: at most 64 registers a thread, so that it keeps K1's
+// four blocks per SM at golomb(12).
+__global__ void __launch_bounds__(TT_THREADS, 4)
+fixpoint_step_kernel(PlanView p, const int* lb_in, const int* ub_in,
+                     int* lb_out, int* ub_out, int* iters_out,
+                     unsigned char* unconv_out, int* scratch, int cap,
+                     int use_smem, const int* live, StepOut so) {
+  fixpoint_body<true>(p, lb_in, ub_in, lb_out, ub_out, iters_out,
+                      unconv_out, scratch, cap, use_smem, live, p.V, 1, 0,
+                      so);
+}
+
+// Static shared memory left beside the dynamic one under the block's
+// limit: the step entry's K2 and K3 words (68 bytes). Mirrored by
+// kernels.FIXPOINT_STATIC_SMEM.
+#define TT_STATIC_SMEM 128
+
+// Dynamic shared memory of a launch (16 bytes of flags on the global
+// path, which needs the scratch), with the kernel's attribute raised to
+// it; each kernel keeps its own attribute. Returns a CUDA error code.
+template <bool STEP>
+static int prepare(const PlanView* p, const int* scratch, int smem_limit,
+                   size_t* smem, int* use_smem) {
+  static int attr_set = -1;
+  *smem = smem_bytes(*p);
+  *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit;
+  if (!*use_smem) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    *smem = 16;
+  }
+  if ((int)*smem > attr_set) {
+    cudaError_t e;
+    if constexpr (STEP)
+      e = cudaFuncSetAttribute(fixpoint_step_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)*smem);
+    else
+      e = cudaFuncSetAttribute(fixpoint_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)*smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = (int)*smem;
+  }
+  return 0;
+}
+
 static int launch(const PlanView* p, const int* lb_in, const int* ub_in,
                   int* lb_out, int* ub_out, int* iters, unsigned char* unconv,
                   int* scratch, int D, int cap, int smem_limit,
                   const int* live, void* stream, long long ds, long long vs,
                   int fixed) {
-  static int attr_set = -1;
-  size_t smem = smem_bytes(*p);
-  int use_smem = smem <= (size_t)smem_limit;
-  if (!use_smem) {
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    smem = 16;
-  }
-  if ((int)smem > attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fixpoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = (int)smem;
-  }
+  size_t smem;
+  int use_smem;
+  int rc = prepare<false>(p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
   fixpoint_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
       *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
       use_smem, live, ds, vs, fixed);
@@ -373,6 +452,46 @@ extern "C" int tt_fixpoint_t(const PlanView* p, const int* lb_in,
                              void* stream) {
   return launch(p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, D,
                 cap, smem_limit, live, stream, 1, D, 0);
+}
+
+// tt_fixpoint, then K2 and K3 on each dive's result in the same block:
+// bot and ent as tt_classify writes them, the eight outputs of
+// tt_select from the cursors strat.
+extern "C" int tt_fixpoint_step(const PlanView* p, const int* lb_in,
+                                const int* ub_in, int* lb_out, int* ub_out,
+                                int* iters, unsigned char* unconv,
+                                int* scratch, int D, int cap, int smem_limit,
+                                const int* live, void* stream,
+                                const int* strat, unsigned char* bot,
+                                unsigned char* ent, unsigned char* found,
+                                int* var, int* chosen, int* valo, int* c0l,
+                                int* c0u, int* c1l, int* c1u) {
+  size_t smem;
+  int use_smem;
+  int rc = prepare<true>(p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  const StepOut so{strat, bot, ent,
+                   SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}};
+  fixpoint_step_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
+      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
+      use_smem, live, so);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of a launch at the smem_limit the wrappers
+// pass (step: the step entry), into *blocks.
+extern "C" int tt_fixpoint_blocks_per_sm(const PlanView* p, int step,
+                                         int smem_limit, int* blocks) {
+  size_t smem;
+  int use_smem;
+  const int* scratch = blocks;  // not read: any pointer allows the global path
+  int rc = step ? prepare<true>(p, scratch, smem_limit, &smem, &use_smem)
+                : prepare<false>(p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  return (int)(step ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks, fixpoint_step_kernel, TT_THREADS, smem)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          blocks, fixpoint_kernel, TT_THREADS, smem));
 }
 
 extern "C" const char* tt_error_string(int code) {

@@ -3,14 +3,16 @@
 Port of ``turbo_tpu/solver/engine.py``: D dives advance in lockstep,
 one search node per ``step``, on (D, ·) tensors on one device.
 
-On a CUDA state a step is five kernel launches and no host read:
+On a CUDA state a step is three kernel launches and no host read:
 K6 ``step.head`` (the previous step's refill and ring rows, promote,
-objective tighten) -> propagation (K1 fixpoint; by ``fp_mode`` and
-``fp_layout`` its fixed-sweeps or transposed entry, or K8 WAC1) -> K2
-classify -> K3 select -> K6 ``step.post`` (the per-lane rest of the
-step, then in each shard's last block the cross-lane prefix counts of
-the refill and the solution ring), all updating the state in place.
-``run_steps`` enqueues a whole chunk of n steps as 5n + 2 launches (K7
+objective tighten) -> K1's step entry (the fixpoint, then K2 classify
+and K3 select in the same blocks) -> K6 ``step.post`` (the per-lane rest
+of the step, then in each shard's last block the cross-lane prefix
+counts of the refill and the solution ring), all updating the state in
+place. By ``fp_mode`` and ``fp_layout`` the propagation is K1's
+fixed-sweeps or transposed entry or K8 WAC1 instead, followed by K2 and
+K3 as launches of their own (five a step).
+``run_steps`` enqueues a whole chunk of n steps as 3n + 2 launches (K7
 ``step_tail.live`` before them, K7 ``step_tail.copy`` with the last
 step's rows after them): each kernel returns at once when the device
 flag ``live`` says every lane was IDLE, as the JAX ``while_loop``

@@ -1,24 +1,27 @@
-"""The search step on the card: five kernel launches, no host read.
+"""The search step on the card: three kernel launches, no host read.
 
 A step of ``BatchedSolver.step_plain`` on a CUDA state, in place:
 
-    K6 step.head -> propagation -> K2 classify -> K3 select -> K6 step.post
+    K6 step.head -> K1 fixpoint.step (K1, then K2 and K3) -> K6 step.post
 
 K6 head does the previous step's refill and ring rows, then this step's
 promote and objective tighten; K6 post does the rest of the step lane by
 lane, and the last block of each EPS shard to finish runs the shard's
 scan (ranks of the finishing lanes and of the solutions, next_sub,
 sol_w), the last shard publishing the next step's live flag and the
-incumbent min that the next head reads. The propagation launch is K1
-(``fp_mode="fixpoint"``, layout ``dv``), its fixed-sweeps entry
-(``"fixed"``), K8 (``"wac1"``), or, for layout ``vd``, K1's transposed
-entry between two transposing copies into and out of (V, D) planes kept
-in the ``Workspace``; each runs in place and takes the step's ``live``
-flag.
+incumbent min that the next head reads. Between them, under the default
+``fp_mode="fixpoint"`` with layout ``dv``, K1's step entry propagates
+each lane and classifies and selects on the store its block holds (K2
+and K3 as device functions, no launch of their own). The other modes
+launch their propagation, then K2 classify and K3 select (five launches
+a step): K1's fixed-sweeps entry (``"fixed"``), K8 (``"wac1"``), or, for
+layout ``vd``, K1's transposed entry between two transposing copies into
+and out of (V, D) planes kept in the ``Workspace``. Each launch runs in
+place and takes the step's ``live`` flag.
 
-``run`` enqueues a chunk of n steps as 5n + 2 launches: K7
-``step_tail.live`` (the device flag ``live``: some lane not IDLE; the
-step counter to 0; the incumbent min), the n steps, and K7
+``run`` enqueues a chunk of n steps as 3n + 2 launches (5n + 2 in the
+other modes): K7 ``step_tail.live`` (the device flag ``live``: some lane
+not IDLE; the step counter to 0; the incumbent min), the n steps, and K7
 ``step_tail.copy`` with the last step's refill and ring rows, so the
 state is complete when the host reads it. Each step reads one of two
 flag words and its post writes the other, so every kernel of a step
@@ -35,7 +38,7 @@ pointers in one ``StepView``.
 A chunk whose launches repeat those of the chunk before (the same step
 count, cap and StepView, i.e. the same state tensors) is captured once
 into a CUDA graph and replayed from then on: one launch per chunk in
-place of five per step. The graph bakes in pointers only, so a replay
+place of three per step. The graph bakes in pointers only, so a replay
 is right whenever the StepView's bytes match. The capture launches
 nothing, so it counts no launch; each replay adds the captured launches
 to the wrappers' counts.
@@ -211,21 +214,31 @@ def _capture(solver, st, sv, n, cap):
     return g, captured
 
 
+def fused(cfg) -> bool:
+    """Whether the step's propagation launch also classifies and selects
+    (K1's step entry): ``fp_mode="fixpoint"`` with layout ``dv``."""
+    return cfg.fp_mode == "fixpoint" and cfg.fp_layout == "dv"
+
+
 def propagate(solver, st, cap, live):
     """The step's propagation launch, in place on ``st.lb`` / ``st.ub``,
     by ``fp_mode`` and ``fp_layout``; iters and unconv go to the
-    workspace."""
+    workspace, and when ``fused(cfg)`` also bot, ent and the selection
+    (from ``strat0``)."""
     from .. import kernels
     cfg, ws = solver.cfg, solver._ws
     kp = solver.kernels.kernel_plan
     out = (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch)
-    if cfg.fp_mode == "fixed":
+    if fused(cfg):
+        kernels.fixpoint.step(kp, st.lb, st.ub, cap, ws.strat0, live=live,
+                              out=out + (ws.bot, ws.ent) + ws.sel)
+    elif cfg.fp_mode == "fixed":
         kernels.fixpoint.fixed_sweeps(kp, st.lb, st.ub, cfg.fp_fixed_iters,
                                       live=live, out=out)
     elif cfg.fp_mode == "wac1":
         kernels.wac1(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap, live=live,
                      out=out[:4] + (ws.cand,))
-    elif cfg.fp_layout == "vd":
+    else:  # fp_mode "fixpoint", layout "vd"
         ws.lbT.copy_(st.lb.t())
         ws.ubT.copy_(st.ub.t())
         kernels.fixpoint.transposed(
@@ -233,25 +246,27 @@ def propagate(solver, st, cap, live):
             out=(ws.lbT, ws.ubT, ws.iters, ws.unconv, ws.fp_scratch))
         st.lb.copy_(ws.lbT.t())
         st.ub.copy_(ws.ubT.t())
-    else:
-        kernels.fixpoint(kp, st.lb, st.ub, cap, live=live, out=out)
 
 
 def _enqueue(solver, st, sv, n, cap):
     """Launch the live flag, n steps and the closing copy on the current
-    stream: 5n + 2 launches."""
+    stream: 3n + 2 launches (5n + 2 unless ``fused(cfg)``)."""
     from .. import kernels
     ws = solver._ws
     dev = st.lb.device
     kp = solver.kernels.kernel_plan
+    alone = not fused(solver.cfg)
     kernels.step_tail.live(sv, ws.live[0], dev)
     prev = None
     for i in range(n):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
         kernels.step.head(sv, prev, cur, dev)
         propagate(solver, st, cap, cur)
-        kernels.classify(kp, st.lb, st.ub, live=cur, out=(ws.bot, ws.ent))
-        kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur, out=ws.sel)
+        if alone:
+            kernels.classify(kp, st.lb, st.ub, live=cur,
+                             out=(ws.bot, ws.ent))
+            kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur,
+                           out=ws.sel)
         kernels.step.post(sv, cur, nxt, dev, kp.smem_limit)
         prev = cur
     if prev is not None:
