@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Table on/off and calibrated/pinned-cap runs of turbo_tpu_torch on one
 CUDA card: ``python3 chip_measure.py [--reps N] [--seconds S] [--big M]
-[--configs a,b] [--ab DIR]``.
+[--configs a,b] [--ab DIR [--opts "-fp wac1"]]``.
 
 Run from the root of the repository, after ``chip_smoke.py`` has shown
 that the kernels build and agree. For golomb(8) (a proof) and golomb(M)
@@ -25,7 +25,9 @@ directory ``OUT``.
 then runs the default CLI on golomb(M) for S seconds as a separate
 process in DIR and in this checkout, in the order DIR, this, this, DIR,
 so that both trees meet the same card and host in turn; one JSON line
-each, with ``"tree"`` the directory.
+each, with ``"tree"`` the directory. ``--opts`` adds CLI options to
+those runs (``--opts="-fp wac1"``: the WAC1 path; ``--big 8`` with it:
+the golomb(8) proof, whose ``solve_time`` is the time to the optimum).
 
 ``--k1-ab DIR`` runs only K1 and the EPS table build of DIR against this
 checkout, each tree in a process of its own (its own
@@ -114,10 +116,12 @@ def run_one(name, path, text, seconds):
     return rec, text_out
 
 
-def run_tree(tree, path, seconds):
-    """The default CLI as a process of its own in checkout ``tree``."""
+def run_tree(tree, path, seconds, opts=()):
+    """The CLI (the default search, with the options ``opts``) as a
+    process of its own in checkout ``tree``."""
     r = subprocess.run([sys.executable, "-m", "turbo_tpu_torch.cli",
-                        str(path), "-s", "-t", str(int(seconds * 1000))],
+                        str(path), "-s", "-t", str(int(seconds * 1000)),
+                        *opts],
                        cwd=tree, capture_output=True, text=True,
                        timeout=seconds * 3 + 300)
     if r.returncode != 0:
@@ -125,7 +129,9 @@ def run_tree(tree, path, seconds):
                            f"{r.stderr[-2000:]}")
     stats = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", r.stdout, re.M))
     nodes, solve = int(stats["nodes"]), float(stats["solveTime"])
-    return {"objective": int(stats["objective"]) if "objective" in stats
+    return {"status": "optimal" if "==========" in r.stdout else "sat"
+            if "----------" in r.stdout else "unknown",
+            "objective": int(stats["objective"]) if "objective" in stats
             else None, "nodes": nodes, "solve_time": solve,
             "nodes_per_s": nodes / solve,
             "init_time": float(stats["initTime"]),
@@ -250,6 +256,7 @@ def main():
     ap.add_argument("--big", type=int, default=12)
     ap.add_argument("--configs", default=",".join(CONFIGS))
     ap.add_argument("--ab", default="")
+    ap.add_argument("--opts", default="")
     ap.add_argument("--k1-ab", default="")
     ap.add_argument("--k1-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -288,10 +295,11 @@ def main():
     if args.ab:
         path = OUT / f"golomb{args.big}.fzn"
         for tree in (args.ab, str(ROOT), str(ROOT), args.ab):
-            rec = run_tree(pathlib.Path(tree).resolve(), path, args.seconds)
+            rec = run_tree(pathlib.Path(tree).resolve(), path, args.seconds,
+                           args.opts.split())
             print(json.dumps({"instance": f"golomb({args.big})",
-                              "config": "cli", "tree": tree, **rec}),
-                  flush=True)
+                              "config": f"cli {args.opts}".strip(),
+                              "tree": tree, **rec}), flush=True)
     return 0
 
 

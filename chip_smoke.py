@@ -19,13 +19,17 @@ exits non-zero):
    random stores, table rows, masks and stacks at golomb(12)'s shapes
    (W=D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
    K8 (WAC1: outer caps 2 and 10000, inner caps 1 and 16; iters, unconv
-   and bot of every lane, the store of every lane that is not bot) and
-   K1's other entries (2 and 5 fixed sweeps; the fixpoint on transposed
+   and bot of every lane, the store of every lane that is not bot), K8's
+   step entry (K8, then K2 and K3 in the same blocks: its 14 outputs
+   against the plain WAC1 fixpoint, classify and select) and K1's other
+   entries (2 and 5 fixed sweeps; the fixpoint on transposed
    (V, D) planes at caps 2 and 10000), each on the shared-memory and the
    global-memory path (K1's fixpoint entry at caps 2 and 10000 on both).
-   The ``-Xptxas -v`` lines (registers, shared memory, spills) of K1 and
-   of its step entry, their resident blocks per SM at golomb(12) and the
-   step entry's epilogue bound are printed. The golomb(12) times go into
+   The ``-Xptxas -v`` lines (registers, shared memory, spills) of K1, of
+   its step entry and of K8's four instantiations (each entry on each
+   memory path), the resident blocks per SM of K1's and K8's entries at
+   golomb(12), K8's times on both memory paths for each store and the
+   step entries' epilogue bound are printed. The golomb(12) times go into
    the JSON line;
 3b. K6 and K7 (the step's own kernels) against the plain step on the
    same CUDA state, every SearchState field exactly equal after 1, 7 and
@@ -41,8 +45,9 @@ exits non-zero):
    and the fixpoint iterations per node; then, from the same state, K1's
    step entry against K1's fixpoint entry followed by K2 and K3 as
    launches of their own, in turns (step entry, alone, alone, step
-   entry), and the K1 step with K1 built with ``-DTT_K1_NO_SKIP`` (no
-   skip of unmoved rules) and as built, in turns (on, off, off, on);
+   entry), and the K1 step with K1 built with ``-DTT_NO_SKIP`` (no
+   skip of unmoved rules) and as built, in turns (on, off, off, on); the
+   same for K8's step entry and K8 on the ``fp_mode="wac1"`` state;
 3d. the step over S=4 EPS shards, lane groups of one state (K6 over
    every lane, the shard scan in each shard's last K6 post block:
    ``parallel/mesh.py``), against the plain
@@ -55,8 +60,9 @@ exits non-zero):
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
    sync inside a chunk fails the phase; so do more than 3.2 launches a
-   step: 3 a step and 2 a chunk, or 5.2 under ``wac1``, ``fixed`` and
-   ``vd``, where K2 and K3 run on their own), launches per step, wall time
+   step: 3 a step and 2 a chunk, under ``wac1`` too, or 5.2 under
+   ``fixed`` and ``vd``, where K2 and K3 run on their own), launches per
+   step, wall time
    per step, and from ``torch.profiler`` the device kernels and busy
    time per step, for the kernel route and for the plain step; then the
    same chunk captured once in a CUDA graph and replayed; the same loop
@@ -94,8 +100,9 @@ exits non-zero):
    block checker-valid, the last one at the final objective (44 when
    the run closes);
 10b. ``-fp wac1`` on golomb(12) through the card CLI at full width
-   (``-or 0``, ``-t 30000``): every solution checker-valid, K8 launched
-   once per table level and once per step, K1 never;
+   (``-or 0``, ``-t 30000``): every solution checker-valid, K8's step
+   entry launched once per step, K8 alone, K2 and K3 once per table
+   level, K1 never;
 10c. ``fp_mode="fixed"`` and ``fp_layout="vd"`` on golomb(12), D=512,
    through the solver API for 8 s each, the best solution checked;
 10d. ``-arch hybrid`` on golomb(12) through the card CLI (``-or 0``,
@@ -141,7 +148,8 @@ exits non-zero):
    main path and the table-off path K1's step entry once a step and K2
    and K3 only in the table build (once a level); K1 with its step
    entry, K6 and K7 on the table-off path (7) and on ``-a``, K2-K4 too
-   on ``-i``; K8 in place of K1, with K2 and K3, on 10b, K1's
+   on ``-i``; K8 and its step entry in place of K1's, with K2 and K3 in
+   the table build, on 10b, K1's
    fixed-sweeps and transposed entries with K2 and K3 on 10c, K1 and K2
    on the hybrid paths, K1 with its step entry, K6 and K7 in each
    process of 13b (summed over both processes into the path
@@ -151,9 +159,9 @@ It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
 67 T/s, at the timed shapes and this run's data; ``launches`` is the
 count on the main path, or on the kernel's own path (``path``) where the
-default search does not run it; each entry of K6 and K7, and K1's step
-entry (with its epilogue's own bound and its blocks per SM), has a row
-of its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
+default search does not run it; each entry of K6 and K7, and K1's and
+K8's step entries (with the epilogue's own bound and their blocks per
+SM), has a row of its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
 reads K6 post's launches on the ``-arch multi`` golomb(12) path and its
 times from 3d; ``transports`` holds ``dcn_allgather``, a host transport and
 not a kernel, with its times from 13b), the card's name and power
@@ -341,6 +349,14 @@ def random_stores(plan, tnf, D, rng, solution):
     return lb, ub
 
 
+# K8's instantiations (csrc/wac1.cu ``wac1_kernel<STEP, SMEM>``) by the
+# mangled template arguments in their names.
+K8_KERNELS = (("K8", "wac1_kernelILb0ELb1E"),
+              ("K8's step entry", "wac1_kernelILb1ELb1E"),
+              ("K8, global-memory path", "wac1_kernelILb0ELb0E"),
+              ("K8's step entry, global-memory path", "wac1_kernelILb1ELb0E"))
+
+
 def phase_kernels(torch, dev):
     """Each kernel vs its plain version on the same CUDA tensors."""
     import numpy as np
@@ -350,6 +366,9 @@ def phase_kernels(torch, dev):
         ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
     log("  K1's step entry (-Xptxas -v): " + " | ".join(
         ptxas_lines(kbuild.build_log, "fixpoint_step_kernel")))
+    for what, kernel in K8_KERNELS:
+        log(f"  {what} (-Xptxas -v): " + " | ".join(
+            ptxas_lines(kbuild.build_log, kernel)))
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.host.solver import oracle
@@ -358,7 +377,7 @@ def phase_kernels(torch, dev):
     from turbo_tpu_torch.solver.engine import BatchedSolver
 
     errs = dict.fromkeys(("fixpoint", "fixpoint.step", "classify", "select",
-                          "wac1", "fixpoint.fixed_sweeps",
+                          "wac1", "wac1.step", "fixpoint.fixed_sweeps",
                           "fixpoint.transposed"), 0)
     times = {}
     sweeps = {}
@@ -418,9 +437,11 @@ def phase_kernels(torch, dev):
             keep = (~b)[:, None].to(res[0].dtype)
             return (res[0] * keep, res[1] * keep, res[2], res[3], b)
 
-        def step_plain(cap):
-            # K1's step entry: the fixpoint, then K2 and K3 on its result.
-            w = pk.fixpoint_plain(lb, ub, cap)
+        def step_plain(cap, inner=None):
+            # K1's or (with ``inner``) K8's step entry: the fixpoint, then
+            # K2 and K3 on its result.
+            w = (pk.fixpoint_plain(lb, ub, cap) if inner is None
+                 else pk.fixpoint_wac1_plain(lb, ub, cap, inner))
             return (w + pk.classify_plain(w[0], w[1])
                     + s._select_plain(w[0], w[1], strat))
 
@@ -449,6 +470,12 @@ def phase_kernels(torch, dev):
                         lambda c=cap, i=inner: pk.fixpoint_wac1_plain(
                             lb, ub, c, i),
                         ("w", cap, inner), nonbot))
+                    cases.append((
+                        "wac1.step",
+                        lambda c=cap, i=inner, m=smem: kernels.wac1.step(
+                            kp, lb, ub, c, i, strat, smem=m),
+                        lambda c=cap, i=inner: step_plain(c, i),
+                        ("ws", cap, inner)))
             for n in (2, 5):
                 cases.append((
                     "fixpoint.fixed_sweeps",
@@ -492,12 +519,24 @@ def phase_kernels(torch, dev):
                     fixed = name == "fixpoint.fixed_sweeps"
                     sweeps[label, name] = int(got[2].long().sum()) - (
                         0 if fixed else D)
+        # K8 and its step entry on the global-memory path, for the
+        # medians of both paths on this store.
+        for name, fn in (("wac1", lambda: kernels.wac1(kp, lb, ub, 10000, 16,
+                                                       smem=False)),
+                         ("wac1.step", lambda: kernels.wac1.step(
+                             kp, lb, ub, 10000, 16, strat, smem=False))):
+            times[label, name + " (global)"] = (median_ms(fn),)
+        log(f"  {label}: K8 ms on the shared- / global-memory path: "
+            f"{times[label, 'wac1'][0]:.4f} / "
+            f"{times[label, 'wac1 (global)'][0]:.4f}; its step entry "
+            f"{times[label, 'wac1.step'][0]:.4f} / "
+            f"{times[label, 'wac1.step (global)'][0]:.4f}")
         n_bot = int(pk.is_bot(fl, fu).sum())
         n_ent = int(pk.all_entailed(fl, fu).sum())
         log(f"  {label}: D={D} V={s.dp.V} P={s.dp.P} lin_fit32="
             f"{[b.fit32 for b in s.dp.lin]} bot lanes={n_bot} "
             f"entailed lanes={n_ent}: fixpoint (4 entries)/classify/select/"
-            f"wac1 exact; sweeps over all lanes: AC-1 "
+            f"wac1 (2 entries) exact; sweeps over all lanes: AC-1 "
             f"{sweeps[label, 'fixpoint']}, WAC1 outer {sweeps[label, 'wac1']}"
             f"; ms " + ", ".join(f"{k} {times[label, k][0]:.4f} (plain "
                                  f"{times[label, k][1]:.4f})" for k in errs))
@@ -519,18 +558,23 @@ def phase_kernels(torch, dev):
     epi_bytes = sum(kp.tensors[n].numel() * kp.tensors[n].element_size()
                     for n in EPILOGUE_TABLES) + 35 * D
     epi_bound = bound(epi_bytes, cls_ops + sel_ops)
-    blocks = {e: kernels.fixpoint.blocks_per_sm(kp, step=e == "step")
-              for e in ("fixpoint", "step")}
-    ROW_EXTRA["fixpoint.step"] = {"epilogue_bound_ms": epi_bound[0],
-                                  "epilogue_bound_by": epi_bound[1],
-                                  "blocks_per_sm": blocks["step"]}
+    blocks = {f"{k.name}{e}": k.blocks_per_sm(kp, step=e == ".step")
+              for k in (kernels.fixpoint, kernels.wac1) for e in ("", ".step")}
+    for name in ("fixpoint.step", "wac1.step"):
+        ROW_EXTRA[name] = {"epilogue_bound_ms": epi_bound[0],
+                           "epilogue_bound_by": epi_bound[1]}
+    for name, b in blocks.items():
+        ROW_EXTRA.setdefault(name, {})["blocks_per_sm"] = b
     log(f"  golomb(12), D={D}: K1's step entry "
         f"{times[g12, 'fixpoint.step'][0]:.4f} ms against K1 "
         f"{times[g12, 'fixpoint'][0]:.4f}, K2 "
         f"{times[g12, 'classify'][0]:.4f}, K3 {times[g12, 'select'][0]:.4f}"
         f"; the epilogue's own bound {epi_bound[0]:.5f} ms ({epi_bound[1]}"
         f", {epi_bytes} bytes); resident blocks per SM: K1 "
-        f"{blocks['fixpoint']}, K1's step entry {blocks['step']}")
+        f"{blocks['fixpoint']}, K1's step entry {blocks['fixpoint.step']}, "
+        f"K8 {blocks['wac1']}, K8's step entry {blocks['wac1.step']}; "
+        f"K8's step entry {times[g12, 'wac1.step'][0]:.4f} ms against K8 "
+        f"{times[g12, 'wac1'][0]:.4f}")
     bounds = {
         "fixpoint": bound(fp_bytes, sweeps[g12, "fixpoint"] * sweep_ops(dp)),
         "fixpoint.step": bound(
@@ -544,6 +588,9 @@ def phase_kernels(torch, dev):
         # iterations beyond a group's first are not counted (the kernel
         # does not return them), so this stays a lower bound.
         "wac1": bound(fp_bytes, sweeps[g12, "wac1"] * sweep_ops(dp)),
+        "wac1.step": bound(
+            fp_bytes + 35 * D, sweeps[g12, "wac1.step"] * sweep_ops(dp)
+            + cls_ops + sel_ops),
         "classify": bound(planes + tabs + 2 * D, cls_ops),
         "select": bound(planes + 9 * 4 * D, sel_ops),
     }
@@ -712,6 +759,7 @@ def phase_step_kernels(torch, dev):
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.instances import golomb, queens, random_model
+    from turbo_tpu_torch.solver import step_cuda
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
     # The first four are timed below: the step with K1, with K8, with
@@ -750,8 +798,11 @@ def phase_step_kernels(torch, dev):
         res = time_step_parts(torch, label, s, st, cap)[0]
         if out is None:  # the JSON line's K6 and K7: the step with K1
             out = res
+        if s.cfg.fp_mode in ("fixpoint", "wac1") and step_cuda.fused(s.cfg):
+            # K1's and K8's step entries against the propagation alone
+            # with K2 and K3, and without the skip.
             fused_turns(torch, label, s, st0, cap)
-            k1_turns(torch, label, s, st0, cap)
+            skip_turns(torch, label, s, st0, cap)
     return out
 
 
@@ -794,36 +845,46 @@ def phase_sharded_step_kernels(torch, dev, single):
     return k
 
 
-def k1_turns(torch, label, s, st, cap):
-    """K1's time in the step from the same state ``st``, built without
-    the skip and as built in turns (on, off, off, on)."""
+def skip_turns(torch, label, s, st, cap):
+    """The step's time from the same state ``st`` with its propagation
+    (K1, or K8 under ``wac1``) built without the skip and as built, in
+    turns (on, off, off, on); and the propagation alone on the state's
+    stores, by cap (K8 at inner cap 16): the first sweep against the
+    later ones."""
     from turbo_tpu_torch import kernels
     kp = s.kernels.kernel_plan
+    wac1 = s.cfg.fp_mode == "wac1"
+    what = "K8" if wac1 else "K1"
+
+    def alone(c):
+        if wac1:
+            return kernels.wac1(kp, st.lb, st.ub, c, s.cfg.wac1_inner_cap)
+        return kernels.fixpoint(kp, st.lb, st.ub, c)
+
     for no_skip in (False, True, True, False):
         name = "without the skip" if no_skip else "as built"
-        with k1_build(no_skip):
-            time_step_parts(torch, f"{label}, K1 {name}", s,
+        with skip_build(no_skip):
+            time_step_parts(torch, f"{label}, {what} {name}", s,
                             clone_state(st), cap)
-            # K1 alone on the state's stores, by cap: the first sweep
-            # against the later ones.
-            ms = {c: median_ms(lambda c=c: kernels.fixpoint(
-                kp, st.lb, st.ub, c)) for c in (1, 2, 4, 16)}
-            log(f"    K1 alone ({name}), ms by cap: " + ", ".join(
+            ms = {c: median_ms(lambda c=c: alone(c)) for c in (1, 2, 4, 16)}
+            log(f"    {what} alone ({name}), ms by cap: " + ", ".join(
                 f"{c}: {t:.4f}" for c, t in ms.items()))
 
 
 @contextlib.contextmanager
-def k1_build(no_skip):
-    """The wrappers launch from the build without K1's skip (its
-    ``-Xptxas -v`` line logged) when ``no_skip``, else as built."""
+def skip_build(no_skip):
+    """The wrappers launch from the build without K1's and K8's skip
+    (their ``-Xptxas -v`` lines logged) when ``no_skip``, else as
+    built."""
     from turbo_tpu_torch.kernels import build as kbuild
     if not no_skip:
         yield
         return
-    with kbuild.k1_without_skip():
+    with kbuild.without_skip():
         for what, kernel in (("K1", "fixpoint_kernel"),
-                             ("K1's step entry", "fixpoint_step_kernel")):
-            log(f"  -DTT_K1_NO_SKIP: {what} (-Xptxas -v): " + " | ".join(
+                             ("K1's step entry", "fixpoint_step_kernel"),
+                             *K8_KERNELS[:2]):
+            log(f"  -DTT_NO_SKIP: {what} (-Xptxas -v): " + " | ".join(
                 ptxas_lines(kbuild.build_log, kernel)))
         yield
 
@@ -832,8 +893,8 @@ def time_step_parts(torch, label, s, st, cap, steps=20, alone=False):
     """Each kernel entry's time inside one chunk of ``steps`` real steps
     of ``st``, launched as ``solver/step_cuda.py`` launches them (K7
     live, per step K6 head, K1's step entry or the propagation, K2 and
-    K3, K6 post, then K7 copy; ``alone``: K1's fixpoint entry, K2 and K3
-    as launches of their own in place of the step entry):
+    K3, K6 post, then K7 copy; ``alone``: K1's or K8's fixpoint entry,
+    K2 and K3 as launches of their own in place of the step entry):
     CUDA events between the launches, all enqueued before one
     synchronize (so the card does not wait on the host between them);
     and the plain step's parts (``step_pre_plain``, ``step_post_plain``,
@@ -852,13 +913,17 @@ def time_step_parts(torch, label, s, st, cap, steps=20, alone=False):
     sv = step_cuda.view(s, st, ws)
     plain_st = clone_state(st)
     fused = step_cuda.fused(s.cfg) and not alone
-    names = (("step.head", "fixpoint.step", "step.post") if fused else
+    entry = "wac1.step" if s.cfg.fp_mode == "wac1" else "fixpoint.step"
+    names = (("step.head", entry, "step.post") if fused else
              ("step.head", "propagation", "classify", "select", "step.post"))
 
     def propagate(cur):
-        if alone and step_cuda.fused(s.cfg):  # K1's fixpoint entry
-            kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur, out=(
-                st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch))
+        out = (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch)
+        if alone and s.cfg.fp_mode == "wac1":  # K8's fixpoint entry
+            kernels.wac1(kp, st.lb, st.ub, cap, s.cfg.wac1_inner_cap,
+                         live=cur, out=out)
+        elif alone and step_cuda.fused(s.cfg):  # K1's fixpoint entry
+            kernels.fixpoint(kp, st.lb, st.ub, cap, live=cur, out=out)
         else:
             step_cuda.propagate(s, st, cap, cur)
 
@@ -992,22 +1057,25 @@ def time_step_parts(torch, label, s, st, cap, steps=20, alone=False):
 
 
 def fused_turns(torch, label, s, st, cap):
-    """K1's step entry against K1's fixpoint entry followed by K2 and K3
-    as launches of their own, each inside 20 real steps from the same
-    state ``st``, in turns (step entry, alone, alone, step entry): the
-    epilogue's cost in the step entry against the separate K2 + K3."""
+    """K1's (K8's under ``wac1``) step entry against its fixpoint entry
+    followed by K2 and K3 as launches of their own, each inside 20 real
+    steps from the same state ``st``, in turns (step entry, alone, alone,
+    step entry): the epilogue's cost in the step entry against the
+    separate K2 + K3."""
+    what = "K8" if s.cfg.fp_mode == "wac1" else "K1"
+    entry = "wac1.step" if what == "K8" else "fixpoint.step"
     runs = []
     for alone in (False, True, True, False):
-        name = "K1, K2, K3 alone" if alone else "K1's step entry"
+        name = f"{what}, K2, K3 alone" if alone else f"{what}'s step entry"
         runs.append(time_step_parts(torch, f"{label}, {name}", s,
                                     clone_state(st), cap, alone=alone)[1])
-    step = [r["fixpoint.step"] for r in runs if "fixpoint.step" in r]
+    step = [r[entry] for r in runs if entry in r]
     k1 = [r["propagation"] for r in runs if "propagation" in r]
     k23 = [r["classify"] + r["select"] for r in runs if "classify" in r]
     mean = lambda xs: sum(xs) / len(xs)
     log(f"  in turns (step entry, alone, alone, step entry), ms per step: "
-        f"K1's step entry {', '.join(f'{x:.4f}' for x in step)}; K1 alone "
-        f"{', '.join(f'{x:.4f}' for x in k1)}; K2 + K3 alone "
+        f"{what}'s step entry {', '.join(f'{x:.4f}' for x in step)}; "
+        f"{what} alone {', '.join(f'{x:.4f}' for x in k1)}; K2 + K3 alone "
         f"{', '.join(f'{x:.4f}' for x in k23)}; the epilogue in the step "
         f"entry {mean(step) - mean(k1):.4f} against K2 + K3 "
         f"{mean(k23):.4f}")
@@ -1030,8 +1098,9 @@ def profile_steps(torch, fn, steps):
 
 
 # 3c: the most launches a step of a 16-step chunk may take, by whether
-# K1's step entry classifies and selects (3.125 with K7 live and K7 copy
-# once a chunk) or K2 and K3 run as launches of their own (5.125).
+# K1's or K8's step entry classifies and selects (3.125 with K7 live and
+# K7 copy once a chunk) or K2 and K3 run as launches of their own
+# (5.125: ``fixed``, ``vd``).
 MAX_LAUNCHES_PER_STEP = {True: 3.2, False: 5.2}
 
 
@@ -1042,9 +1111,9 @@ def phase_step_loop(torch, dev, label, kw, full=True, chunk=16, cap=16,
     launches, wall and device time per step, for the kernels launched one
     by one and the same chunk replayed as a CUDA graph (the route
     ``run_steps`` takes once a chunk repeats); ``full``: the profile of
-    both routes and the plain step too; ``no_skip``: K1 from the build
-    without its skip. Returns the graph route's wall ms per step."""
-    with k1_build(no_skip):
+    both routes and the plain step too; ``no_skip``: the kernels from the
+    build without the skip. Returns the graph route's wall ms per step."""
+    with skip_build(no_skip):
         return _step_loop(torch, dev, label, kw, full, chunk, cap)
 
 
@@ -1084,7 +1153,7 @@ def _step_loop(torch, dev, label, kw, full, chunk, cap):
         log(f"    {route}: {n} steps, {per / chunk:.3f} launches of the "
             f"port's kernels per step, wall {wall / n * 1e3:.3f} ms per step "
             f"(enqueue {enq / n * 1e3:.3f}); no host sync")
-        # 3 launches a step (5 unless fused) and 2 a chunk
+        # 3 launches a step (5 under "fixed" and "vd") and 2 a chunk
         # (solver/step_cuda.py).
         most = MAX_LAUNCHES_PER_STEP[step_cuda.fused(s.cfg)]
         if per / chunk > most:
@@ -1479,11 +1548,16 @@ def run_option_paths(torch, dev, big=12):
     log(f"[10b] -fp wac1: golomb({big}), card CLI, -or 0, -t 30000")
     c = paths[WAC1] = counted(
         f"-fp wac1, golomb({big})", cli_big("-fp wac1", 30, "-fp", "wac1"),
-        required=("wac1",) + rest + table_kernels)
-    # K8 ran in every level of the table build and in every step, K1 never.
-    if c["fixpoint"] != 0 or c["wac1"] != c["step.head"] + c["embed.embed"]:
-        fail(f"-fp wac1: K8 launches {c['wac1']} != steps {c['step.head']} + "
-             f"table levels {c['embed.embed']}, or K1 ran ({c['fixpoint']})")
+        required=("wac1", "wac1.wac1", "wac1.step") + rest + table_kernels)
+    # K8's step entry ran in every step, K8 alone, K2 and K3 in every level
+    # of the table build, K1 never.
+    if (c["fixpoint"] != 0 or c["wac1.step"] != c["step.head"]
+            or not c["wac1.wac1"] == c["classify"] == c["select"]
+            == c["embed.embed"]):
+        fail(f"-fp wac1: K8's step entry {c['wac1.step']} for "
+             f"{c['step.head']} steps; K8 {c['wac1.wac1']}, K2 "
+             f"{c['classify']}, K3 {c['select']} for {c['embed.embed']} "
+             f"table levels; K1 {c['fixpoint']}")
 
     log(f"[10c] fp_mode fixed and fp_layout vd: golomb({big}), D=512, solver "
         f"API, 8 s each")
@@ -2131,17 +2205,19 @@ def main():
         for p, c in paths.items()))
     if "jax" in sys.modules or "turbo_tpu" in sys.modules:
         fail("jax or the turbo_tpu package was imported")
-    # One entry per kernel, and one per entry point of K1 that replaces a
+    # One entry per kernel, and one per entry point of K1 and K8 that replaces a
     # JAX function of its own. ``launches`` is read on the main path, or,
     # for a kernel the default search does not run, on its own path.
     # (name, kernel, replaces, path, launch-count key)
     k1 = kernels.fixpoint
     listed = [(k.name, k, k.replaces, WAC1 if k is kernels.wac1 else MAIN,
                k.name) for k in kernels.KERNELS]
-    listed += [(f"{k1.name}.{e}", k1, k1.ENTRY_REPLACES[e], path,
-                f"{k1.name}.{e}")
-               for e, path in (("step", MAIN), ("fixed_sweeps", FIXED),
-                               ("transposed", VD))]
+    listed += [(f"{k.name}.{e}", k, k.ENTRY_REPLACES[e], path,
+                f"{k.name}.{e}")
+               for k, e, path in ((k1, "step", MAIN),
+                                  (k1, "fixed_sweeps", FIXED),
+                                  (k1, "transposed", VD),
+                                  (kernels.wac1, "step", WAC1))]
     # Each entry of K6 and K7 on its own.
     listed += [(f"{k.name}.{e}", k, k.replaces, MAIN, f"{k.name}.{e}")
                for k in (kernels.step, kernels.step_tail) for e in k.ENTRIES]

@@ -5,8 +5,8 @@ this file transliterates them line for line into scalar Python over the
 very tables the wrappers upload (``kernel_tables``): one dive at a time,
 K1's scatter-meet into the second store routed by ``slot_tgt``, the
 clamp pass and the skip of rules whose variables did not move; the block
-argmin; K8 (WAC1) pass by pass, candidates first and the meets after;
-and K6/K7 (the step around K1-K3) one lane at a time over the state.
+argmin; K8 (WAC1) pass by pass, scatter-met into a second store routed by
+the variables, with its claims, moved list and dirty rules; and K6/K7 (the step around K1-K3) one lane at a time over the state.
 The emulation must equal the plain torch versions, which
 ``test_torch_propagate.py`` and ``test_torch_engine.py`` hold to the
 JAX package. The real kernels
@@ -228,23 +228,12 @@ def rules(t):
                lambda lb, ub, r=r: linear_cands(t, r, lb, ub))
 
 
-def phase_a(t, lb, ub):
-    """Every rule's candidates from one store, in the candidate planes
-    (K8 meets a pass's slots after the pass)."""
-    cl = [None] * t["n_cand"]
-    cu = [None] * t["n_cand"]
-    for _, cands in rules(t):
-        for s, lo, hi in cands(lb, ub):
-            cl[s], cu[s] = lo, hi
-    return cl, cu
-
-
 def emulate_fixpoint(t, lb_row, ub_row, cap, fixed=False, skip=True,
                      trace=None, seen=None):
     """fixpoint.cu's ``sweep_loop`` and what its kernel writes; ``fixed``:
     the ``tt_fixed_sweeps`` entry (exactly ``cap`` sweeps); ``skip``:
     from the second sweep on, run only the rules with a variable that
-    moved in the sweep before (``skip=False``: the TT_K1_NO_SKIP build).
+    moved in the sweep before (``skip=False``: the TT_NO_SKIP build).
     The kernel gathers the TNF rules to run into a worklist first and
     meets in any order; max and min make the order immaterial, so the
     rules run here in plan order.
@@ -296,75 +285,143 @@ def emulate_fixpoint(t, lb_row, ub_row, cap, fixed=False, skip=True,
     return al, au, iters + 1, m
 
 
-def meet(t, lb, ub, v, l, u):
-    """wac1.cu's ``meet``: the candidate clamped to the root box, then
-    atomicMax / atomicMin into the store; whether a bound moved."""
-    l, u = min(l, t["ub_cap"][v]), max(u, t["lb_floor"][v])
-    ch = l > lb[v] or u < ub[v]
-    lb[v], ub[v] = max(lb[v], l), min(ub[v], u)
-    return ch
+def wac1_passes(t):
+    """K8's passes in order, as (pass, its first rule id, its rules): each
+    op-group over ``tnf4`` (the kernel's TNF table), then the element
+    rows, the membership rows and each linear bucket; rules are numbered
+    TNF, element, membership, linear rows, and a rule is (its variables,
+    its candidates (slot, var, lo, hi) from a store)."""
+    P = t["P"]
+
+    def tnf(i):
+        op, x, y, z = t["tnf4"][4 * i:4 * i + 4]  # one int4 load
+
+        def cands(lb, ub):
+            c = deduce(op, lb[x], ub[x], lb[y], ub[y], lb[z], ub[z])
+            return [(r * P + i, v, c[2 * r], c[2 * r + 1])
+                    for r, v in enumerate((x, y, z))]
+        return (x, y, z), cands
+
+    def routed(cands):  # the target variable of each slot
+        return lambda lb, ub: [(sl, slot_var(t, sl), lo, hi)
+                               for sl, lo, hi in cands(lb, ub)]
+
+    passes = [(g, t["g_off"][g],
+               [tnf(i) for i in range(t["g_off"][g], t["g_off"][g + 1])])
+              for g in range(t["G"])]
+    E0, M0 = P + t["E"], P + t["E"] + t["M"]
+    if t["E"]:
+        passes.append((t["G"], P, [((t["e_idx"][i], t["e_res"][i]), routed(
+            lambda lb, ub, i=i: elem_cands(t, i, lb, ub)))
+            for i in range(t["E"])]))
+    if t["M"]:
+        passes.append((t["G"] + 1, E0, [((t["m_x"][i], t["m_b"][i]), routed(
+            lambda lb, ub, i=i: member_cands(t, i, lb, ub)))
+            for i in range(t["M"])]))
+    for k in range(t["LB"]):
+        rows = []
+        for r in range(t["lb_off"][k], t["lb_off"][k + 1]):
+            o = t["l_toff"][r]
+            rows.append(((t["l_b"][r], *t["l_var"][o:o + t["l_K"][r]]),
+                         routed(lambda lb, ub, r=r: linear_cands(t, r, lb,
+                                                                 ub))))
+        passes.append((t["G"] + 2 + k, M0 + t["lb_off"][k], rows))
+    return passes
 
 
-def emulate_wac1(t, lb_row, ub_row, cap, inner_cap):
-    """wac1.cu, one dive: every pass computes its candidates from the
-    store (``phase_a`` computes all of them; a pass reads its own slots)
-    and only then meets them into it."""
-    lb, ub = [int(v) for v in lb_row], [int(v) for v in ub_row]
-    V, P, E, M = t["V"], t["P"], t["E"], t["M"]
-    bot = any(lb[v] > ub[v] for v in range(V))
+def emulate_wac1(t, lb_row, ub_row, cap, inner_cap, skip=True, trace=None,
+                 stats=None):
+    """wac1.cu's ``sweep_loop`` for one dive and what its kernel writes.
+    A pass whose bit of ``pend`` is clear runs nothing and has no
+    barrier; otherwise its dirty rules (all of them on the first sweep,
+    or with ``skip`` False: the TT_NO_SKIP build) compute candidates from
+    A, clear their bits and meet the candidates, clamped to the root box,
+    into B; a variable moved past A is claimed and listed once; after the
+    barrier the listed variables are copied into A, unclaimed and tested
+    for an empty domain, their ``v_pass`` bits set ``pend`` and the rules
+    the CSR ``v_roff`` / ``v_rule`` lists for them turn dirty. The kernel
+    meets in any order; max and min make the order immaterial, so the
+    rules run here in plan order. ``trace`` collects (pass, A lb, A ub)
+    after each pass that moved a variable; ``stats`` counts per pass the
+    rules run (``"ran"``), the rules of the passes that ran
+    (``"held"``), the passes run (``"runs"``) and skipped whole
+    (``"skipped"``)."""
+    al, au = [int(v) for v in lb_row], [int(v) for v in ub_row]
+    bl, bu = al[:], au[:]
+    V, G = t["V"], t["G"]
+    dirty = [True] * (t["P"] + t["E"] + t["M"] + t["L"])
+    vp = [x & 0xFFFFFFFF for x in t["v_pass"]]
+    pend = [0xFFFFFFFF]
+    bot = any(al[v] > au[v] for v in range(V))
+    passes = wac1_passes(t)
+
+    def bit(s):
+        return 1 << min(s, 31)
+
+    def run_pass(s, r0, rules):
+        nonlocal bot
+        st = stats.setdefault(s, dict(ran=0, held=0, runs=0, skipped=0)) \
+            if stats is not None else None
+        if skip and not pend[0] & bit(s):
+            if st is not None:
+                st["skipped"] += 1
+            return False
+        moved, claimed = [], set()
+        for j, (_, cands) in enumerate(rules):
+            if skip and not dirty[r0 + j]:
+                continue
+            dirty[r0 + j] = False
+            if st is not None:
+                st["ran"] += 1
+            for _, v, lo, hi in cands(al, au):
+                m = False
+                if lo > al[v]:  # the root box is read only past A
+                    lo = min(lo, t["ub_cap"][v])
+                    if lo > al[v]:
+                        bl[v], m = max(bl[v], lo), True
+                if hi < au[v]:
+                    hi = max(hi, t["lb_floor"][v])
+                    if hi < au[v]:
+                        bu[v], m = min(bu[v], hi), True
+                if m and v not in claimed:  # the claim bit: listed once
+                    claimed.add(v)
+                    moved.append(v)
+        if st is not None:
+            st["held"] += len(rules)
+            st["runs"] += 1
+        if s < 31:
+            pend[0] &= ~(1 << s)
+        if not moved:
+            return False
+        for v in moved:
+            al[v], au[v] = bl[v], bu[v]
+            bot |= al[v] > au[v]
+            pend[0] |= vp[v]
+            if skip:
+                for e in range(t["v_roff"][v], t["v_roff"][v + 1]):
+                    dirty[t["v_rule"][e]] = True
+        if trace is not None:
+            trace.append((s, al[:], au[:]))
+        return True
+
     sweeps, it, m = 0, 0, True
     while m and it < cap:
         changed = False
-        for g in range(t["G"]):
-            a, b = t["g_off"][g], t["g_off"][g + 1]
-            for _ in range(inner_cap):
-                cl, cu = phase_a(t, lb, ub)
-                ch = False
-                for i in range(a, b):
-                    for r, role in enumerate(("px", "py", "pz")):
-                        ch |= meet(t, lb, ub, t[role][i], cl[r * P + i],
-                                   cu[r * P + i])
-                changed |= ch
-                if not ch:
+        for s, r0, rules in passes:
+            if s < G:  # an op-group, to its local fixpoint
+                if s > 0 and bot:
                     break
-                bot = bot or any(lb[t[role][i]] > ub[t[role][i]]
-                                 for i in range(a, b)
-                                 for role in ("px", "py", "pz"))
-                if bot:
-                    break
-            if bot:
-                break
-        if not bot:
-            ch = False
-            if E:
-                cl, cu = phase_a(t, lb, ub)
-                for i in range(E):
-                    s = 3 * P + i
-                    ch |= meet(t, lb, ub, t["e_idx"][i], cl[s], cu[s])
-                    ch |= meet(t, lb, ub, t["e_res"][i], cl[s + E], cu[s + E])
-            if M:
-                cl, cu = phase_a(t, lb, ub)
-                for i in range(M):
-                    s = 3 * P + 2 * E + i
-                    ch |= meet(t, lb, ub, t["m_x"][i], cl[s], cu[s])
-                    ch |= meet(t, lb, ub, t["m_b"][i], cl[s + M], cu[s + M])
-            for k in range(t["LB"]):
-                cl, cu = phase_a(t, lb, ub)
-                for r in range(t["lb_off"][k], t["lb_off"][k + 1]):
-                    o = t["l_toff"][r]
-                    for j in range(t["l_K"][r]):
-                        if t["l_coef"][o + j] != 0:
-                            s = t["base_lin"] + o + j
-                            ch |= meet(t, lb, ub, t["l_var"][o + j], cl[s],
-                                       cu[s])
-                    s = t["base_linb"] + r
-                    ch |= meet(t, lb, ub, t["l_b"][r], cl[s], cu[s])
-            changed |= ch
-            bot = any(lb[v] > ub[v] for v in range(V))
+                for _ in range(inner_cap):
+                    ch = run_pass(s, r0, rules)
+                    changed |= ch
+                    if not ch or bot:
+                        break
+            elif not bot:  # every row pass, once the groups left no bot
+                changed |= run_pass(s, r0, rules)
         sweeps += 1
         it += 1
         m = changed and not bot
-    return lb, ub, sweeps + 1, m
+    return al, au, sweeps + 1, m
 
 
 def tnf_ask(t, i, lb, ub):
@@ -484,6 +541,16 @@ def emulate_fixpoint_step(t, lb_row, ub_row, cap, strat, stats=None):
             + tuple(emulate_select(t, el, eu, strat)))
 
 
+def emulate_wac1_step(t, lb_row, ub_row, cap, inner_cap, strat):
+    """wac1.cu's ``tt_wac1_step`` for one dive: the fixpoint of
+    ``tt_wac1``, then ``classify_block`` and ``select_block`` on the
+    block's final store (A). Returns the 14 outputs of
+    ``kernels.wac1.step``, lanes as lists."""
+    el, eu, ei, em = emulate_wac1(t, lb_row, ub_row, cap, inner_cap)
+    return ((el, eu, ei, em) + emulate_classify(t, el, eu)
+            + tuple(emulate_select(t, el, eu, strat)))
+
+
 def _case(seed):
     text = golomb(4) if seed < 0 else random_model(seed, n_vars=7, n_cons=18)
     tnf = compile_model(parse_fzn_text(text))
@@ -532,10 +599,11 @@ def test_kernel_emulation_matches_plain(seed):
 
 
 def _fused_case(case):
-    """A _case (seed) or golomb(8) at D=8, with lane 0's cursor past
-    every strategy (the strategy-0 default) and lane 1 bot."""
-    if case == "golomb8":
-        tnf = compile_model(parse_fzn_text(golomb(8)))
+    """A _case (seed), golomb(8) or golomb(12) at D=8, with lane 0's
+    cursor past every strategy (the strategy-0 default) and lane 1 bot;
+    golomb(8)'s lane 2 is fixed at a solution."""
+    if case in ("golomb8", "golomb12"):
+        tnf = compile_model(parse_fzn_text(golomb(int(case[6:]))))
         s = BatchedSolver(tnf, EngineConfig(num_dives=8, max_depth=64,
                                             use_table=False,
                                             fp_cap_auto=False), device="cpu")
@@ -543,9 +611,10 @@ def _fused_case(case):
         plan = s.plan
         lb = np.tile(plan.lb0, (8, 1)).astype(np.int32)
         ub = np.tile(plan.ub0, (8, 1)).astype(np.int32)
-        sol = oracle.solve(tnf, timeout_s=60).best_lb
-        keep = ~plan.dropped
-        lb[2, plan.perm[keep]] = ub[2, plan.perm[keep]] = sol[keep]
+        if case == "golomb8":
+            sol = oracle.solve(tnf, timeout_s=60).best_lb
+            keep = ~plan.dropped
+            lb[2, plan.perm[keep]] = ub[2, plan.perm[keep]] = sol[keep]
         for d in range(3, 8):  # the first marks fixed at random
             for v in range(d):
                 lb[d, v] = ub[d, v] = rng.integers(lb[d, v], ub[d, v] + 1)
@@ -599,12 +668,19 @@ def flat_tables(s):
                 if isinstance(v, np.ndarray) else v) for k, v in t.items()}
 
 
-@pytest.mark.parametrize("seed", [-1, 0, 1, 2, 3])
-def test_wac1_kernel_emulation_matches_plain(seed):
+def _wac1_case(case):
+    """A _case (seed), or a _fused_case of golomb(8) or golomb(12)."""
+    if isinstance(case, str):
+        return _fused_case(case)
+    return _case(case)
+
+
+@pytest.mark.parametrize("case", [-1, 0, 1, 2, 3, "golomb8", "golomb12"])
+def test_wac1_kernel_emulation_matches_plain(case):
     """K8 as transliterated above against ``fixpoint_wac1_plain``, every
     lane and output, at outer caps 10000 and 2 and inner caps 16 and 1;
     the group and bucket offsets the kernel walks are the plan's."""
-    s, lb, ub, _ = _case(seed)
+    s, lb, ub, _ = _wac1_case(case)
     t = flat_tables(s)
     assert t["g_off"] == [0] + [b for _, _, b in s.dp.group_slices]
     assert t["G"] == len(s.dp.group_slices) and t["g_off"][-1] == t["P"]
@@ -619,6 +695,33 @@ def test_wac1_kernel_emulation_matches_plain(seed):
                                               ub[d].tolist(), cap, inner)
                 assert el == pl[d].tolist() and eu == pu[d].tolist(), (cap, d)
                 assert (ei, em) == (int(pi[d]), bool(pm[d])), (cap, inner, d)
+
+
+@pytest.mark.parametrize("case", [-1, 0, 1, 2, 3, "golomb8"])
+def test_wac1_step_emulation_matches_plain(case):
+    """K8's step entry (the fixpoint, then K2 and K3 on the block's final
+    store) as transliterated above equals ``fixpoint_wac1_plain``, then
+    ``classify_plain`` and ``_select_plain`` on its result, on every lane
+    and output at outer caps 10000 and 2 and inner caps 16 and 1: bot
+    lanes, entailed lanes and a cursor past every strategy included."""
+    s, lb, ub, strat = _fused_case(case)
+    t = flat_tables(s)
+    seen = {"bot": 0, "ent": 0, "default": 0}
+    for cap in (10000, 2):
+        for inner in (16, 1):
+            want = s.kernels.fixpoint_wac1_plain(lb, ub, cap, inner)
+            want += s.kernels.classify_plain(*want[:2])
+            want += s._select_plain(*want[:2], strat)
+            for d in range(lb.shape[0]):
+                got = emulate_wac1_step(t, lb[d].tolist(), ub[d].tolist(),
+                                        cap, inner, int(strat[d]))
+                assert got[:2] == (want[0][d].tolist(), want[1][d].tolist())
+                assert tuple(int(x) for x in got[2:]) == tuple(
+                    int(w[d]) for w in want[2:]), (cap, inner, d)
+                seen["bot"] += bool(want[4][d])
+                seen["ent"] += bool(want[5][d] & ~want[4][d])
+                seen["default"] += not bool(want[6][d])
+    assert all(seen.values()), seen
 
 
 @pytest.mark.parametrize("seed", [-1, 0, 1, 2, 3])
@@ -760,6 +863,50 @@ def test_skip_is_exact(seed):
     assert ran[True] < ran[False]
 
 
+@pytest.mark.parametrize("case", [-1, 0, 5, 7, 10, 12, "golomb8"])
+def test_wac1_skip_is_exact(case):
+    """K8's skip (passes whose bit of ``pend`` is clear, and rules that
+    are not dirty: no variable moved since their pass last ran) gives,
+    pass by pass, the
+    same stores as running every rule of every pass (the TT_NO_SKIP
+    build; a pass that moves nothing leaves no trace), and the same
+    sweeps, unconv and bot, at outer caps 10000 and 2 and inner caps 16
+    and 1 (tolerance 0); both equal the plain version, and the skip runs
+    fewer rules. ``v_pass`` has each pass's bit on every variable its
+    rules read, and the CSR ``v_roff`` / ``v_rule`` lists every rule that
+    reads each variable."""
+    s, lb, ub, _ = _wac1_case(case)
+    t = flat_tables(s)
+    vp = [x & 0xFFFFFFFF for x in t["v_pass"]]
+    readers = [set() for _ in range(t["V"])]
+    for k, r0, rules in wac1_passes(t):
+        for j, (vs, _) in enumerate(rules):
+            assert all(vp[v] >> min(k, 31) & 1 for v in vs), (k, vs)
+            for v in vs:
+                readers[v].add(r0 + j)
+    for v in range(t["V"]):  # the CSR lists the rules that read v
+        assert set(t["v_rule"][t["v_roff"][v]:t["v_roff"][v + 1]]) == \
+            readers[v], v
+    ran = {True: 0, False: 0}
+    for cap in (10000, 2):
+        for inner in (16, 1):
+            want = s.kernels.fixpoint_wac1_plain(lb, ub, cap, inner)
+            for d in range(lb.shape[0]):
+                res, traces = {}, {}
+                for skip in (True, False):
+                    traces[skip], stats = [], {}
+                    res[skip] = emulate_wac1(t, lb[d].tolist(),
+                                             ub[d].tolist(), cap, inner,
+                                             skip, traces[skip], stats)
+                    ran[skip] += sum(x["ran"] for x in stats.values())
+                assert traces[True] == traces[False], (cap, inner, d)
+                assert res[True] == res[False], (cap, inner, d)
+                assert res[True][:2] == (want[0][d].tolist(),
+                                         want[1][d].tolist())
+                assert res[True][2:] == (int(want[2][d]), bool(want[3][d]))
+    assert ran[True] < ran[False]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [-1, 0, 1])
 def test_cuda_wac1_fixed_transposed_match_plain(seed):
@@ -787,6 +934,38 @@ def test_cuda_wac1_fixed_transposed_match_plain(seed):
                                                       smem=smem),
                         pk.fixed_sweeps_plain(glb, gub, 3)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [-1, 0, 1, "golomb8", "golomb12"])
+def test_cuda_wac1_step_matches_plain(case):
+    """K8 and its step entry against ``fixpoint_wac1_plain``, then
+    ``classify_plain`` and ``_select_plain`` on its result, every output
+    exactly, on the shared- and the global-memory path at outer caps
+    10000 and 2 and inner caps 16 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from turbo_tpu_torch import kernels
+    s, lb, ub, strat = _fused_case(case) if isinstance(case, str) else \
+        _case(case)
+    dev = torch.device("cuda:0")
+    sc = BatchedSolver(s.tnf, s.cfg, device=dev)
+    kp, pk = sc.kernels.kernel_plan, sc.kernels
+    glb, gub, gst = lb.to(dev), ub.to(dev), strat.to(dev)
+    for smem in (True, False):
+        for cap in (10000, 2):
+            for inner in (16, 1):
+                want = pk.fixpoint_wac1_plain(glb, gub, cap, inner)
+                for g, w in zip(kernels.wac1(kp, glb, gub, cap, inner,
+                                             smem=smem), want):
+                    assert torch.equal(g, w), (smem, cap, inner)
+                want += pk.classify_plain(*want[:2])
+                want += sc._select_plain(*want[:2], gst)
+                got = kernels.wac1.step(kp, glb, gub, cap, inner, gst,
+                                        smem=smem)
+                assert len(got) == len(want) == 14
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (smem, cap, inner)
 
 
 @pytest.mark.cuda
@@ -1264,8 +1443,8 @@ def test_chunk_launch_sequence(n, mode, monkeypatch):
     under the default ``fp_mode="fixpoint"``: K7 live, then per step K6
     head, K1's step entry (K2 and K3 in its blocks, writing the
     workspace's bot, ent and selection from strat0) and K6 post, then K7
-    copy; under ``fp_mode="wac1"`` 5n + 2, with K8, K2 and K3 in place of
-    the step entry. Each reads the right live word (step i reads word
+    copy; under ``fp_mode="wac1"`` also 3n + 2, with K8's step entry in
+    place of K1's. Each reads the right live word (step i reads word
     i % 2, its post writes the other, its head copies under the previous
     step's word, the first head copies nothing) on a CPU workspace with
     the wrappers replaced by recorders. The tickets of the shard scan
@@ -1288,19 +1467,29 @@ def test_chunk_launch_sequence(n, mode, monkeypatch):
     def rec(name, *words):
         calls.append((name,) + words)
 
+    def step_out(lb, ub, strat, out):
+        ws = s._ws
+        assert lb is st.lb and ub is st.ub and strat is ws.strat0
+        assert all(a is b for a, b in zip(
+            out, (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch,
+                  ws.bot, ws.ent) + ws.sel)) and len(out) == 15
+
     class K1:
         def scratch(self, kp, D):
             return None
 
         def step(self, kp, lb, ub, cap, strat, live, out):
-            ws = s._ws
-            assert lb is st.lb and ub is st.ub and strat is ws.strat0
-            assert all(a is b for a, b in zip(
-                out, (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch,
-                      ws.bot, ws.ent) + ws.sel)) and len(out) == 15
+            step_out(lb, ub, strat, out)
             rec("fixpoint.step", live)
 
+    class K8(K1):
+        def step(self, kp, lb, ub, cap, inner, strat, live, out):
+            assert inner == s.cfg.wac1_inner_cap
+            step_out(lb, ub, strat, out)
+            rec("wac1.step", live)
+
     monkeypatch.setattr(kernels, "fixpoint", K1())
+    monkeypatch.setattr(kernels, "wac1", K8())
     ws = s._ws = step_cuda.Workspace(s, st.phase.shape[0])
     assert ws.tail_sync.tolist() == [0, 0, 2 ** 31 - 1, 0, 0, 0]
     monkeypatch.setattr(kernels.step_tail, "live",
@@ -1312,9 +1501,6 @@ def test_chunk_launch_sequence(n, mode, monkeypatch):
     monkeypatch.setattr(kernels.step, "post",
                         lambda sv, live, nxt, dev, smem: rec("post", live,
                                                              nxt))
-    monkeypatch.setattr(kernels, "wac1",
-                        lambda kp, lb, ub, cap, inner, live, out: rec(
-                            "wac1", live))
     monkeypatch.setattr(kernels, "classify",
                         lambda kp, lb, ub, live, out: rec("classify", live))
     monkeypatch.setattr(kernels, "select",
@@ -1322,15 +1508,14 @@ def test_chunk_launch_sequence(n, mode, monkeypatch):
                                                                  live))
     step_cuda._enqueue(s, st, None, n, 16)
     w = ws.live
-    middle = (("fixpoint.step",) if mode == "fixpoint"
-              else ("wac1", "classify", "select"))
+    middle = ("fixpoint.step",) if mode == "fixpoint" else ("wac1.step",)
     want = [("live", w[0])]
     for i in range(n):
         cur, nxt = w[i % 2], w[1 - i % 2]
         want += ([("head", w[1 - i % 2] if i else None, cur)]
                  + [(m, cur) for m in middle] + [("post", cur, nxt)])
     want.append(("copy", w[(n - 1) % 2]))
-    assert len(calls) == (3 if mode == "fixpoint" else 5) * n + 2
+    assert len(calls) == 3 * n + 2
     assert [c[0] for c in calls] == [c[0] for c in want]
     for got, exp in zip(calls, want):
         assert all(a is b for a, b in zip(got[1:], exp[1:])), (got, exp)

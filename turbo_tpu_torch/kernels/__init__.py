@@ -23,7 +23,10 @@ one thread block per dive (or table row):
 - ``step_tail`` (K7): the chunk's live flag (``step_tail.live``) and
   the last step's refill and ring rows (``step_tail.copy``);
 - ``wac1`` (K8): WAC1 propagation (per op-group local fixpoints, then
-  the element, membership and linear passes) to the fixpoint or the cap.
+  the element, membership and linear passes) to the fixpoint or the cap;
+  ``wac1.step``: the same, then K2's and K3's bodies on each dive's
+  result in the same block (the search step's launch under
+  ``fp_mode="wac1"``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty`` unless the caller passes them
@@ -50,22 +53,20 @@ class PlanView(ctypes.Structure):
     """Mirror of ``struct PlanView`` in csrc/common.cuh."""
     _fields_ = [(n, ctypes.c_int if t == "i" else ctypes.c_void_p)
                 for n, t in (
-                    ("V", "i"), ("P", "i"), ("n_cand", "i"),
-                    ("prop_op", "p"), ("px", "p"), ("py", "p"), ("pz", "p"),
-                    ("G", "i"), ("g_off", "p"),
+                    ("V", "i"), ("P", "i"), ("G", "i"), ("g_off", "p"),
                     ("E", "i"), ("T", "i"), ("e_idx", "p"), ("e_res", "p"),
                     ("e_len", "p"), ("e_tab", "p"), ("M", "i"), ("W", "i"),
                     ("m_x", "p"), ("m_b", "p"), ("m_base", "p"),
                     ("m_top", "p"), ("m_cnt", "p"), ("m_next_ge", "p"),
                     ("m_prev_le", "p"), ("m_next_out", "p"),
                     ("m_prev_out", "p"), ("L", "i"), ("base_lin", "i"),
-                    ("base_linb", "i"), ("l_b", "p"), ("l_rhs", "p"),
-                    ("l_K", "p"), ("l_toff", "p"), ("l_coef", "p"),
-                    ("l_var", "p"), ("l_head", "p"), ("l_term", "p"),
-                    ("LB", "i"), ("lb_off", "p"), ("slot_tgt", "p"),
-                    ("tnf4", "p"), ("lb_floor", "p"),
-                    ("ub_cap", "p"), ("S", "i"), ("s_off", "p"),
-                    ("s_ids", "p"), ("s_vo", "p"), ("s_valo", "p"))]
+                    ("base_linb", "i"), ("l_rhs", "p"), ("l_head", "p"),
+                    ("l_term", "p"), ("LB", "i"), ("lb_off", "p"),
+                    ("slot_tgt", "p"), ("tnf4", "p"), ("lb_floor", "p"),
+                    ("ub_cap", "p"), ("v_pass", "p"), ("v_roff", "p"),
+                    ("v_rule", "p"), ("S", "i"),
+                    ("s_off", "p"), ("s_ids", "p"), ("s_vo", "p"),
+                    ("s_valo", "p"))]
 
 
 def kernel_tables(dp) -> dict:
@@ -124,11 +125,40 @@ def kernel_tables(dp) -> dict:
     slot_tgt[conf, 1] = conf_off
     s_ids = [n(t) for t in dp.strat_ids]
     base_lin = 3 * dp.P + 2 * dp.E + 2 * dp.M
+    # K8's passes in order: the op-groups, the element rows, the
+    # membership rows, the linear buckets; bit min(pass, 31) of v_pass[v]
+    # is set when a rule of the pass reads v.
+    G = len(dp.group_slices)
+    readers = [np.concatenate([n(dp.all_x[a:b]), n(dp.all_y[a:b]),
+                               n(dp.all_z[a:b])])
+               for _, a, b in dp.group_slices]
+    readers += [np.concatenate([n(dp.e_idx), n(dp.e_res)]),
+                np.concatenate([n(dp.m_x), n(dp.m_b)])]
+    readers += [np.concatenate([n(bk.var).reshape(-1), n(bk.b)])
+                for bk in dp.lin]
+    v_pass = np.zeros(dp.V, np.int64)
+    for k, vs in enumerate(readers):
+        v_pass[vs.astype(np.int64)] |= 1 << min(k, 31)
+    assert len(readers) == G + 2 + len(dp.lin)
+    # K8's rules in one numbering (TNF, element, membership, linear rows)
+    # and, as a CSR by variable, the rules that read each variable.
+    rule_vars = [np.stack([n(dp.all_x), n(dp.all_y), n(dp.all_z)], axis=1),
+                 np.stack([n(dp.e_idx), n(dp.e_res)], axis=1),
+                 np.stack([n(dp.m_x), n(dp.m_b)], axis=1)]
+    rule_vars += [np.concatenate([n(bk.b)[:, None], n(bk.var)], axis=1)
+                  for bk in dp.lin]
+    rv = np.concatenate([np.repeat(np.arange(len(x)) + sum(
+        len(y) for y in rule_vars[:k]), x.shape[1]) for k, x in
+        enumerate(rule_vars)] or [np.zeros(0, np.int64)])
+    vv = np.concatenate([x.reshape(-1) for x in rule_vars] or
+                        [np.zeros(0, np.int64)]).astype(np.int64)
+    order = np.argsort(vv, kind="stable")
+    v_roff = np.concatenate([[0], np.cumsum(np.bincount(vv, minlength=dp.V))])
     i32 = np.int32
     tabs = dict(
         V=dp.V, n_active=dp.n_active, P=dp.P, n_cand=dp.n_cand,
         prop_op=n(dp.prop_op), px=n(dp.all_x), py=n(dp.all_y), pz=n(dp.all_z),
-        G=len(dp.group_slices), g_off=np.asarray(g_off, i32),
+        G=G, g_off=np.asarray(g_off, i32),
         E=dp.E, T=int(dp.e_tab.shape[1]), e_idx=n(dp.e_idx),
         e_res=n(dp.e_res), e_len=n(dp.e_len), e_tab=n(dp.e_tab),
         M=dp.M, W=dp.m_W, m_x=n(dp.m_x), m_b=n(dp.m_b),
@@ -154,6 +184,9 @@ def kernel_tables(dp) -> dict:
         tnf4=np.stack([n(dp.prop_op), n(dp.all_x), n(dp.all_y),
                        n(dp.all_z)], axis=1).reshape(-1),
         lb_floor=n(dp.lb_floor), ub_cap=n(dp.ub_cap),
+        # uint32 in the kernel: bit 31 wraps to the int32 sign.
+        v_pass=(v_pass - ((v_pass >> 31) << 32)),
+        v_roff=v_roff, v_rule=rv[order],
         S=len(s_ids),
         s_off=np.cumsum([0] + [len(s) for s in s_ids]).astype(i32),
         s_ids=cat(s_ids, i32), s_vo=np.asarray(dp.strat_vo, i32),
@@ -259,9 +292,10 @@ def _stream(t):
     return _stream_of(t.device)
 
 
-# Static shared memory that K1's launches leave beside the dynamic one
-# (csrc/fixpoint.cu ``TT_STATIC_SMEM``: the step entry's K2 and K3 words).
-FIXPOINT_STATIC_SMEM = 128
+# Static shared memory that K1's and K8's launches leave beside the
+# dynamic one (csrc/epilogue.cuh ``TT_STATIC_SMEM``: the step entries'
+# K2 and K3 words).
+STATIC_SMEM = 128
 
 
 def fixpoint_smem_bytes(view) -> int:
@@ -276,6 +310,31 @@ def fixpoint_scratch_shape(D: int, view) -> tuple:
     per dive the store B (2 V int32), the worklist (P int32) and a byte
     per variable."""
     return (D, 2 * view.V + view.P + (view.V + 3) // 4)
+
+
+def wac1_work_seg(view) -> int:
+    """Entries of one warp's worklist in K8 (csrc/wac1.cu ``work_seg``)."""
+    rules = view.P + view.E + view.M + view.L
+    return 32 * ((rules // 32 + 1) // 8 + 1)
+
+
+def wac1_smem_bytes(view) -> int:
+    """Dynamic shared memory of K8's shared-memory path (csrc/wac1.cu
+    ``smem_bytes``): 8 flag words, a dirty bit per rule and a claim bit
+    per variable (each in words rounded up to 4), the stores A and B (4 V
+    int32), the list of moved variables (V uint16) and eight worklists
+    (uint16), each rounded up to 16 bytes."""
+    rules = view.P + view.E + view.M + view.L
+    head = 8 + -(-rules // 128) * 4 + -(-view.V // 128) * 4
+    return (4 * head + 16 * view.V + -(-view.V // 8) * 16
+            + -(-8 * wac1_work_seg(view) // 8) * 16)
+
+
+def wac1_scratch_shape(D: int, view) -> tuple:
+    """K8's global scratch on the global-memory path (``scratch_words``):
+    per dive A and B (4 V int32), the list (V int32) and eight worklists
+    (int32)."""
+    return (D, 5 * view.V + 8 * wac1_work_seg(view))
 
 
 def _fixpoint_out(lb, D, scratch):
@@ -316,32 +375,105 @@ def _no_propagators(lb, ub, out):
     return lb_out, ub_out, iters, unconv
 
 
-class _Fixpoint(_Kernel):
+class _Propagator(_Kernel):
+    """What K1 and K8 share: the stores in shared memory when they fit,
+    else a global scratch row per dive; a step entry that classifies and
+    selects in the same block; the occupancy query."""
+    PREFIX = ""  # the C entry points' prefix: tt_<prefix>_step, ...
+
+    @staticmethod
+    def smem_bytes(view) -> int:
+        raise NotImplementedError
+
+    @staticmethod
+    def scratch_shape(D: int, view) -> tuple:
+        raise NotImplementedError
+
+    def uses_smem(self, kp, smem: bool = True) -> bool:
+        """Whether a launch keeps the stores in shared memory; otherwise
+        it needs ``scratch``."""
+        return smem and (self.smem_bytes(kp.view) + STATIC_SMEM
+                         <= kp.smem_limit)
+
+    def scratch(self, kp, D: int, smem: bool = True):
+        """The global scratch of D dives (``scratch_shape``) when the
+        launch does not keep its stores in shared memory, else None."""
+        if self.uses_smem(kp, smem):
+            return None
+        return torch.empty(self.scratch_shape(D, kp.view), dtype=I32,
+                           device=kp.dp.device)
+
+    def _scratch_ptr(self, kp, lb, ub, out, D, shape, smem):
+        return _check_fixpoint(lb, ub, out, D, shape,
+                               None if self.uses_smem(kp, smem)
+                               else self.scratch_shape(D, kp.view))
+
+    def _step(self, kp, lb, ub, strat, smem, live, out, args):
+        """The step entry ``tt_<PREFIX>_step`` with the integer arguments
+        ``args`` after the scratch: (lb, ub, iters, unconv, bot, ent,
+        found, var, chosen, valo, c0l, c0u, c1l, c1u). With no propagator
+        (P == 0) the fixpoint is the copy of ``__call__``, and K2 and K3
+        run as launches of their own."""
+        dp = kp.dp
+        D = lb.shape[0]
+        _check(strat, "strat", (D,))
+        if out is None:
+            out = _fixpoint_out(lb, D, self.scratch(kp, D, smem)) + (
+                *(torch.empty(D, dtype=torch.bool, device=lb.device)
+                  for _ in range(3)),
+                *(torch.empty(D, dtype=I32, device=lb.device)
+                  for _ in range(7)))
+        fp_out, sel_out = out[:5], out[7:]
+        scratch = self._scratch_ptr(kp, lb, ub, fp_out, D, (D, dp.V), smem)
+        for n, t in (("bot", out[5]), ("ent", out[6]),
+                     ("found", sel_out[0])):
+            _check(t, n, (D,), torch.bool)
+        for i, o in enumerate(sel_out[1:]):
+            _check(o, f"out[{i + 8}]", (D,))
+        if dp.P == 0:
+            res = _no_propagators(lb, ub, fp_out)
+            return res + classify(kp, res[0], res[1], live, out[5:7]) + \
+                select(kp, res[0], res[1], strat, live, sel_out)
+        lb_out, ub_out, iters, unconv, _ = fp_out
+        with torch.cuda.device(lb.device):
+            self._launch(lambda lib: getattr(lib, f"tt_{self.PREFIX}_step"),
+                         ctypes.byref(kp.view), lb.data_ptr(), ub.data_ptr(),
+                         lb_out.data_ptr(), ub_out.data_ptr(),
+                         iters.data_ptr(), unconv.data_ptr(), scratch, D,
+                         *args, kp.smem_limit if smem else 0,
+                         _live_ptr(live), _stream(lb), strat.data_ptr(),
+                         *(t.data_ptr() for t in out[5:]), entry="step")
+        return (lb_out, ub_out, iters, unconv) + tuple(out[5:])
+
+    def blocks_per_sm(self, kp, step: bool = True) -> int:
+        """Resident blocks per SM of a shared-memory launch of the step
+        entry (``step``) or of the other entries, at this plan's shared
+        memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+        blocks = ctypes.c_int(0)
+        lib = load()
+        fn = getattr(lib, f"tt_{self.PREFIX}_blocks_per_sm")
+        with torch.cuda.device(kp.dp.device):
+            rc = fn(ctypes.byref(kp.view), int(step), kp.smem_limit,
+                    ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"{self.name} occupancy query failed: "
+                               f"{lib.tt_error_string(rc).decode()} ({rc})")
+        return blocks.value
+
+
+class _Fixpoint(_Propagator):
     name = "fixpoint"
     source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:912"
+    PREFIX = "fixpoint"
     ENTRIES = ("fixpoint", "fixed_sweeps", "transposed", "step")
     # The step entry replaces the fixpoint (912), all_entailed / is_bot
     # (983) and _select / _children (engine.py:550) of one JAX step.
     ENTRY_REPLACES = {"fixed_sweeps": "turbo_tpu/solver/propagate_jax.py:967",
                       "transposed": "turbo_tpu/solver/propagate_jax.py:782",
                       "step": "turbo_tpu/solver/propagate_jax.py:912"}
-
-    @staticmethod
-    def uses_smem(kp, smem: bool = True) -> bool:
-        """Whether a launch keeps the stores in shared memory; otherwise
-        it needs ``scratch``."""
-        return smem and (fixpoint_smem_bytes(kp.view) + FIXPOINT_STATIC_SMEM
-                         <= kp.smem_limit)
-
-    def scratch(self, kp, D: int, smem: bool = True):
-        """The global scratch of D dives (``fixpoint_scratch_shape``) when
-        the launch does not keep its stores in shared memory, else
-        None."""
-        if self.uses_smem(kp, smem):
-            return None
-        return torch.empty(fixpoint_scratch_shape(D, kp.view), dtype=I32,
-                           device=kp.dp.device)
+    smem_bytes = staticmethod(fixpoint_smem_bytes)
+    scratch_shape = staticmethod(fixpoint_scratch_shape)
 
     def _run(self, entry, kp, lb, ub, cap, smem, live, out):
         dp = kp.dp
@@ -350,9 +482,7 @@ class _Fixpoint(_Kernel):
         shape = (dp.V, D) if transposed else (D, dp.V)
         if out is None:
             out = _fixpoint_out(lb, D, self.scratch(kp, D, smem))
-        scratch = _check_fixpoint(
-            lb, ub, out, D, shape, None if self.uses_smem(kp, smem)
-            else fixpoint_scratch_shape(D, kp.view))
+        scratch = self._scratch_ptr(kp, lb, ub, out, D, shape, smem)
         if dp.P == 0:
             return _no_propagators(lb, ub, out)
         lb_out, ub_out, iters, unconv, _ = out
@@ -398,80 +528,38 @@ class _Fixpoint(_Kernel):
         ``__call__``, ``classify`` and ``select`` (from the cursors
         ``strat``) in one launch. ``out``: the five tensors of
         ``__call__``'s ``out``, then the ten of ``classify`` and
-        ``select``. With no propagator (P == 0) the fixpoint is the
-        copy of ``__call__``, and K2 and K3 run as their own launches."""
-        dp = kp.dp
-        D = lb.shape[0]
-        _check(strat, "strat", (D,))
-        if out is None:
-            out = _fixpoint_out(lb, D, self.scratch(kp, D, smem)) + (
-                *(torch.empty(D, dtype=torch.bool, device=lb.device)
-                  for _ in range(3)),
-                *(torch.empty(D, dtype=I32, device=lb.device)
-                  for _ in range(7)))
-        fp_out, sel_out = out[:5], out[7:]
-        scratch = _check_fixpoint(
-            lb, ub, fp_out, D, (D, dp.V), None if self.uses_smem(kp, smem)
-            else fixpoint_scratch_shape(D, kp.view))
-        for n, t in (("bot", out[5]), ("ent", out[6]),
-                     ("found", sel_out[0])):
-            _check(t, n, (D,), torch.bool)
-        for i, o in enumerate(sel_out[1:]):
-            _check(o, f"out[{i + 8}]", (D,))
-        if dp.P == 0:
-            res = _no_propagators(lb, ub, fp_out)
-            return res + classify(kp, res[0], res[1], live, out[5:7]) + \
-                select(kp, res[0], res[1], strat, live, sel_out)
-        lb_out, ub_out, iters, unconv, _ = fp_out
-        with torch.cuda.device(lb.device):
-            self._launch(lambda lib: lib.tt_fixpoint_step,
-                         ctypes.byref(kp.view), lb.data_ptr(), ub.data_ptr(),
-                         lb_out.data_ptr(), ub_out.data_ptr(),
-                         iters.data_ptr(), unconv.data_ptr(), scratch, D,
-                         int(cap), kp.smem_limit if smem else 0,
-                         _live_ptr(live), _stream(lb), strat.data_ptr(),
-                         *(t.data_ptr() for t in out[5:]), entry="step")
-        return (lb_out, ub_out, iters, unconv) + tuple(out[5:])
-
-    def blocks_per_sm(self, kp, step: bool = True) -> int:
-        """Resident blocks per SM of a shared-memory launch of the step
-        entry (``step``) or of the other entries, at this plan's shared
-        memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-        blocks = ctypes.c_int(0)
-        lib = load()
-        with torch.cuda.device(kp.dp.device):
-            rc = lib.tt_fixpoint_blocks_per_sm(ctypes.byref(kp.view),
-                                               int(step), kp.smem_limit,
-                                               ctypes.byref(blocks))
-        if rc != 0:
-            raise RuntimeError(f"fixpoint occupancy query failed: "
-                               f"{lib.tt_error_string(rc).decode()} ({rc})")
-        return blocks.value
+        ``select``."""
+        return self._step(kp, lb, ub, strat, smem, live, out, (int(cap),))
 
 
-class _Wac1(_Kernel):
+class _Wac1(_Propagator):
     name = "wac1"
     source = "turbo_tpu_torch/kernels/csrc/wac1.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:884"
+    PREFIX = "wac1"
+    ENTRIES = ("wac1", "step")
+    # The step entry replaces fixpoint_wac1 (884), all_entailed / is_bot
+    # (983) and _select / _children (engine.py:550) of one JAX step.
+    ENTRY_REPLACES = {"step": "turbo_tpu/solver/propagate_jax.py:884"}
+    smem_bytes = staticmethod(wac1_smem_bytes)
+    scratch_shape = staticmethod(wac1_scratch_shape)
 
-    @staticmethod
-    def cand(dp, D, device):
-        """K8's candidate planes of D dives: (D, 2, n_cand) int32."""
-        return torch.empty((D, 2, dp.n_cand), dtype=I32, device=device)
+    def uses_smem(self, kp, smem: bool = True) -> bool:
+        # The shared-memory path keeps uint16 worklist entries.
+        return super().uses_smem(kp, smem) and wac1_work_seg(kp.view) <= 65536
 
     def __call__(self, kp, lb, ub, cap: int, inner_cap: int = 16,
                  smem: bool = True, live=None, out=None):
         """(lb, ub, sweeps + 1 (D,) int32, unconv (D,) bool) after WAC1
-        sweeps to the fixpoint or ``cap``; see csrc/wac1.cu. ``smem`` as
-        for K1; ``out`` = (lb_out, ub_out, iters, unconv, candidate
-        planes ``self.cand(dp, D, device)``). The stores must lie inside
-        the root box's clamp (lb <= ub0 + 1, ub >= lb0 - 1), as every
-        engine state does."""
+        sweeps to the fixpoint or ``cap``; see csrc/wac1.cu. ``smem`` and
+        ``out`` (lb_out, ub_out, iters, unconv, scratch) as for K1. The
+        stores must lie inside the root box's clamp (lb <= ub0 + 1, ub >=
+        lb0 - 1), as every engine state does."""
         dp = kp.dp
         D = lb.shape[0]
         if out is None:
-            out = _fixpoint_out(lb, D, self.cand(dp, D, lb.device))
-        cand = _check_fixpoint(lb, ub, out, D, (D, dp.V), (D, 2, dp.n_cand))
+            out = _fixpoint_out(lb, D, self.scratch(kp, D, smem))
+        scratch = self._scratch_ptr(kp, lb, ub, out, D, (D, dp.V), smem)
         if dp.P == 0:
             return _no_propagators(lb, ub, out)
         lb_out, ub_out, iters, unconv, _ = out
@@ -479,10 +567,18 @@ class _Wac1(_Kernel):
             self._launch(lambda lib: lib.tt_wac1, ctypes.byref(kp.view),
                          lb.data_ptr(), ub.data_ptr(), lb_out.data_ptr(),
                          ub_out.data_ptr(), iters.data_ptr(),
-                         unconv.data_ptr(), cand, D, int(cap),
+                         unconv.data_ptr(), scratch, D, int(cap),
                          int(inner_cap), kp.smem_limit if smem else 0,
-                         _live_ptr(live), _stream(lb))
+                         _live_ptr(live), _stream(lb), entry="wac1")
         return lb_out, ub_out, iters, unconv
+
+    def step(self, kp, lb, ub, cap: int, inner_cap: int, strat,
+             smem: bool = True, live=None, out=None):
+        """The fixpoint of ``__call__``, then K2 and K3 on each dive's
+        result in the same block: the 14 outputs of K1's ``step`` in one
+        launch, ``out`` as there."""
+        return self._step(kp, lb, ub, strat, smem, live, out,
+                          (int(cap), int(inner_cap)))
 
 
 class _Classify(_Kernel):

@@ -5,9 +5,9 @@ Hopper (``sm_90a``) by its own nvcc, all started together, and the
 objects are linked into ``_build/libturbo_kernels_<hash>.so``, keyed by
 a hash of the sources and flags, and loaded through ``ctypes``. The
 build happens at first use; a failure raises (nothing falls back to the
-plain torch versions). ``k1_without_skip`` builds and launches from a
-second library whose K1 runs every rule in every sweep, for
-measurements only.
+plain torch versions). ``without_skip`` builds and launches from a
+second library whose K1 and K8 run every rule in every sweep and pass,
+for measurements only.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs = {}          # no_skip -> loaded library
-_no_skip = False    # the wrappers launch from the build without K1's skip
+_no_skip = False    # the wrappers launch from the build without the skip
 build_log = ""
 
 
@@ -60,6 +60,8 @@ def _bind(lib):
     lib.tt_fixpoint_step.argtypes = [P] * 8 + [I, I, I, P, P] + [P] * 11
     lib.tt_fixpoint_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_wac1.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P, P]
+    lib.tt_wac1_step.argtypes = [P] * 8 + [I, I, I, I, P, P] + [P] * 11
+    lib.tt_wac1_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
     lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
@@ -71,7 +73,8 @@ def _bind(lib):
     lib.tt_step_live.argtypes = [P, P, P]
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t,
                lib.tt_fixpoint_step, lib.tt_fixpoint_blocks_per_sm,
-               lib.tt_wac1, lib.tt_classify, lib.tt_select,
+               lib.tt_wac1, lib.tt_wac1_step, lib.tt_wac1_blocks_per_sm,
+               lib.tt_classify, lib.tt_select,
                lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
                lib.tt_step_head, lib.tt_step_post, lib.tt_step_copy,
                lib.tt_step_live):
@@ -82,11 +85,11 @@ def _bind(lib):
 
 
 @contextlib.contextmanager
-def k1_without_skip():
+def without_skip():
     """Inside the block every wrapper launches from a library built with
-    ``-DTT_K1_NO_SKIP`` (K1 runs every rule in every sweep), which
-    chip_smoke.py times against the normal build; the solver never uses
-    it. Yields the library."""
+    ``-DTT_NO_SKIP`` (K1 runs every rule in every sweep, K8 in every
+    pass), which chip_smoke.py times against the normal build; the
+    solver never uses it. Yields the library."""
     global _no_skip
     prev, _no_skip = _no_skip, True
     try:
@@ -97,13 +100,13 @@ def k1_without_skip():
 
 def load():
     """Build (at first use, once per source hash) and load the kernel
-    library (the one without K1's skip inside ``k1_without_skip``);
+    library (the one without the skip inside ``without_skip``);
     raises when the kernels cannot be built."""
     global build_log
     key = _no_skip
     if key in _libs:
         return _libs[key]
-    flags = FLAGS + (("-DTT_K1_NO_SKIP",) if key else ())
+    flags = FLAGS + (("-DTT_NO_SKIP",) if key else ())
     out = BUILD_DIR / f"libturbo_kernels_{_digest(flags)}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -33,11 +33,7 @@ enum { OP_ADD = 0, OP_MUL = 1, OP_DIV = 2, OP_MIN = 3, OP_MAX = 4,
 // Candidate slots: [3P roles | E idx | E res | M x | M b | linear terms
 // | linear b], the layout of solver/plan.py.
 struct PlanView {
-  int V, P, n_cand;
-  const int* prop_op;   // (P,)
-  const int* px;        // (P,) x/y/z var ids, group order
-  const int* py;
-  const int* pz;
+  int V, P;
   int G;
   const int* g_off;     // (G + 1,) op-groups as slices [g_off[g], g_off[g+1])
   int E, T;
@@ -56,22 +52,26 @@ struct PlanView {
   const int* m_next_out;
   const int* m_prev_out;
   int L, base_lin, base_linb;
-  const int* l_b;       // (L,) reified var
-  const long long* l_rhs;
-  const int* l_K;       // (L,) terms per row (bucket width)
-  const int* l_toff;    // (L,) first term, = term slot - base_lin
-  const int* l_coef;    // (terms,)
-  const int* l_var;
-  const int4* l_head;   // (L,) packed: (flags | op << 2, toff, K, b); flags
-                        // bit 0: unit coefficients, bit 1: fit32; op 1: eq
+  const long long* l_rhs; // (L,)
+  const int4* l_head;   // (L,) packed: (flags | op << 2, first term, K, b);
+                        // flags bit 0: unit coefficients, bit 1: fit32;
+                        // op 1: eq
   const int2* l_term;   // (terms,) packed: (coef, var)
   int LB;
   const int* lb_off;    // (LB + 1,) linear buckets as row slices
   const int2* slot_tgt; // (n_cand,) K1's routing of a slot: (its target var,
                         // 0), (TT_CONF(k), conf_off[k]) or (TT_UNREAD, 0)
-  const int4* tnf4;     // (P,) K1's packed TNF table: (op, x, y, z)
+  const int4* tnf4;     // (P,) the TNF propagators in group order: (op, x,
+                        // y, z)
   const int* lb_floor;  // (V,) lb0 - 1
   const int* ub_cap;    // (V,) ub0 + 1
+  const unsigned* v_pass; // (V,) K8: bit s set when pass s reads the var
+                          // (passes: the G op-groups, the element rows,
+                          // the membership rows, the LB linear buckets;
+                          // pass 31 and above share bit 31)
+  const int* v_roff;    // (V + 1,) K8: the rules that read var v are
+  const int* v_rule;    // v_rule[v_roff[v]:v_roff[v + 1]], numbered TNF
+                        // [0, P), element, membership, linear rows
   int S;
   const int* s_off;     // (S + 1,) strategy ranges in s_ids
   const int* s_ids;
@@ -337,33 +337,11 @@ __device__ __forceinline__ bool member_ask(const PlanView& p, int i,
   return (lb[b] >= 1 && c == width && width > 0) || (ub[b] <= 0 && c == 0);
 }
 
-// -- candidates of one propagator: each rule hands (slot, lo, hi) for
-// the slots of solver/plan.py to ``out``: K8 writes them into the
-// dive's candidate planes (``Slots``), K1 meets them into its store
-// (fixpoint.cu) ------------------------------------------------------
-
-struct Slots {
-  int* cl;
-  int* cu;
-  __device__ __forceinline__ void operator()(int s, int lo, int hi) const {
-    cl[s] = lo;
-    cu[s] = hi;
-  }
-};
-
-// TNF propagator it: the three roles' intervals (_deduce_group).
-template <class S, class Out>
-__device__ __forceinline__ void cand_tnf(const PlanView& p, int it,
-                                         const S& lb, const S& ub,
-                                         const Out& out) {
-  const int P = p.P;
-  int x = p.px[it], y = p.py[it], z = p.pz[it];
-  int c[6];
-  deduce(p.prop_op[it], lb[x], ub[x], lb[y], ub[y], lb[z], ub[z], c);
-  out(it, c[0], c[1]);
-  out(P + it, c[2], c[3]);
-  out(2 * P + it, c[4], c[5]);
-}
+// -- candidates of one row: each rule hands (slot, var, lo, hi) for the
+// slots of solver/plan.py and their target variables to ``out``: K1
+// meets them into its store routed by the slot (fixpoint.cu), K8 by the
+// variable (wac1.cu). The TNF propagators are evaluated inline by both,
+// from ``tnf4`` -------------------------------------------------------
 
 // Element row i: windowed min/max of the result, first/last feasible
 // index (_element_cands).
@@ -386,8 +364,8 @@ __device__ __forceinline__ void cand_elem(const PlanView& p, int i,
     }
   }
   int s = 3 * p.P + i;
-  out(s, jlo + 1, jhi + 1);
-  out(s + p.E, rlo, rhi);
+  out(s, x, jlo + 1, jhi + 1);
+  out(s + p.E, res, rlo, rhi);
 }
 
 // Reified sparse membership row i (_member_cands).
@@ -413,8 +391,8 @@ __device__ __forceinline__ void cand_member(const PlanView& p, int i,
   int x_lo = tt ? nge : (ff ? nout : TT_NINF);
   int x_hi = tt ? ple : (ff ? pout : TT_INF);
   int s = 3 * p.P + 2 * p.E + i;
-  out(s, clip32(x_lo), clip32(x_hi));
-  out(s + p.M, b_lo, b_hi);
+  out(s, x, clip32(x_lo), clip32(x_hi));
+  out(s + p.M, b, b_lo, b_hi);
 }
 
 // Reified linear row r: sum bounds, then per-term floor/ceil candidates
@@ -430,7 +408,7 @@ __device__ __forceinline__ void cand_linear(const PlanView& p, int r,
   lin_sums(p, h, lb, ub, &smin, &smax);
   long long rhs = __ldg(p.l_rhs + r);
   bool is_eq = (h.x >> 2) == 1;
-  out(p.base_linb + r,
+  out(p.base_linb + r, h.w,
       is_eq ? (smin == rhs && smax == rhs) : (smax <= rhs),
       is_eq ? (smin <= rhs && rhs <= smax) : (smin <= rhs));
   bool tt = lb[h.w] >= 1, ff = ub[h.w] <= 0;
@@ -459,6 +437,6 @@ __device__ __forceinline__ void cand_linear(const PlanView& p, int r,
     hi = lmin(hi, ge_act && !cpos ? q_ge : TT_INF);
     long long lo = le_act && !cpos ? ceil_le : TT_NINF;
     lo = lmax(lo, ge_act && cpos ? ceil_ge : TT_NINF);
-    out(ts + t, clip32(lo), clip32(hi));
+    out(ts + t, term.y, clip32(lo), clip32(hi));
   }
 }

@@ -59,7 +59,7 @@
 //   from a few to three quarters of them run in a sweep, spread over
 //   most warps of a strided loop. So a sweep after the first has three
 //   barriers and the first two (the gather-combine took five). Built with
-//   -DTT_K1_NO_SKIP every sweep runs every rule (only chip_smoke.py
+//   -DTT_NO_SKIP every sweep runs every rule (only chip_smoke.py
 //   builds that variant, to time the skip against it).
 // - The TNF propagators, most of the work, load (op, x, y, z) as one
 //   int4 through the read-only path; a linear row loads a packed header
@@ -108,10 +108,9 @@
 //   needs no launch of K2 or K3 and reads the store back from nowhere.
 //   On a bot lane the store is K1's, as the separate launches read it.
 //   It is built for at most 64 registers, to keep four blocks per SM.
-#include "classify.cuh"
-#include "select.cuh"
+#include "epilogue.cuh"
 
-#ifdef TT_K1_NO_SKIP
+#ifdef TT_NO_SKIP
 #define TT_K1_SKIP 0
 #else
 #define TT_K1_SKIP 1
@@ -134,7 +133,8 @@ static size_t smem_bytes(const PlanView& p) {
 }
 
 // Meets a rule's candidate (lo, hi) for slot s into B, routed by
-// slot_tgt; A is the store the sweep reads.
+// slot_tgt (the target variable that the rules hand beside the slot is
+// not read); A is the store the sweep reads.
 template <class S>
 struct Meet {
   S al, au;
@@ -142,7 +142,8 @@ struct Meet {
   int* bu;
   const int2* __restrict__ tgt;
   int dummy;
-  __device__ __forceinline__ void operator()(int s, int lo, int hi) const {
+  __device__ __forceinline__ void operator()(int s, int, int lo,
+                                            int hi) const {
     const int2 t = __ldg(tgt + s);
     if (t.x >= 0) {
       if (lo > al[t.x]) atomicMax(bl + t.x, lo);
@@ -199,9 +200,9 @@ __device__ __forceinline__ void phase_a(const PlanView& p, const Meet<S>& out,
     const int4 r = __ldg(p.tnf4 + i);  // (op, x, y, z)
     int c[6];
     deduce(r.x, lb[r.y], ub[r.y], lb[r.z], ub[r.z], lb[r.w], ub[r.w], c);
-    out(i, c[0], c[1]);
-    out(P + i, c[2], c[3]);
-    out(2 * P + i, c[4], c[5]);
+    out(i, r.y, c[0], c[1]);
+    out(P + i, r.z, c[2], c[3]);
+    out(2 * P + i, r.w, c[4], c[5]);
   }
   // The rows follow on the threads after the last TNF rule's.
   for (int i = first_item(n); i < E; i += blockDim.x)
@@ -272,25 +273,6 @@ __device__ __forceinline__ int sweep_loop(const PlanView& p, S al, S au,
   }
   *m_out = m;
   return iters;
-}
-
-// The step entry's extra arguments: K3's cursors (strat0) and K2's and
-// K3's outputs, each indexed by the dive.
-struct StepOut {
-  const int* strat;
-  unsigned char* bot;
-  unsigned char* ent;
-  SelectOut sel;
-};
-
-// K2 and K3 on the block's final store (lb, ub), complete and visible
-// to the block: every thread calls it.
-__device__ __forceinline__ void step_epilogue(const PlanView& p,
-                                              const int* lb, const int* ub,
-                                              const StepOut& so,
-                                              long long d) {
-  classify_block(p, lb, ub, so.bot + d, so.ent + d);
-  select_block(p, lb, ub, so.strat[d], so.sel, d);
 }
 
 // The kernel's body. ds / vs: the strides of the dive and of the
@@ -377,11 +359,6 @@ fixpoint_step_kernel(PlanView p, const int* lb_in, const int* ub_in,
                       unconv_out, scratch, cap, use_smem, live, p.V, 1, 0,
                       so);
 }
-
-// Static shared memory left beside the dynamic one under the block's
-// limit: the step entry's K2 and K3 words (68 bytes). Mirrored by
-// kernels.FIXPOINT_STATIC_SMEM.
-#define TT_STATIC_SMEM 128
 
 // Dynamic shared memory of a launch (16 bytes of flags on the global
 // path, which needs the scratch), with the kernel's attribute raised to

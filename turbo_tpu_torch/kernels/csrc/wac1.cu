@@ -1,192 +1,568 @@
 // K8: the WAC1 propagation fixpoint of one dive per thread block.
 //
 // Replaces PropagatorKernels._group_local_fixpoint / sweep_wac1 /
-// fixpoint_wac1 of turbo_tpu/solver/propagate_jax.py. One outer sweep:
-// every op-group (a contiguous slice of the TNF propagators) runs to its
-// local fixpoint, capped at inner_cap Jacobi iterations, in group order,
-// so that a group reads what the groups before it wrote; then one pass
-// each of the element rows, the membership rows (from the store after
-// the element meet) and every linear bucket in turn. Outer sweeps run
-// until one changes nothing, the store turns bot, or the cap. Returns
-// (lb, ub, sweeps + 1, unconv) as the JAX function does; the inner
-// iterations are not counted.
+// fixpoint_wac1 of turbo_tpu/solver/propagate_jax.py (815-908). One
+// outer sweep: every op-group (a contiguous slice of the TNF
+// propagators) runs to its local fixpoint, capped at inner_cap Jacobi
+// iterations, in group order, so that a group reads what the groups
+// before it wrote; then one pass each of the element rows, the
+// membership rows (from the store after the element meet) and every
+// linear bucket in turn. Outer sweeps run until one changes nothing, the
+// store turns bot, or the cap. Returns (lb, ub, sweeps + 1, unconv) as
+// the JAX function does; the inner iterations are not counted.
 //
-// Design: as K1, the block keeps its dive's store (2 V int32) in shared
-// memory when it fits and works in place on the output rows otherwise.
-// Every pass is Jacobi inside itself: its candidates are computed from
-// the store into the dive's candidate scratch row (the slots K1 uses),
-// the block synchronises, and only then the candidates meet the store
-// by atomicMax / atomicMin. Duplicate targets combine monotonically, so
-// the atomics give the scatter-meet's result in any order. The meet
-// reaches every variable, the root-fixed tail too, and there is no
-// conflict fold: a contradiction with a fixed variable empties that
-// variable's own interval.
+// What bounds it on an H100: as K1, neither bytes nor arithmetic (a
+// golomb(12) launch at D = 512 moves about 10 MB: a bound near 0.006
+// ms). A sweep is a chain of dependent passes (an inner iteration of a
+// group, or a row pass), each a read of the rules and a meet between
+// block barriers; the slowest dive of a launch runs up to cap sweeps of
+// up to inner_cap iterations of its largest group (150 passes at
+// golomb(12), cap 16). A pass waits on latency: table loads from L2 and
+// meets, in as many dependent rounds as a warp runs rules one after the
+// other (per-pass clock64 counts of a first design: the rules took 70 %
+// of a block's time, about ten rounds a pass in golomb(12)'s largest
+// group). The design cuts the rounds, the loads and the barriers of a
+// pass.
 //
-// The clamp to the root box (lb <= ub0 + 1, ub >= lb0 - 1) is applied
-// to each candidate before its meet. On a store inside that box it is
-// what the JAX function's clamp after the meet computes, and the meet's
-// return value then says whether the store changed. Every state of the
-// engine lies inside it (root, table rows, rebuilt lanes, the objective
-// tighten).
+// Design. Each pass is Jacobi inside itself, as in JAX: every candidate
+// comes from the store as the pass found it. JAX gathers a variable's
+// candidates and meets them with max / min, which are associative and
+// commutative, so scattering each candidate into a second copy of the
+// store with atomicMax / atomicMin gives the same integers in any order.
+// - The block keeps two copies of its dive's store in shared memory, A
+//   (read by the rules) and B (met into), 4 V int32; a dirty bit per
+//   rule; a claim bit per variable; the list of the variables the
+//   current pass moved (V uint16); a worklist per warp (uint16): 52944
+//   bytes at golomb(12), four blocks per SM. No candidate row exists in
+//   global memory.
+// - Routing is by the plan's own variable ids (x, y, z of a TNF rule,
+//   idx and res, x and b, the terms and b of a linear row), not by K1's
+//   slot_tgt: WAC1 has no conflict fold, and its meets reach every
+//   variable, the root-fixed tail too. Each candidate is clamped to the
+//   root box (lb <= ub0 + 1, ub >= lb0 - 1) before its meet, as the
+//   plain version does; the box is read only for a candidate past A's
+//   bound, and only such a candidate moves B.
+// - A meet that moves B past A claims its variable and appends it to
+//   the list once. After the pass's barrier only the listed variables
+//   are copied from B to A (A == B again), unclaimed and tested for an
+//   empty domain: the store was not bot before the pass, so it is bot
+//   after it iff a moved variable is empty. A pass that moved nothing
+//   has no commit and no second barrier.
+// - The skip. A rule is dirty when one of its variables moved since its
+//   pass last ran: the commit marks the rules of each moved variable
+//   (the CSR v_roff / v_rule, a warp a variable), and a pass runs its
+//   dirty rules only and clears their bits. It tests 32 rules with one
+//   shared-memory word, gathers each warp's dirty rules into a worklist
+//   and runs them 32 at a time, and reads a rule's table entry only to
+//   run it. A
+//   clean rule's candidate is the one it gave at its last run, and the
+//   store has absorbed it (meets only tighten, and its clamp is the root
+//   box's), so running it would move nothing: each pass's store, and so
+//   the inner iterations, sweeps, unconv and bot, are bit for bit those
+//   of running every rule (the argument of fixpoint.cu's skip). An inner
+//   iteration with nothing dirty is one whose store does not change, and
+//   ends the group's loop as before. Above the rules, a block-uniform
+//   word ``pend`` has a bit per pass (passes 31 and above share bit 31),
+//   set when a variable that pass reads moved (``v_pass``) and cleared
+//   when the pass runs: a pass with its bit clear is skipped whole, with
+//   no barrier (the padding-only groups of golomb(12) after the first
+//   sweep). The first sweep of a launch runs every rule: the kernel does
+//   not know what moved before it. Built with -DTT_NO_SKIP every pass
+//   runs every rule (only chip_smoke.py builds that variant, to time the
+//   skip against it).
+// - TNF rules load (op, x, y, z) as one int4 through the read-only path;
+//   linear rows a packed header and (coef, var) per term.
+// - Large stores: when shared memory cannot hold the above, the same
+//   algorithm runs with A, B and the list (int32) in a global scratch
+//   row of the dive, met by global atomics, and A is written to the
+//   output rows at the end (the bits stay in shared memory).
+//   ``smem=False`` forces that path.
+// A dive stops at its own convergence, or after the sweep in which its
+// store turned bot, as the plain version's lanes do; the JAX loop sweeps
+// every lane until the last one converges. A sweep at a fixpoint changes
+// nothing and bot is monotone, so sweeps, unconv and bot agree on every
+// lane and the store on every lane that is not bot (the engine discards
+// a bot store).
 //
-// A dive stops at its own convergence and leaves a sweep as soon as it
-// sees its store bot; the JAX loop sweeps every lane until the last one
-// converges. A sweep at a fixpoint changes nothing and bot is monotone,
-// so sweeps, unconv and bot agree on every lane and the store on every
-// lane that is not bot (the engine discards a bot store).
-//
-// Like K1 the kernel runs in place in the search step and returns at
-// once when *live is 0.
-#include "common.cuh"
+// Like K1 the kernel runs in place in the search step (lb_in ==
+// lb_out), returns at once when *live is 0 and allocates nothing, so a
+// chunk of steps is captured into a CUDA graph. Two entry points, each
+// an instantiation of wac1_kernel per memory path:
+// - tt_wac1: the fixpoint (the EPS table build, the hybrid rounds);
+// - tt_wac1_step, the search step's launch (wac1_kernel<true, ...>): the
+//   fixpoint, then K2's and K3's bodies (classify.cuh, select.cuh) on
+//   the block's final store, A in shared memory (or in the scratch row
+//   on the global path), so that the step launches neither K2 nor K3.
+// On the shared-memory path both are built for at most 64 registers, to
+// keep four blocks per SM.
+#include "epilogue.cuh"
 
-// Meet candidate (l, u) into variable v, clamped to the root box.
-// Returns whether a bound moved.
-__device__ __forceinline__ int meet(const PlanView& p, int* lb, int* ub,
-                                    int v, int l, int u) {
-  int cap = p.ub_cap[v], floor_ = p.lb_floor[v];
-  l = l < cap ? l : cap;
-  u = u > floor_ ? u : floor_;
-  int ch = 0;
-  if (l > lb[v]) ch |= atomicMax(&lb[v], l) < l;
-  if (u < ub[v]) ch |= atomicMin(&ub[v], u) > u;
-  return ch;
+#ifdef TT_NO_SKIP
+#define TT_K8_SKIP 0
+#else
+#define TT_K8_SKIP 1
+#endif
+
+// The block's dynamic shared memory, in 32-bit words: TT_FLAG_WORDS flag
+// words (the list's length and the OR of the moved variables' v_pass,
+// each for three passes in turn: pass t uses t % 3); a dirty bit per
+// rule; a claim bit per variable; then, on the shared-memory path, the
+// stores and the lists. Named here, so that its words need no register.
+extern __shared__ int k8_smem[];
+#define TT_FLAG_WORDS 8
+
+// Rules in one numbering: the TNF propagators [0, P), the element rows,
+// the membership rows, the linear rows; R of them.
+__host__ __device__ __forceinline__ int rule_count(const PlanView& p) {
+  return p.P + p.E + p.M + p.L;
+}
+__host__ __device__ __forceinline__ int dirty_words(const PlanView& p) {
+  return (rule_count(p) + 127) / 128 * 4;
+}
+__host__ __device__ __forceinline__ int claim_words(const PlanView& p) {
+  return (p.V + 127) / 128 * 4;
+}
+// A warp's worklist entries: room for every rule of its words of any
+// pass (a pass's words are at most R / 32 + 1; warp k takes every
+// TT_WARPS-th).
+#define TT_WARPS (TT_THREADS / 32)
+__host__ __device__ __forceinline__ int work_seg(const PlanView& p) {
+  return 32 * ((rule_count(p) / 32 + 1) / TT_WARPS + 1);
+}
+// The words ahead of the stores: the flags, the dirty and the claim bits.
+__host__ __device__ __forceinline__ int head_words(const PlanView& p) {
+  return TT_FLAG_WORDS + dirty_words(p) + claim_words(p);
+}
+__device__ __forceinline__ unsigned* dirty_bits() {
+  return reinterpret_cast<unsigned*>(k8_smem + TT_FLAG_WORDS);
+}
+__device__ __forceinline__ unsigned* claim_bits(const PlanView& p) {
+  return reinterpret_cast<unsigned*>(k8_smem + TT_FLAG_WORDS +
+                                     dirty_words(p));
 }
 
-__global__ void __launch_bounds__(TT_THREADS)
-wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
-            int* ub_out, int* iters_out, unsigned char* unconv_out,
-            int* cand, int cap, int inner_cap, int use_smem,
-            const int* live) {
-  if (live != nullptr && *live == 0) return;
-  extern __shared__ int smem[];
-  const int V = p.V, P = p.P, E = p.E, M = p.M;
-  const long long d = blockIdx.x;
-  int* lb = use_smem ? smem : lb_out + d * V;
-  int* ub = use_smem ? smem + V : ub_out + d * V;
-  int* cl = cand + d * 2LL * p.n_cand;
-  int* cu = cl + p.n_cand;
-  if (use_smem || lb != lb_in + d * V) {
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      lb[v] = lb_in[d * V + v];
-      ub[v] = ub_in[d * V + v];
+// A row of the block's dynamic shared memory from word ``off`` on,
+// addressed with 32-bit offsets (no 64-bit pointer in a register).
+struct SRow {
+  int off;
+  __device__ __forceinline__ int& operator[](int v) const {
+    return k8_smem[off + v];
+  }
+};
+
+// A dive's working set: A (al, au) and B (bl, bu), rows of V words from
+// ``base`` on, then the list of the variables the current pass moved and
+// the warps' worklists (TT_WARPS segments of work_seg(p) entries). On the
+// shared-memory path ``base`` is a word of the block's shared memory and
+// the list and the worklists uint16 (the list at 2 V words, rounded up
+// to 4); on the global path it is the dive's scratch row and both int32.
+struct SmemSet {
+  int base;
+  int V;
+  __device__ __forceinline__ SRow row(int k) const { return {base + k * V}; }
+  __device__ __forceinline__ unsigned short* list() const {
+    return reinterpret_cast<unsigned short*>(k8_smem + base + 4 * V);
+  }
+  __device__ __forceinline__ unsigned short* work() const {
+    return reinterpret_cast<unsigned short*>(k8_smem + base + 4 * V +
+                                             (V + 7) / 8 * 4);
+  }
+  __device__ __forceinline__ SRow al() const { return row(0); }
+  __device__ __forceinline__ SRow au() const { return row(1); }
+  __device__ __forceinline__ SRow bl() const { return row(2); }
+  __device__ __forceinline__ SRow bu() const { return row(3); }
+};
+
+struct GlobalSet {
+  int* base;
+  int V;
+  __device__ __forceinline__ int* row(int k) const { return base + k * V; }
+  __device__ __forceinline__ int* list() const { return row(4); }
+  __device__ __forceinline__ int* work() const { return row(5); }
+  __device__ __forceinline__ int* al() const { return row(0); }
+  __device__ __forceinline__ int* au() const { return row(1); }
+  __device__ __forceinline__ int* bl() const { return row(2); }
+  __device__ __forceinline__ int* bu() const { return row(3); }
+};
+
+// Meets a rule's candidate (lo, hi) for variable v, clamped to the root
+// box, into B; a variable moved past A is claimed and listed once.
+template <class W>
+struct Meet {
+  const PlanView& p;
+  const W& w;
+  int c;  // the flag word of the list's length
+  __device__ __forceinline__ void operator()(int, int v, int lo,
+                                            int hi) const {
+    bool moved = false;
+    if (lo > w.al()[v]) {
+      const int cap = __ldg(p.ub_cap + v);
+      lo = lo < cap ? lo : cap;
+      if (lo > w.al()[v]) {
+        atomicMax(&w.bl()[v], lo);
+        moved = true;
+      }
+    }
+    if (hi < w.au()[v]) {
+      const int f = __ldg(p.lb_floor + v);
+      hi = hi > f ? hi : f;
+      if (hi < w.au()[v]) {
+        atomicMin(&w.bu()[v], hi);
+        moved = true;
+      }
+    }
+    const unsigned bit = 1u << (v & 31);
+    if (moved && !(atomicOr(claim_bits(p) + (v >> 5), bit) & bit))
+      w.list()[atomicAdd(k8_smem + c, 1)] = v;
+  }
+};
+
+// Block-uniform pass state: the count of the passes run, and the passes
+// with a variable moved since they last ran.
+struct Clock {
+  int t;
+  unsigned pend;
+};
+
+__device__ __forceinline__ unsigned pass_bit(int s) {
+  return 1u << (s < 31 ? s : 31);
+}
+
+// Calls f(i) for every rule i in [a, b) whose dirty bit is set (every
+// rule without the skip) and clears those bits. Warp k of the block takes
+// the bit words j = a / 32 + k, + TT_WARPS, ...; only it touches them in
+// the pass, and the commit sets bits only after the pass's barrier. It
+// first gathers its dirty rules (the q-th word's lane l as 32 q + l) into
+// its worklist, then runs them 32 at a time: a round of rules costs a
+// table load and a meet's latency, and 20 % of a word's rules in each of
+// ten words would otherwise take ten rounds.
+template <class W, class F>
+__device__ __forceinline__ void each_dirty(const PlanView& p, const W& w,
+                                           int a, int b, const F& f) {
+  unsigned* dirty = dirty_bits();
+  const int lane = threadIdx.x & 31, j0 = (a >> 5) + (threadIdx.x >> 5);
+  const auto wl = w.work() + (threadIdx.x >> 5) * work_seg(p);
+  int n = 0;
+  for (int j = j0, q = 0; j <= (b - 1) >> 5; j += TT_WARPS, ++q) {
+    const int lo = a - (j << 5), hi = b - (j << 5);
+    unsigned bits = (lo > 0 ? ~0u << lo : ~0u) &
+                    (hi < 32 ? (1u << hi) - 1 : ~0u);
+    if (TT_K8_SKIP) {
+      bits &= dirty[j];
+      __syncwarp();
+      if (lane == 0 && bits) dirty[j] &= ~bits;
+    }
+    if (bits >> lane & 1)
+      wl[n + __popc(bits & ((1u << lane) - 1))] = (q << 5) + lane;
+    n += __popc(bits);
+  }
+  __syncwarp();
+  for (int k = lane; k < n; k += 32) {
+    const int e = wl[k];
+    f(((j0 + (e >> 5) * TT_WARPS) << 5) + (e & 31));
+  }
+}
+
+// One Jacobi pass s over the rules [a, b) (every thread calls it): each
+// dirty rule's candidates from A go through ``rule(i, out)`` into B; then
+// the listed variables are copied from B to A, unclaimed, and mark the
+// rules that read them dirty (the CSR v_roff / v_rule), a warp a
+// variable. Returns whether a variable moved; *bot turns true when a
+// moved variable is empty. Without a commit the pass has one barrier.
+// The words of pass t + 2 are cleared in pass t: all threads read pass
+// t - 1's before pass t's barrier, and pass t + 2 writes them after pass
+// t + 1's.
+template <class W, class Rule>
+__device__ __forceinline__ bool pass(const PlanView& p, const W& w,
+                                     Clock& ck, int s, int a, int b,
+                                     bool* bot, const Rule& rule) {
+  int* flag = k8_smem;
+  if (TT_K8_SKIP && !(ck.pend & pass_bit(s))) return false;
+  const int c = ck.t % 3, c2 = (ck.t + 2) % 3;
+  const Meet<W> out{p, w, c};
+  each_dirty(p, w, a, b, [&](int i) { rule(i, out); });
+  __syncthreads();
+  const int n = flag[c];
+  if (threadIdx.x == 0) {
+    flag[c2] = 0;
+    flag[3 + c2] = 0;
+  }
+  ck.t += 1;
+  if (s < 31) ck.pend &= ~(1u << s);
+  if (n == 0) return false;
+  const int lane = threadIdx.x & 31;
+  int bb = 0;
+  unsigned rd = 0;
+  for (int k = threadIdx.x >> 5; k < n; k += blockDim.x >> 5) {
+    const int v = w.list()[k];
+    if (lane == 0) {
+      const int l = w.bl()[v], u = w.bu()[v];
+      w.al()[v] = l;
+      w.au()[v] = u;
+      bb |= l > u;
+      rd |= __ldg(p.v_pass + v);
+      atomicAnd(claim_bits(p) + (v >> 5), ~(1u << (v & 31)));
+    }
+    if (TT_K8_SKIP) {
+      unsigned* dirty = dirty_bits();
+      const int e1 = __ldg(p.v_roff + v + 1);
+      for (int e = __ldg(p.v_roff + v) + lane; e < e1; e += 32) {
+        const int r = __ldg(p.v_rule + e);
+        atomicOr(dirty + (r >> 5), 1u << (r & 31));
+      }
     }
   }
-  __syncthreads();
-  int b0 = 0;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) b0 |= lb[v] > ub[v];
-  bool bot = __syncthreads_or(b0);
-  int sweeps = 0;
+  rd = __reduce_or_sync(0xffffffffu, rd);
+  if (lane == 0 && rd) atomicOr(flag + 3 + c, (int)rd);
+  const bool empty = __syncthreads_or(bb) != 0;
+  *bot = *bot || empty;
+  ck.pend |= (unsigned)flag[3 + c];
+  return true;
+}
+
+// The sweeps of one dive on its working set, equal A and B on entry;
+// ``bot``: the store on entry is bot. As in the plain version, a sweep
+// runs the op-groups while the store is not bot (the first group's first
+// iteration runs on a store that was bot on entry), then, if it is
+// still not bot, every row pass. Returns the sweeps run; *m_out: still
+// changing at the cap.
+template <class W>
+__device__ __forceinline__ int sweep_loop(const PlanView& p, const W& w,
+                                          bool bot, int cap, int inner_cap,
+                                          bool* m_out) {
+  const int P = p.P, E0 = P + p.E, M0 = E0 + p.M;  // the rows' first ids
+  Clock ck{0, ~0u};
   bool m = true;
-  for (int it = 0; m && it < cap; ++it) {
-    int changed = 0;
-    // Op-groups in order, each to its local fixpoint.
-    for (int g = 0; g < p.G; ++g) {
-      const int a = p.g_off[g], b = p.g_off[g + 1];
+  int it = 0;
+  const auto tnf = [&](int i, const Meet<W>& out) {
+    const int4 r = __ldg(p.tnf4 + i);  // (op, x, y, z)
+    const auto al = w.al();
+    const auto au = w.au();
+    int c[6];
+    deduce(r.x, al[r.y], au[r.y], al[r.z], au[r.z], al[r.w], au[r.w], c);
+    out(i, r.y, c[0], c[1]);
+    out(P + i, r.z, c[2], c[3]);
+    out(2 * P + i, r.w, c[4], c[5]);
+  };
+  for (; m && it < cap; ++it) {
+    bool changed = false;
+    // Op-groups in order, each to its local fixpoint; the first runs
+    // even on a store that is bot on entry (P > 0: there is one).
+    for (int g = 0; g < p.G && (g == 0 || !bot); ++g) {
+      const int a = __ldg(p.g_off + g), b = __ldg(p.g_off + g + 1);
       for (int inner = 0; inner < inner_cap; ++inner) {
-        for (int i = a + threadIdx.x; i < b; i += blockDim.x)
-          cand_tnf(p, i, lb, ub, Slots{cl, cu});
-        __syncthreads();
-        int ch = 0;
-        for (int i = a + threadIdx.x; i < b; i += blockDim.x) {
-          ch |= meet(p, lb, ub, p.px[i], cl[i], cu[i]);
-          ch |= meet(p, lb, ub, p.py[i], cl[P + i], cu[P + i]);
-          ch |= meet(p, lb, ub, p.pz[i], cl[2 * P + i], cu[2 * P + i]);
-        }
-        ch = __syncthreads_or(ch);
+        const bool ch = pass(p, w, ck, g, a, b, &bot, tnf);
         changed |= ch;
-        if (!ch) break;
-        // The store was not bot before this iteration, so it is bot now
-        // iff a variable this group wrote is empty.
-        int bb = 0;
-        for (int i = a + threadIdx.x; i < b; i += blockDim.x) {
-          int x = p.px[i], y = p.py[i], z = p.pz[i];
-          bb |= lb[x] > ub[x] || lb[y] > ub[y] || lb[z] > ub[z];
-        }
-        bot = __syncthreads_or(bb) || bot;
-        if (bot) break;
+        if (!ch || bot) break;
       }
-      if (bot) break;
     }
-    if (!bot) {
-      int ch = 0;
-      if (E > 0) {
-        for (int i = threadIdx.x; i < E; i += blockDim.x)
-          cand_elem(p, i, lb, ub, Slots{cl, cu});
-        __syncthreads();
-        for (int i = threadIdx.x; i < E; i += blockDim.x) {
-          int s = 3 * P + i;
-          ch |= meet(p, lb, ub, p.e_idx[i], cl[s], cu[s]);
-          ch |= meet(p, lb, ub, p.e_res[i], cl[s + E], cu[s + E]);
-        }
-        __syncthreads();
-      }
-      if (M > 0) {
-        for (int i = threadIdx.x; i < M; i += blockDim.x)
-          cand_member(p, i, lb, ub, Slots{cl, cu});
-        __syncthreads();
-        for (int i = threadIdx.x; i < M; i += blockDim.x) {
-          int s = 3 * P + 2 * E + i;
-          ch |= meet(p, lb, ub, p.m_x[i], cl[s], cu[s]);
-          ch |= meet(p, lb, ub, p.m_b[i], cl[s + M], cu[s + M]);
-        }
-        __syncthreads();
-      }
-      // Linear buckets one after the other: a bucket reads the store
-      // the buckets before it wrote.
-      for (int k = 0; k < p.LB; ++k) {
-        const int a = p.lb_off[k], b = p.lb_off[k + 1];
-        for (int r = a + threadIdx.x; r < b; r += blockDim.x)
-          cand_linear(p, r, lb, ub, Slots{cl, cu});
-        __syncthreads();
-        for (int r = a + threadIdx.x; r < b; r += blockDim.x) {
-          const int* coef = p.l_coef + p.l_toff[r];
-          const int* var = p.l_var + p.l_toff[r];
-          const int* tl = cl + p.base_lin + p.l_toff[r];
-          const int* tu = cu + p.base_lin + p.l_toff[r];
-          for (int t = 0; t < p.l_K[r]; ++t)
-            if (coef[t] != 0) ch |= meet(p, lb, ub, var[t], tl[t], tu[t]);
-          ch |= meet(p, lb, ub, p.l_b[r], cl[p.base_linb + r],
-                     cu[p.base_linb + r]);
-        }
-        __syncthreads();
-      }
-      int bb = 0;
-      for (int v = threadIdx.x; v < V; v += blockDim.x) bb |= lb[v] > ub[v];
-      changed |= __syncthreads_or(ch);
-      bot = __syncthreads_or(bb);
-    }
-    sweeps += 1;
+    // Then the rows, one pass each, in turn, all of them once the store
+    // was not bot after the groups.
+    const bool alive = !bot;
+    if (alive && p.E > 0)
+      changed |= pass(p, w, ck, p.G, P, E0, &bot,
+                      [&](int i, const Meet<W>& out) {
+        cand_elem(p, i - P, w.al(), w.au(), out);
+      });
+    if (alive && p.M > 0)
+      changed |= pass(p, w, ck, p.G + 1, E0, M0, &bot,
+                      [&](int i, const Meet<W>& out) {
+        cand_member(p, i - E0, w.al(), w.au(), out);
+      });
+    // Linear buckets one after the other: a bucket reads the store the
+    // buckets before it wrote.
+    for (int k = 0; alive && k < p.LB; ++k)
+      changed |= pass(p, w, ck, p.G + 2 + k, M0 + __ldg(p.lb_off + k),
+                      M0 + __ldg(p.lb_off + k + 1), &bot,
+                      [&](int i, const Meet<W>& out) {
+        cand_linear(p, i - M0, w.al(), w.au(), out);
+      });
     m = changed && !bot;
   }
-  if (use_smem) {
-    for (int v = threadIdx.x; v < V; v += blockDim.x) {
-      lb_out[d * V + v] = lb[v];
-      ub_out[d * V + v] = ub[v];
-    }
+  *m_out = m;
+  return it;
+}
+
+// The int32 words of a dive's global scratch row: A and B (4 V), the
+// list (V) and the worklists.
+__host__ __device__ __forceinline__ long long scratch_words(
+    const PlanView& p) {
+  return 5LL * p.V + (long long)TT_WARPS * work_seg(p);
+}
+
+// Dynamic shared memory: the head words, and on the shared-memory path
+// A and B (4 V int32), the list (V uint16) and the worklists (uint16),
+// each rounded up to 16 bytes. Mirrored by kernels.wac1_smem_bytes.
+static size_t smem_bytes(const PlanView& p) {
+  return 4 * (size_t)head_words(p) + 16 * (size_t)p.V +
+         ((size_t)p.V + 7) / 8 * 16 +
+         ((size_t)TT_WARPS * work_seg(p) + 7) / 8 * 16;
+}
+
+// Loads the dive's store into A and B, marks every rule dirty, clears
+// the claims and the flag words, runs the sweeps, writes A to the output
+// rows and, for the step entry, runs the epilogue on A. Returns the
+// sweeps.
+template <bool STEP, class W>
+__device__ __forceinline__ int run(const PlanView& p, const W& w,
+                                   const int* lb_in, const int* ub_in,
+                                   int* lb_out, int* ub_out, int cap,
+                                   int inner_cap, bool* m, const StepOut& so,
+                                   long long d) {
+  int b0 = 0;
+  for (int v = threadIdx.x; v < p.V; v += blockDim.x) {
+    const int l = lb_in[v], u = ub_in[v];
+    w.al()[v] = l;
+    w.au()[v] = u;
+    w.bl()[v] = l;
+    w.bu()[v] = u;
+    b0 |= l > u;
   }
+  const int R = rule_count(p);
+  for (int i = threadIdx.x; i < head_words(p); i += blockDim.x) {
+    const int j = i - TT_FLAG_WORDS;  // the dirty word j: rules 32 j on
+    k8_smem[i] = j < 0 || j >= dirty_words(p) || 32 * j >= R ? 0
+                 : 32 * j + 32 <= R ? -1
+                                    : (int)((1u << (R - 32 * j)) - 1);
+  }
+  const bool bot = __syncthreads_or(b0) != 0;
+  const int sweeps = sweep_loop(p, w, bot, cap, inner_cap, m);
+  for (int v = threadIdx.x; v < p.V; v += blockDim.x) {
+    lb_out[v] = w.al()[v];
+    ub_out[v] = w.au()[v];
+  }
+  if constexpr (STEP) {
+    __syncthreads();
+    step_epilogue(p, &w.al()[0], &w.au()[0], so, d);
+  }
+  return sweeps;
+}
+
+// The kernel: one block a dive. SMEM: the working set in shared memory,
+// else in the dive's row of ``scratch`` ((D, scratch_words(p)) int32).
+// STEP: the step entry, which ends with the epilogue. Each memory path
+// is a kernel of its own, so that each gets its own registers: the
+// shared one at most 64 (four blocks per SM at golomb(12)); the global
+// one, for stores that shared memory cannot hold, at most 80 (three
+// blocks).
+template <bool STEP, bool SMEM>
+__global__ void __launch_bounds__(TT_THREADS, SMEM ? 4 : 3)
+wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
+            int* ub_out, int* iters_out, unsigned char* unconv_out,
+            int* scratch, int cap, int inner_cap, const int* live,
+            StepOut so) {
+  if (live != nullptr && *live == 0) return;
+  const int V = p.V;
+  const long long d = blockIdx.x;
+  lb_in += d * V;
+  ub_in += d * V;
+  lb_out += d * V;
+  ub_out += d * V;
+  bool m;
+  int sweeps;
+  if constexpr (SMEM)
+    sweeps = run<STEP>(p, SmemSet{head_words(p), V}, lb_in, ub_in, lb_out,
+                       ub_out, cap, inner_cap, &m, so, d);
+  else
+    sweeps = run<STEP>(p, GlobalSet{scratch + d * scratch_words(p), V},
+                       lb_in, ub_in, lb_out, ub_out, cap, inner_cap, &m, so,
+                       d);
   if (threadIdx.x == 0) {
     iters_out[d] = sweeps + 1;
     unconv_out[d] = m;
   }
 }
 
-extern "C" int tt_wac1(const PlanView* p, const int* lb_in, const int* ub_in,
-                       int* lb_out, int* ub_out, int* iters,
-                       unsigned char* unconv, int* cand, int D, int cap,
-                       int inner_cap, int smem_limit, const int* live,
-                       void* stream) {
+// The kernel of a launch, its dynamic shared memory (the head words
+// alone on the global path, which needs the scratch), with the kernel's
+// attribute raised to it (each kernel keeps its own). Returns a CUDA
+// error code.
+template <bool STEP, bool SMEM>
+static int raise_smem(size_t smem) {
   static int attr_set = -1;
-  size_t smem = 2 * sizeof(int) * (size_t)p->V;
-  int use_smem = smem <= (size_t)smem_limit;
-  if (!use_smem) smem = 0;
   if ((int)smem > attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        wac1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        wac1_kernel<STEP, SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = (int)smem;
   }
-  wac1_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
-      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, cand, cap, inner_cap,
-      use_smem, live);
+  return 0;
+}
+
+template <bool STEP>
+static int prepare(const PlanView* p, const int* scratch, int smem_limit,
+                   size_t* smem, int* use_smem) {
+  *smem = smem_bytes(*p);
+  // uint16 worklist entries: a segment of at most 65536.
+  *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit &&
+              work_seg(*p) <= 65536;
+  if (*use_smem) return raise_smem<STEP, true>(*smem);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  *smem = 4 * (size_t)head_words(*p);
+  return raise_smem<STEP, false>(*smem);
+}
+
+template <bool STEP>
+static int launch(const PlanView* p, const int* lb_in, const int* ub_in,
+                  int* lb_out, int* ub_out, int* iters, unsigned char* unconv,
+                  int* scratch, int D, int cap, int inner_cap, int smem_limit,
+                  const int* live, void* stream, const StepOut& so) {
+  size_t smem;
+  int use_smem;
+  int rc = prepare<STEP>(p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  auto* kernel = use_smem ? wac1_kernel<STEP, true> : wac1_kernel<STEP, false>;
+  kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
+      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
+      inner_cap, live, so);
   return (int)cudaGetLastError();
+}
+
+extern "C" int tt_wac1(const PlanView* p, const int* lb_in, const int* ub_in,
+                       int* lb_out, int* ub_out, int* iters,
+                       unsigned char* unconv, int* scratch, int D, int cap,
+                       int inner_cap, int smem_limit, const int* live,
+                       void* stream) {
+  return launch<false>(p, lb_in, ub_in, lb_out, ub_out, iters, unconv,
+                       scratch, D, cap, inner_cap, smem_limit, live, stream,
+                       StepOut{});
+}
+
+// tt_wac1, then K2 and K3 on each dive's result in the same block: bot
+// and ent as tt_classify writes them, the eight outputs of tt_select
+// from the cursors strat.
+extern "C" int tt_wac1_step(const PlanView* p, const int* lb_in,
+                            const int* ub_in, int* lb_out, int* ub_out,
+                            int* iters, unsigned char* unconv, int* scratch,
+                            int D, int cap, int inner_cap, int smem_limit,
+                            const int* live, void* stream, const int* strat,
+                            unsigned char* bot, unsigned char* ent,
+                            unsigned char* found, int* var, int* chosen,
+                            int* valo, int* c0l, int* c0u, int* c1l,
+                            int* c1u) {
+  return launch<true>(
+      p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, D, cap,
+      inner_cap, smem_limit, live, stream,
+      StepOut{strat, bot, ent,
+              SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}});
+}
+
+// Resident blocks per SM of a launch at the smem_limit the wrappers
+// pass (step: the step entry), into *blocks.
+extern "C" int tt_wac1_blocks_per_sm(const PlanView* p, int step,
+                                     int smem_limit, int* blocks) {
+  size_t smem;
+  int use_smem;
+  const int* scratch = blocks;  // not read: any pointer allows the global path
+  int rc = step ? prepare<true>(p, scratch, smem_limit, &smem, &use_smem)
+                : prepare<false>(p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  const void* kernel =
+      step ? (use_smem ? (const void*)wac1_kernel<true, true>
+                       : (const void*)wac1_kernel<true, false>)
+           : (use_smem ? (const void*)wac1_kernel<false, true>
+                       : (const void*)wac1_kernel<false, false>);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, TT_THREADS, smem);
 }

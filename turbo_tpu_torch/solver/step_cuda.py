@@ -2,7 +2,8 @@
 
 A step of ``BatchedSolver.step_plain`` on a CUDA state, in place:
 
-    K6 step.head -> K1 fixpoint.step (K1, then K2 and K3) -> K6 step.post
+    K6 step.head -> K1 fixpoint.step or K8 wac1.step (the propagation,
+                    then K2 and K3) -> K6 step.post
 
 K6 head does the previous step's refill and ring rows, then this step's
 promote and objective tighten; K6 post does the rest of the step lane by
@@ -12,16 +13,18 @@ sol_w), the last shard publishing the next step's live flag and the
 incumbent min that the next head reads. Between them, under the default
 ``fp_mode="fixpoint"`` with layout ``dv``, K1's step entry propagates
 each lane and classifies and selects on the store its block holds (K2
-and K3 as device functions, no launch of their own). The other modes
+and K3 as device functions, no launch of their own); under
+``fp_mode="wac1"`` K8's step entry does the same. The other modes
 launch their propagation, then K2 classify and K3 select (five launches
-a step): K1's fixed-sweeps entry (``"fixed"``), K8 (``"wac1"``), or, for
-layout ``vd``, K1's transposed entry between two transposing copies into
-and out of (V, D) planes kept in the ``Workspace``. Each launch runs in
-place and takes the step's ``live`` flag.
+a step): K1's fixed-sweeps entry (``"fixed"``), or, for layout ``vd``,
+K1's transposed entry between two transposing copies into and out of
+(V, D) planes kept in the ``Workspace``. Each launch runs in place and
+takes the step's ``live`` flag.
 
-``run`` enqueues a chunk of n steps as 3n + 2 launches (5n + 2 in the
-other modes): K7 ``step_tail.live`` (the device flag ``live``: some lane
-not IDLE; the step counter to 0; the incumbent min), the n steps, and K7
+``run`` enqueues a chunk of n steps as 3n + 2 launches (5n + 2 under
+``"fixed"`` and ``vd``): K7 ``step_tail.live`` (the device flag
+``live``: some lane not IDLE; the step counter to 0; the incumbent
+min), the n steps, and K7
 ``step_tail.copy`` with the last step's refill and ring rows, so the
 state is complete when the host reads it. Each step reads one of two
 flag words and its post writes the other, so every kernel of a step
@@ -68,12 +71,11 @@ class Workspace:
             return torch.empty(shape or (D,), dtype=dtype, device=dev)
 
         self.iters, self.unconv = e(I32), e(BOOL)
-        # K8's candidate planes; K1's scratch (None: its stores sit in
-        # shared memory).
-        self.cand = (kernels.wac1.cand(dp, D, dev)
-                     if solver.cfg.fp_mode == "wac1" else None)
-        self.fp_scratch = kernels.fixpoint.scratch(
-            solver.kernels.kernel_plan, D)
+        # The propagation's scratch, K8's under "wac1", else K1's (None:
+        # its stores sit in shared memory).
+        prop = (kernels.wac1 if solver.cfg.fp_mode == "wac1"
+                else kernels.fixpoint)
+        self.fp_scratch = prop.scratch(solver.kernels.kernel_plan, D)
         if solver.cfg.fp_mode == "fixpoint" and solver.cfg.fp_layout == "vd":
             self.lbT, self.ubT = e(I32, dp.V, D), e(I32, dp.V, D)
         self.bot, self.ent = e(BOOL), e(BOOL)
@@ -216,8 +218,10 @@ def _capture(solver, st, sv, n, cap):
 
 def fused(cfg) -> bool:
     """Whether the step's propagation launch also classifies and selects
-    (K1's step entry): ``fp_mode="fixpoint"`` with layout ``dv``."""
-    return cfg.fp_mode == "fixpoint" and cfg.fp_layout == "dv"
+    (K1's or K8's step entry): ``fp_mode="fixpoint"`` with layout ``dv``,
+    or ``fp_mode="wac1"``."""
+    return cfg.fp_mode == "wac1" or (cfg.fp_mode == "fixpoint"
+                                      and cfg.fp_layout == "dv")
 
 
 def propagate(solver, st, cap, live):
@@ -229,15 +233,16 @@ def propagate(solver, st, cap, live):
     cfg, ws = solver.cfg, solver._ws
     kp = solver.kernels.kernel_plan
     out = (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch)
-    if fused(cfg):
+    step_out = out + (ws.bot, ws.ent) + ws.sel
+    if cfg.fp_mode == "wac1":
+        kernels.wac1.step(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap,
+                          ws.strat0, live=live, out=step_out)
+    elif fused(cfg):
         kernels.fixpoint.step(kp, st.lb, st.ub, cap, ws.strat0, live=live,
-                              out=out + (ws.bot, ws.ent) + ws.sel)
+                              out=step_out)
     elif cfg.fp_mode == "fixed":
         kernels.fixpoint.fixed_sweeps(kp, st.lb, st.ub, cfg.fp_fixed_iters,
                                       live=live, out=out)
-    elif cfg.fp_mode == "wac1":
-        kernels.wac1(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap, live=live,
-                     out=out[:4] + (ws.cand,))
     else:  # fp_mode "fixpoint", layout "vd"
         ws.lbT.copy_(st.lb.t())
         ws.ubT.copy_(st.ub.t())
