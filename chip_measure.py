@@ -17,15 +17,23 @@ the host falls on all of them alike:
 D is the CLI's auto D for every configuration; ``--configs`` runs a
 subset. Each run prints one JSON line: status, objective, nodes,
 nodes/s, solveTime, the table build time, the calibrator's choices with
-their swept rates, and the steal and resplit rounds. The card's name and
-power limit come first; the full output of each run goes to the
-directory ``OUT``.
+their swept rates, the steal and resplit rounds (counted from the
+``-v -v`` lines) and their seconds (``steal_s``, ``resplit_s``: the sums
+of the wall ms that end those lines). The card's name and power limit
+come first; the full output of each run goes to the directory ``OUT``.
 
 ``--ab DIR`` (a checkout of another commit, for example the parent)
 then runs the default CLI on golomb(M) for S seconds as a separate
 process in DIR and in this checkout, in the order DIR, this, this, DIR,
 so that both trees meet the same card and host in turn; one JSON line
-each, with ``"tree"`` the directory. ``--opts`` adds CLI options to
+each, with ``"tree"`` the directory, and the steal and resplit rounds
+with their seconds timed the same way in both trees: around the
+solver's ``_steal_open_branches`` and ``_tail_resplit`` calls that made
+a round, up to a synchronize after them (``ROUND_TIMER``); with
+``--opts="-v -v"`` also the caps the calibrator locked (``auto_cap``)
+and, as in the configurations' runs, ``chunk_stats``: the mean share of
+idle lanes after a chunk, when the range drained and the steps and
+nodes after it. Each run's output goes to ``OUT/ab_<turn>.log``. ``--opts`` adds CLI options to
 those runs (``--opts="-fp wac1"``: the WAC1 path; ``--big 8`` with it:
 the golomb(8) proof, whose ``solve_time`` is the time to the optimum).
 
@@ -62,6 +70,67 @@ CONFIGS = ("cli", "cli_table_off", "api_table_cap10000",
 # the table build's cap over more than one wave of blocks.
 K1_CASES = ((12, 512, 4, 10000), (12, 512, 5, 10000), (12, 1024, 5, 1 << 30),
             (12, 2048, 5, 1 << 30), (8, 1024, 5, 10000), (8, 2048, 5, 1 << 30))
+
+
+# Runs the CLI (argv) with the solver's two EPS tail rounds timed, in
+# the checkout that is the working directory, and prints their counts
+# and seconds as a last line on stderr.
+ROUND_TIMER = """
+import json, sys, time
+from turbo_tpu_torch import cli
+from turbo_tpu_torch.solver.engine import BatchedSolver
+rounds = {}
+
+
+def timed(name):
+    fn = getattr(BatchedSolver, name)
+
+    def run(self, *a, **k):
+        t0 = time.monotonic()
+        res = fn(self, *a, **k)
+        if res is not None:
+            self._sync()
+            n, sec = rounds.get(name, (0, 0.0))
+            rounds[name] = (n + 1, sec + time.monotonic() - t0)
+        return res
+    setattr(BatchedSolver, name, run)
+
+
+for name in ("_steal_open_branches", "_tail_resplit"):
+    timed(name)
+rc = cli.main(sys.argv[1:])
+print("%rounds " + json.dumps(rounds), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def round_seconds(text, prefix):
+    """(rounds, seconds) of the ``-v -v`` lines that start with
+    ``prefix``; seconds is None when the lines carry no wall ms."""
+    lines = re.findall(rf"^{prefix}.*$", text, re.M)
+    ms = [float(m) for m in re.findall(rf"^{prefix}.*\(([\d.]+) ms\)$",
+                                       text, re.M)]
+    return len(lines), (sum(ms) / 1e3 if len(ms) == len(lines) and lines
+                        else None if lines else 0.0)
+
+
+def chunk_stats(text):
+    """From the chunk lines of a ``-v -v`` run (empty without them): the
+    mean over the chunks of the share of IDLE lanes after each
+    (``idle_share``), the wall time at which the subproblem range was
+    drained (``drain_s``), and the steps and nodes after it."""
+    rows = re.findall(r"^% t=\s*([\d.]+)s steps=(\d+) \S+ nodes=(\d+) .* "
+                      r"idle=(\d+)/(\d+) next_sub=(\d+)/(\d+)$", text, re.M)
+    if not rows:
+        return {}
+    rows = [(float(r[0]),) + tuple(map(int, r[1:])) for r in rows]
+    out = {"idle_share": sum(r[3] / r[4] for r in rows) / len(rows)}
+    drain = next((r for r in rows if r[5] >= r[6]), None)
+    if drain is not None:
+        out.update(drain_s=drain[0],
+                   steps_after_drain=rows[-1][1] - drain[1],
+                   nodes_after_drain=rows[-1][2] - drain[2])
+    return out
 
 
 def run_one(name, path, text, seconds):
@@ -110,32 +179,44 @@ def run_one(name, path, text, seconds):
     text_out = out.getvalue() + err.getvalue()
     rec["nodes_per_s"] = rec["nodes"] / rec["solve_time"]
     rec["auto_cap"] = re.findall(r"^% auto fp_cap=(.*)$", text_out, re.M)
-    rec["steal_rounds"] = len(re.findall(r"^% stack steal #", text_out, re.M))
-    rec["resplit_rounds"] = len(re.findall(r"^% tail resplit #", text_out,
-                                           re.M))
+    rec["steal_rounds"], rec["steal_s"] = round_seconds(text_out,
+                                                        "% stack steal #")
+    rec["resplit_rounds"], rec["resplit_s"] = round_seconds(
+        text_out, "% tail resplit #")
+    rec.update(chunk_stats(text_out))
     return rec, text_out
 
 
-def run_tree(tree, path, seconds, opts=()):
+def run_tree(tree, path, seconds, opts=(), log=None):
     """The CLI (the default search, with the options ``opts``) as a
-    process of its own in checkout ``tree``."""
-    r = subprocess.run([sys.executable, "-m", "turbo_tpu_torch.cli",
+    process of its own in checkout ``tree``, its EPS tail rounds timed
+    (``ROUND_TIMER``); ``log``: a file for its output."""
+    r = subprocess.run([sys.executable, "-c", ROUND_TIMER,
                         str(path), "-s", "-t", str(int(seconds * 1000)),
                         *opts],
                        cwd=tree, capture_output=True, text=True,
                        timeout=seconds * 3 + 300)
+    if log is not None:
+        log.write_text(r.stdout + r.stderr)
     if r.returncode != 0:
         raise RuntimeError(f"{tree}: the CLI returned {r.returncode}: "
                            f"{r.stderr[-2000:]}")
     stats = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", r.stdout, re.M))
     nodes, solve = int(stats["nodes"]), float(stats["solveTime"])
+    rounds = json.loads(re.findall(r"^%rounds (.*)$", r.stderr, re.M)[-1])
+    steal = rounds.get("_steal_open_branches", (0, 0.0))
+    resplit = rounds.get("_tail_resplit", (0, 0.0))
     return {"status": "optimal" if "==========" in r.stdout else "sat"
             if "----------" in r.stdout else "unknown",
             "objective": int(stats["objective"]) if "objective" in stats
             else None, "nodes": nodes, "solve_time": solve,
             "nodes_per_s": nodes / solve,
             "init_time": float(stats["initTime"]),
-            "table_build_time": float(stats.get("table_build_time", 0.0))}
+            "table_build_time": float(stats.get("table_build_time", 0.0)),
+            "steal_rounds": steal[0], "steal_s": steal[1],
+            "resplit_rounds": resplit[0], "resplit_s": resplit[1],
+            "auto_cap": re.findall(r"^% auto fp_cap=(\d+)", r.stdout, re.M),
+            **chunk_stats(r.stdout)}
 
 
 def k1_child(tree, dev="cuda:0"):
@@ -294,9 +375,9 @@ def main():
                                   "rep": rep, **rec}), flush=True)
     if args.ab:
         path = OUT / f"golomb{args.big}.fzn"
-        for tree in (args.ab, str(ROOT), str(ROOT), args.ab):
+        for i, tree in enumerate((args.ab, str(ROOT), str(ROOT), args.ab)):
             rec = run_tree(pathlib.Path(tree).resolve(), path, args.seconds,
-                           args.opts.split())
+                           args.opts.split(), OUT / f"ab_{i}.log")
             print(json.dumps({"instance": f"golomb({args.big})",
                               "config": f"cli {args.opts}".strip(),
                               "tree": tree, **rec}), flush=True)

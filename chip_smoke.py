@@ -15,7 +15,8 @@ exits non-zero):
    select on the plain fixpoint's result, caps 2 and 10000, shared- and
    global-memory paths) on 4 seeded random models at D=1024 with randomly
    narrowed stores and stores fixed at a solution, and on golomb(8) at
-   D=1024 and golomb(12) at D=512; K4 (embed and table refill) and K5 (open-branch count) on
+   D=1024 and golomb(12) at D=512; K4 (embed and table refill) and K5
+   (the open-branch count and the steal plan) on
    random stores, table rows, masks and stacks at golomb(12)'s shapes
    (W=D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
    K8 (WAC1: outer caps 2 and 10000, inner caps 1 and 16; iters, unconv
@@ -92,8 +93,14 @@ exits non-zero):
    solution checked;
 8. a drain-forcing case (golomb(8), D=64 lanes over 2^4 subproblems, the
    default configuration) proven optimal at 34, so that the steal gate
-   and K5 run; then the host round trip of a golomb(12) table-mode state
-   (D=512, MAXD=10000) and one steal round on it, timed;
+   and K5 run; then, on a golomb(12) table-mode state (D=512,
+   MAXD=10000) with every other lane made IDLE, the state's old host
+   round trip and a steal round on the card (K5's count and plan, one
+   host read, K9), held exactly to the host steal and to the plain
+   torch versions in every field and plane, its wall time, the
+   StepView unchanged and a captured chunk's graph still keyed after a
+   second round; K5 and K9 against their plain versions (the JSON
+   line's rows);
 9. ``-a`` on queens(8) through the card CLI: 92 distinct checker-valid
    solution blocks and the final separator;
 10. ``-i -t 30000`` on golomb(9) through the card CLI: every streamed
@@ -142,9 +149,10 @@ exits non-zero):
    statistics; (d) golomb(9) cut by ``-cutnodes``, resumed from the
    per-host checkpoints, closes at 44;
 11. the launch counts of each path driven in phases 4c-13, each set to
-   0 just before the path and read just after it: the seven kernels of
+   0 just before the path and read just after it: the eight kernels of
    the default search (and every entry point of K4, K6 and K7, and K1's
-   step entry) on the main path (6) and on the drain case (8), on the
+   step entry) on the main path (6), K9 excepted on the drain case (8),
+   on the
    main path and the table-off path K1's step entry once a step and K2
    and K3 only in the table build (once a level); K1 with its step
    entry, K6 and K7 on the table-off path (7) and on ``-a``, K2-K4 too
@@ -163,7 +171,8 @@ default search does not run it; each entry of K6 and K7, and K1's and
 K8's step entries (with the epilogue's own bound and their blocks per
 SM), has a row of its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
 reads K6 post's launches on the ``-arch multi`` golomb(12) path and its
-times from 3d; ``transports`` holds ``dcn_allgather``, a host transport and
+times from 3d; K5's and K9's times and bounds are phase 8's steal round;
+``transports`` holds ``dcn_allgather``, a host transport and
 not a kernel, with its times from 13b), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -632,7 +641,7 @@ def phase_table_kernels(torch, dev, s, tnf):
     (512, 10000) stacks."""
     import numpy as np
     from turbo_tpu_torch import kernels
-    from turbo_tpu_torch.solver.engine import (open_branch_count_plain,
+    from turbo_tpu_torch.solver.engine import (steal_plan_plain,
                                                table_refill_plain)
     from turbo_tpu_torch.host.solver.plan import quantize
     from turbo_tpu_torch.solver.eps_table import embed_plain
@@ -671,14 +680,18 @@ def phase_table_kernels(torch, dev, s, tnf):
     dec_cur = t(rng.integers(0, 2, (D, MAXD)))
     depth = t(rng.integers(0, MAXD + 1, D))
     phase = t(rng.integers(0, 3, D))
-    err = exact("open_count", kernels.open_count(dec_cur, depth, phase),
-                open_branch_count_plain(dec_cur, depth, phase))
-    # The live prefixes of the SOLVE lanes' stacks, read once.
+    splan = kernels.StealPlan(D, MAXD, dev)
+    want = steal_plan_plain(dec_cur, depth, phase)
+    err = exact("open_count",
+                kernels.open_count(dec_cur, depth, phase, splan), want[0])
+    exact("open_count plan", splan.steals(), want[1:])
+    # The live prefixes of the SOLVE lanes' stacks, read once, and the
+    # plan's three words a steal.
     live = int(depth.clamp(max=MAXD)[phase == 1].long().sum())
     out["open_count"] = (err,) + (
-        median_ms(lambda: kernels.open_count(dec_cur, depth, phase)),
-        median_ms(lambda: open_branch_count_plain(dec_cur, depth, phase))
-    ) + bound(4 * live + 8 * D, live)
+        median_ms(lambda: kernels.open_count(dec_cur, depth, phase, splan)),
+        median_ms(lambda: steal_plan_plain(dec_cur, depth, phase))
+    ) + bound(4 * live + 8 * D + 8 + 12 * len(want[1]), live)
     # A refilled lane reads two table rows and writes four planes.
     n_refill = int(refill.sum())
     refill_bound = bound(n_refill * 6 * plan.V * 4 + 5 * D, 0)
@@ -686,9 +699,11 @@ def phase_table_kernels(torch, dev, s, tnf):
         f" embed/refill/open_count exact; ms embed {out['embed'][1]:.4f} "
         f"(plain {out['embed'][2]:.4f}, bound {out['embed'][3]:.5f}), "
         f"table_refill {refill_ms[0]:.4f} (plain {refill_ms[1]:.4f}, bound "
-        f"{refill_bound[0]:.5f} for {n_refill} lanes), open_count "
+        f"{refill_bound[0]:.5f} for {n_refill} lanes), open_count and its "
+        f"plan on random stacks ({len(want[1])} steals) "
         f"{out['open_count'][1]:.4f} (plain {out['open_count'][2]:.4f}, "
-        f"bound {out['open_count'][3]:.5f})")
+        f"bound {out['open_count'][3]:.5f}; the JSON line's row is phase "
+        "8's)")
     return out
 
 
@@ -1289,7 +1304,7 @@ def run_path(torch, dev, big=12):
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.engine import BatchedSolver
     step_kernels, table_kernels = STEP_KERNELS, TABLE_KERNELS
-    all_kernels = step_kernels + table_kernels + ("open_count",)
+    all_kernels = step_kernels + table_kernels + ("open_count", "steal")
     paths = {}
 
     def no_tail(solver):
@@ -1405,12 +1420,20 @@ def run_path(torch, dev, big=12):
             f"{solve_t:.3f} s, fixpoint_iterations "
             f"{stats['fixpoint_iterations']}, D "
             f"{dk.group(1) if dk else '?'}, k {dk.group(2) if dk else '?'}")
+        rounds = {k: [float(ms) for ms in re.findall(
+            rf"^% {k} #.*\(([\d.]+) ms\)$", out, re.M)]
+            for k in ("stack steal", "tail resplit")}
+        idle = [int(i) / int(n) for i, n in re.findall(
+            r"^% t=.* idle=(\d+)/(\d+) ", out, re.M)]
         log(f"  table_build_time {stats.get('table_build_time')} s; "
             f"{tbl.group(1) if tbl else 'no table line'}; calibration: "
-            f"{cal or 'none'}; steal rounds "
-            f"{len(re.findall('^% stack steal #', out, re.M))}, resplit "
-            f"rounds {len(re.findall('^% tail resplit #', out, re.M))}, "
-            f"eps_redistributions {stats.get('eps_redistributions')}")
+            f"{cal or 'none'}; steal rounds {len(rounds['stack steal'])} "
+            f"({sum(rounds['stack steal']):.3f} ms), resplit rounds "
+            f"{len(rounds['tail resplit'])} "
+            f"({sum(rounds['tail resplit']):.3f} ms), eps_redistributions "
+            f"{stats.get('eps_redistributions')}; idle lanes "
+            f"{100 * sum(idle) / max(1, len(idle)):.1f} % of the lanes "
+            f"after a chunk, mean over {len(idle)} chunks")
 
     # The main path: the default CLI at full width, which builds the
     # table, refills from it, drains the range and reaches the steal gate.
@@ -1441,7 +1464,8 @@ def run_path(torch, dev, big=12):
 
     log("[8] drain-forcing case: golomb(8), D=64 over 2^4 subproblems")
     paths["drain-forcing, golomb(8)"] = counted(
-        "the drain-forcing case, golomb(8)", drain, required=all_kernels)
+        "the drain-forcing case, golomb(8)", drain,
+        required=step_kernels + table_kernels + ("open_count",))
     steal_round_trip(torch, dev, big, tnf_big)
 
     def all_queens():
@@ -2099,13 +2123,32 @@ def run_hosts_paths(torch, dev, big=12, platform=""):
     return paths, allgather
 
 
+# The JSON rows of K5 and K9 (name -> (max_abs_err, ms, plain_ms,
+# bound_ms, bound_by)), from phase 8's steal round.
+STEAL_ROWS = {}
+
+
 def steal_round_trip(torch, dev, big, tnf):
-    """The host round trip of a golomb(big) table-mode state (D=512) and
-    one steal round on it, timed."""
+    """Phase 8's steal round on a golomb(big) table-mode state (D=512,
+    30 steps at cap 4, then every other lane made IDLE): the state's old
+    host round trip, timed; the round on the card (K5's count and plan,
+    one host read, K9) against the host steal on a host copy and against
+    the plain torch versions on a card copy, every field and plane
+    exactly, its wall time, the StepView unchanged (the chunk's CUDA graph
+    stays valid: after a second round its key is still captured); K5 and
+    K9 by CUDA events (median of 15, K9 on a fresh copy each time)
+    against their plain versions, with their bounds. Fills
+    ``STEAL_ROWS``."""
+    import numpy as np
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.solver import step_cuda
     from turbo_tpu_torch.solver.config import EngineConfig
     from turbo_tpu_torch.solver.convert import (search_state_from_numpy,
                                                 search_state_to_numpy)
-    from turbo_tpu_torch.solver.engine import IDLE, SOLVE, BatchedSolver
+    from turbo_tpu_torch.solver.engine import (IDLE, SOLVE, STEAL_FIELDS,
+                                               BatchedSolver,
+                                               steal_apply_plain, steal_host,
+                                               steal_plan_plain)
     s = BatchedSolver(tnf, EngineConfig(num_dives=512), device=dev)
     st, _ = s.run_steps(s.init_state(), 30, 4)
     torch.cuda.synchronize()
@@ -2115,16 +2158,118 @@ def steal_round_trip(torch, dev, big, tnf):
     torch.cuda.synchronize()
     rt_s = time.monotonic() - t0
     fields["phase"][::2] = IDLE  # half the lanes as thieves
-    thieves = search_state_from_numpy(fields, dev)
-    t0 = time.monotonic()
-    res = s._steal_open_branches(thieves, fields["phase"])
+    phase = fields["phase"]
+    base = search_state_from_numpy(fields, dev)
+    host = {k: v.copy() for k, v in fields.items()}
+    n = steal_host(host, np.nonzero(phase == IDLE)[0])
+
+    def same(label, got):
+        exact(label, [getattr(got, k) for k in host],
+              [torch.from_numpy(v).to(dev) for v in host.values()])
+
+    # The round on the card, as solve() runs it.
+    mine = clone_state(base)
+    key = bytes(step_cuda.view(s, mine, s._ws))
     torch.cuda.synchronize()
-    steal_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    res = s._steal_open_branches(mine, phase)
+    torch.cuda.synchronize()
+    round_s = time.monotonic() - t0
+    if res is None or res[0] is not mine or res[1] != n:
+        fail(f"steal round on the card: {res and res[1]} steals, host {n}")
+    if bytes(step_cuda.view(s, mine, s._ws)) != key:
+        fail("the steal round changed the state's StepView")
+    same("steal round (K5 + K9) vs the host steal", mine)
+    plan = s._steal_plan
+    want = steal_plan_plain(base.dec_cur, base.depth, base.phase)
+    exact("open_count", kernels.open_count(base.dec_cur, base.depth,
+                                           base.phase, plan), want[0])
+    exact("open_count plan", plan.steals(), want[1:])
+    plain = clone_state(base)
+    steal_apply_plain(plain, *want[1:])
+    same("plain torch steal vs the host steal", plain)
+
+    # Times: K5 on the unchanged state; K9 and the round on a fresh copy.
+    work = clone_state(base)
+
+    def restore():
+        for k in STEAL_FIELDS:
+            getattr(work, k).copy_(getattr(base, k))
+
+    def timed(fn, reps=15):
+        times = []
+        for _ in range(reps + 1):  # the first is a warm-up
+            restore()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        times = sorted(times[1:])
+        return times[len(times) // 2]
+
+    walls = []
+    for _ in range(15):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        s._steal_open_branches(work, phase)
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    walls.sort()
+    k5 = (median_ms(lambda: kernels.open_count(base.dec_cur, base.depth,
+                                                base.phase, plan)),
+          median_ms(lambda: steal_plan_plain(base.dec_cur, base.depth,
+                                             base.phase)))
+    k9 = (timed(lambda: kernels.steal(work, plan, n)),
+          timed(lambda: steal_apply_plain(work, *want[1:])))
+    # Bounds from this state: K5 reads the SOLVE lanes' live prefixes,
+    # phase and depth, and writes the count and three words a steal; K9
+    # per steal reads the victim's root rows, stack prefix and the cur
+    # words above d0, and writes the thief's four store rows and stack
+    # prefix, the victim's rope words above d0 and 11 scalars.
+    MAXD, V = s.cfg.max_depth, s.dp.V
+    dep = base.depth.clamp(max=MAXD).long()
+    live = int(dep[base.phase == SOLVE].sum())
+    d0 = want[2].long()
+    above = int((dep[want[3].long()] - d0 - 1).clamp(min=0).sum())
+    k9_bytes = 4 * (6 * V * n + 14 * int((d0 + 1).sum()) + 2 * above
+                    + 11 * n)
+    STEAL_ROWS["open_count"] = (0,) + k5 + bound(
+        4 * live + 8 * len(phase) + 8 + 12 * n, live)
+    STEAL_ROWS["steal"] = (0,) + k9 + bound(
+        k9_bytes, int(2 * (d0 + 1).sum()) + above)
     nbytes = sum(a.nbytes for a in fields.values())
     log(f"  golomb({big}) table-mode state ({nbytes / 1e6:.1f} MB, MAXD "
-        f"{s.cfg.max_depth}, {int((st.phase == SOLVE).sum())} SOLVE lanes): "
-        f"host round trip {rt_s:.3f} s; one steal round "
-        f"{steal_s:.3f} s ({res[1] if res else 0} branches reseeded)")
+        f"{MAXD}, {int((phase == SOLVE).sum())} SOLVE lanes after every "
+        f"other lane was made IDLE): host round trip {rt_s:.3f} s; a steal "
+        f"round on the card ({n} steals from "
+        f"{int(plan.work[plan.N_VICT])} victims, {int(want[0])} open "
+        f"branches, d0 up to {int(d0.max())}) equals the host steal and "
+        f"the plain torch steal in every field; its wall "
+        f"{round_s * 1e3:.3f} ms the first time, median of 15 "
+        f"{walls[7]:.3f} ms (min {walls[0]:.3f}, max {walls[-1]:.3f}); the "
+        "StepView unchanged")
+    log(f"  K5 open_count + plan {k5[0]:.4f} ms (plain {k5[1]:.4f}, bound "
+        f"{STEAL_ROWS['open_count'][3]:.5f}); K9 steal {k9[0]:.4f} ms "
+        f"(plain {k9[1]:.4f}, bound {STEAL_ROWS['steal'][3]:.5f}, "
+        f"{k9_bytes} bytes)")
+
+    # A chunk captured on the state, every other lane made IDLE in place,
+    # another round: the chunk's key is still among the captured graphs,
+    # so the next chunk replays it.
+    for _ in range(2):
+        s.run_steps(mine, 16, 4)
+    mine.phase[::2] = IDLE
+    res = s._steal_open_branches(mine, mine.phase.cpu().numpy())
+    if res is None:
+        fail("no steal in the second round")
+    if (16, 4, bytes(step_cuda.view(s, mine, s._ws))) not in s._ws.graphs:
+        fail("after a steal round the chunk's CUDA graph would not replay")
+    log(f"  a chunk captured as a CUDA graph, then a second round ({res[1]}"
+        " steals): the chunk's key unchanged, its graph replays")
 
 
 def main():
@@ -2200,6 +2345,7 @@ def main():
     paths.update(run_multi_paths(torch, dev))
     hosts_paths, allgather = run_hosts_paths(torch, dev)
     paths.update(hosts_paths)
+    kres.update(STEAL_ROWS)
     log("[11] launches by path: " + "; ".join(
         f"{p}: " + ", ".join(f"{k} {n}" for k, n in c.items())
         for p, c in paths.items()))

@@ -6,9 +6,11 @@ very tables the wrappers upload (``kernel_tables``): one dive at a time,
 K1's scatter-meet into the second store routed by ``slot_tgt``, the
 clamp pass and the skip of rules whose variables did not move; the block
 argmin; K8 (WAC1) pass by pass, scatter-met into a second store routed by
-the variables, with its claims, moved list and dirty rules; and K6/K7 (the step around K1-K3) one lane at a time over the state.
-The emulation must equal the plain torch versions, which
-``test_torch_propagate.py`` and ``test_torch_engine.py`` hold to the
+the variables, with its claims, moved list and dirty rules; K6/K7 (the
+step around K1-K3) one lane at a time over the state; and K5's steal
+plan and K9's steals, block by block with their scans. The emulation
+must equal the plain versions, which ``test_torch_propagate.py``,
+``test_torch_engine.py`` and ``test_torch_table_engine.py`` hold to the
 JAX package. The real kernels
 are compared with the plain versions on the card (marked ``cuda``, and
 by ``chip_smoke.py``).
@@ -1519,3 +1521,343 @@ def test_chunk_launch_sequence(n, mode, monkeypatch):
     assert [c[0] for c in calls] == [c[0] for c in want]
     for got, exp in zip(calls, want):
         assert all(a is b for a, b in zip(got[1:], exp[1:])), (got, exp)
+
+
+# -- K5 open_count.cu and K9 steal.cu, transliterated ------------------
+
+INT_MIN = -(1 << 31)
+STACKS = ("dec_var", "dec_l0", "dec_u0", "dec_l1", "dec_u1", "dec_rope1",
+          "dec_cur")
+
+
+def block_scan(xs, op):
+    """csrc/steal.cuh ``block_scan`` over one round of BLOCK values (op:
+    ``operator.add`` or ``max``): a shuffle scan per warp (offsets 1 to
+    16, every lane reading the others' values before the round), then
+    the earlier warps' totals. Returns (inclusive scan, total)."""
+    import operator
+    assert len(xs) == BLOCK
+    ident = 0 if op is operator.add else INT_MIN
+    v = list(xs)
+    for o in (1, 2, 4, 8, 16):
+        v = [op(v[i], v[i - o]) if i % WARP >= o else v[i]
+             for i in range(BLOCK)]
+    tots = [v[w * WARP + WARP - 1] for w in range(BLOCK // WARP)]
+    out = []
+    for i in range(BLOCK):
+        pre = ident
+        for k in range(i // WARP):
+            pre = op(pre, tots[k])
+        out.append(op(pre, v[i]))
+    total = ident
+    for t in tots:
+        total = op(total, t)
+    return out, total
+
+
+def emulate_open_count(dec_cur, depth, phase):
+    """K5 (csrc/open_count.cu) over numpy stacks: the SOLVE blocks (each
+    reads its live prefix 1024 words a round and adds each open entry to
+    the histogram while fewer than n_idle of its lane came before), then
+    the last block's ranking. Returns (count, plan): plan has n, thief,
+    d0, victim, next (by rank), head (by lane) and vict (the victims in
+    the order the last block lists them). Checks that the histogram and
+    the ``last`` links are left reset."""
+    import operator
+    add = operator.add
+    D, MAXD = dec_cur.shape
+    hist = np.zeros(MAXD, np.int64)
+    count = top_all = 0
+    n_idle = int((phase == IDLE).sum())
+    for d in range(D):
+        if phase[d] != SOLVE:
+            continue
+        dep = min(int(depth[d]), MAXD)
+        seen = top = 0
+        for b in range(0, dep, 4 * BLOCK):
+            take = seen < n_idle
+            ns = []
+            for th in range(BLOCK):
+                j = b + 4 * th
+                n = 0
+                for k in range(4):
+                    if j + k < dep and dec_cur[d, j + k] == 0:
+                        n += 1
+                        if take:
+                            hist[j + k] += 1
+                ns.append(n)
+            tot = block_scan(ns, add)[1]
+            if take and tot:
+                top = min(b + 4 * BLOCK, dep)
+            seen += tot
+        count += seen
+        top_all = max(top_all, top)
+    n = min(count, n_idle)
+    thief, d0, victim, nxt = (np.full(D, -7) for _ in range(4))
+    head, last = np.full(D, -7), np.full(D, -1)
+    vict = []
+    c = 0
+    for b in range(0, D, BLOCK):
+        if c >= n:
+            break
+        f = [int(i < D and phase[i] == IDLE) for i in range(b, b + BLOCK)]
+        inc, tot = block_scan(f, add)
+        for th in range(BLOCK):
+            r = c + inc[th] - f[th]
+            if f[th] and r < n:
+                thief[r] = b + th
+        c += tot
+    base = 0
+    for jb in range(0, top_all, BLOCK):
+        if base >= n:
+            break
+        h = [int(hist[j]) if j < top_all else 0
+             for j in range(jb, jb + BLOCK)]
+        inc, tot = block_scan(h, add)
+        bs = [base + inc[k] - h[k] for k in range(BLOCK)]
+        base += tot
+        for k in range(BLOCK):
+            if jb + k >= top_all or bs[k] >= n:
+                break
+            if h[k] == 0:
+                continue
+            jj, c = jb + k, bs[k]
+            for vb in range(0, D, BLOCK):
+                if c >= n:
+                    break
+                f = [int(v < D and phase[v] == SOLVE and jj < depth[v]
+                         and dec_cur[v, jj] == 0)
+                     for v in range(vb, vb + BLOCK)]
+                inc2, tot2 = block_scan(f, add)
+                for th in range(BLOCK):
+                    r = c + inc2[th] - f[th]
+                    if f[th] and r < n:
+                        v = vb + th
+                        d0[r], victim[r], nxt[r] = jj, v, -1
+                        if last[v] < 0:
+                            head[v] = r
+                            vict.append(v)
+                        else:
+                            nxt[last[v]] = r
+                        last[v] = r
+                c += tot2
+    hist[:top_all] = 0
+    for v in vict:
+        last[v] = -1
+    assert not hist.any() and (last == -1).all()
+    return count, dict(n=n, thief=thief[:n], d0=d0[:n], victim=victim[:n],
+                       next=nxt[:n], head=head, vict=vict)
+
+
+def emulate_steal(f, plan):
+    """K9 (csrc/steal.cu) over the numpy state ``f``, in place: a block
+    per victim, its steals in link order (increasing d0), the rope chain
+    by block max-scans 256 depths a round, the thief's store as the root
+    row met with atomicMax/atomicMin."""
+    for v in plan["vict"]:
+        dep = int(f["depth"][v])
+        r = plan["head"][v]
+        while r >= 0:
+            t, d0 = plan["thief"][r], plan["d0"][r]
+            f["dec_cur"][v, d0] = 1
+            carry = int(f["dec_rope1"][v, d0])
+            for b in range(d0 + 1, dep, BLOCK):
+                js = range(b, b + BLOCK)
+                x = [j if j < dep and f["dec_cur"][v, j - 1] == 0 else -1
+                     for j in js]
+                m, tot = block_scan(x, max)
+                for th, j in enumerate(js):
+                    if j < dep:
+                        f["dec_rope1"][v, j] = m[th] if m[th] >= 0 else carry
+                if tot >= 0:
+                    carry = tot
+            for s in STACKS:
+                f[s][t, :d0 + 1] = f[s][v, :d0 + 1]
+            f["dec_cur"][t, d0] = 1
+            f["dec_rope1"][t, d0] = -1
+            f["dec_l1"][v, d0] = f["dec_l0"][v, d0]
+            f["dec_u1"][v, d0] = f["dec_u0"][v, d0]
+            f["depth"][t] = d0 + 1
+            f["phase"][t] = SOLVE
+            f["remaining"][t] = 0
+            for k in ("subp", "kpow"):
+                f[k][t] = f[k][v]
+            f["strat"][t] = f["snap_strat"][t] = f["snap_strat"][v]
+            for k in ("lb", "root_lb"):
+                f[k][t] = f["root_lb"][v]
+            for k in ("ub", "root_ub"):
+                f[k][t] = f["root_ub"][v]
+            for j in range(d0 + 1):
+                x = f["dec_var"][t, j]
+                right = j == d0 or f["dec_cur"][t, j] == 1
+                f["lb"][t, x] = max(f["lb"][t, x],
+                                    f["dec_l1" if right else "dec_l0"][t, j])
+                f["ub"][t, x] = min(f["ub"][t, x],
+                                    f["dec_u1" if right else "dec_u0"][t, j])
+            r = plan["next"][r]
+
+
+def steal_rounds_agree(f, label):
+    """The steal round on the numpy state ``f`` (the fields of
+    ``engine.STEAL_FIELDS``) four ways, every field exactly equal:
+    ``steal_host`` (the specification, held to JAX), K5 and K9 as
+    transliterated, and the plain torch versions (``steal_plan_plain``,
+    ``steal_apply_plain``); the three plans equal the host's order.
+    Returns the number of steals."""
+    from types import SimpleNamespace
+
+    from turbo_tpu_torch.solver.engine import (steal_apply_plain, steal_host,
+                                               steal_plan_plain)
+    idle = np.nonzero(f["phase"] == IDLE)[0]
+    host = {k: v.copy() for k, v in f.items()}
+    n = steal_host(host, idle)
+    count, plan = emulate_open_count(f["dec_cur"], f["depth"], f["phase"])
+    assert plan["n"] == n == min(count, len(idle)), label
+    assert count == int(((f["dec_cur"] == 0) & (f["phase"] == SOLVE)[:, None]
+                         & (np.arange(f["dec_cur"].shape[1])[None, :]
+                            < f["depth"][:, None])).sum()), label
+    emu = {k: v.copy() for k, v in f.items()}
+    emulate_steal(emu, plan)
+    t = {k: torch.from_numpy(v.copy()) for k, v in f.items()}
+    cnt, thief, d0, victim = steal_plan_plain(t["dec_cur"], t["depth"],
+                                              t["phase"])
+    assert int(cnt) == count, label
+    for a, b in ((thief, plan["thief"]), (d0, plan["d0"]),
+                 (victim, plan["victim"])):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=label)
+    steal_apply_plain(SimpleNamespace(**t), thief, d0, victim)
+    for k in f:
+        np.testing.assert_array_equal(emu[k], host[k], err_msg=f"{label}: {k}")
+        np.testing.assert_array_equal(t[k].numpy(), host[k],
+                                      err_msg=f"{label}: plain {k}")
+    return n
+
+
+def synthetic_steal_state(rng, D, MAXD, V, lanes):
+    """Random numpy stacks, stores and scalars of D lanes; ``lanes``:
+    (lane, phase, depth, share of open entries) for each lane that is
+    not IDLE (the others are IDLE with random depth)."""
+    i32 = lambda a: np.asarray(a, np.int32)
+    f = dict(
+        phase=i32(np.full(D, IDLE)), depth=i32(rng.integers(0, MAXD + 1, D)),
+        subp=i32(rng.integers(0, 99, D)), kpow=i32(rng.integers(1, 9, D)),
+        remaining=i32(rng.integers(0, 5, D)),
+        strat=i32(rng.integers(0, 3, D)), snap_strat=i32(rng.integers(0, 3, D)),
+        dec_var=i32(rng.integers(0, V, (D, MAXD))),
+        dec_cur=i32(rng.integers(0, 2, (D, MAXD))),
+        dec_rope1=i32(rng.integers(-1, MAXD, (D, MAXD))))
+    for k in ("dec_l0", "dec_l1"):
+        f[k] = i32(rng.integers(-20, 10, (D, MAXD)))
+    for k in ("dec_u0", "dec_u1"):
+        f[k] = i32(rng.integers(-10, 20, (D, MAXD)))
+    for k in ("lb", "root_lb"):
+        f[k] = i32(rng.integers(-30, 0, (D, V)))
+    for k in ("ub", "root_ub"):
+        f[k] = i32(rng.integers(0, 30, (D, V)))
+    for v, ph, dep, share in lanes:
+        f["phase"][v], f["depth"][v] = ph, dep
+        f["dec_cur"][v] = rng.random(MAXD) >= share
+    return f
+
+
+def _steal_case(name):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "one_victim":  # five steals from one stack, in depth order
+        return synthetic_steal_state(rng, 12, 40, 9,
+                                     [(3, SOLVE, 30, 0.4), (7, DIVE, 20, 1)])
+    if name == "more_idle":  # 37 idle lanes, a handful of open entries
+        lanes = [(v, SOLVE, 6, 0.3) for v in range(0, 40, 9)]
+        return synthetic_steal_state(rng, 42, 8, 7, lanes)
+    if name == "fewer_idle":  # 3 idle lanes, many open entries
+        lanes = [(v, SOLVE, 25, 0.5) for v in range(20) if v % 7]
+        lanes += [(v, DIVE, 25, 0.5) for v in range(20) if v % 7 == 0 and v]
+        return synthetic_steal_state(rng, 20, 30, 11, lanes)
+    if name == "same_depth":  # victims open at the same depths
+        f = synthetic_steal_state(rng, 10, 16, 5,
+                                  [(2, SOLVE, 12, 0.0), (5, SOLVE, 14, 0.0),
+                                   (8, SOLVE, 9, 0.0)])
+        f["dec_cur"][[2, 5, 8], :] = 1
+        f["dec_cur"][[2, 5, 8], 3] = 0
+        f["dec_cur"][[2, 5], 7] = 0
+        return f
+    if name == "depth_maxd":  # a victim as deep as the stacks
+        return synthetic_steal_state(rng, 9, 24, 6,
+                                     [(1, SOLVE, 24, 0.3), (6, SOLVE, 24, 0.1)])
+    if name == "wide":  # 300 lanes (two rounds of 256), 2000-deep stacks:
+        # lanes with more open entries than idle lanes stop adding to the
+        # histogram after their first 1024 words.
+        lanes = [(v, SOLVE, int(rng.integers(1, 2001)), 0.5)
+                 for v in range(300) if v % 10]
+        return synthetic_steal_state(rng, 300, 2000, 4, lanes)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ("one_victim", "more_idle", "fewer_idle",
+                                  "same_depth", "depth_maxd", "wide"))
+def test_steal_emulation_matches_host_steal(name):
+    """K5's plan and K9's steals as transliterated, and the plain torch
+    versions, equal the host steal on synthetic stacks: several steals
+    from one victim (each later thief copies a prefix an earlier steal
+    rewrote), more and fewer idle lanes than open entries, victims open
+    at the same depths, a victim of depth MAXD, and 300 lanes with
+    2000-deep stacks."""
+    f = _steal_case(name)
+    n = steal_rounds_agree(f, name)
+    idle = int((f["phase"] == IDLE).sum())
+    count = int(((f["dec_cur"] == 0) & (f["phase"] == SOLVE)[:, None]
+                 & (np.arange(f["dec_cur"].shape[1])[None, :]
+                    < f["depth"][:, None])).sum())
+    assert n == min(idle, count) > 0
+    if name == "one_victim":
+        assert n >= 4
+    if name == "more_idle":
+        assert idle > count
+    if name in ("fewer_idle", "wide"):
+        assert idle < count
+
+
+def test_block_scan_equals_cumsum_and_cummax():
+    """The warp-shuffle block scan of csrc/steal.cuh equals np.cumsum and
+    np.maximum.accumulate over one round of 256 values."""
+    import operator
+    rng = np.random.default_rng(5)
+    for op, ref in ((operator.add, np.cumsum), (max, np.maximum.accumulate)):
+        for _ in range(4):
+            xs = [int(x) for x in rng.integers(-1, 40, BLOCK)]
+            out, total = block_scan(xs, op)
+            np.testing.assert_array_equal(out, ref(np.array(xs)))
+            assert total == out[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("one_victim", "fewer_idle", "same_depth",
+                                  "depth_maxd", "wide"))
+def test_cuda_steal_round_matches_plain(name):
+    """K5's count and plan and K9's steals on the card against the plain
+    torch versions and the host steal, exactly (the synthetic stacks of
+    ``test_steal_emulation_matches_host_steal``), twice on one plan
+    workspace (K5 leaves its counters reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from types import SimpleNamespace
+
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.solver.engine import steal_host, steal_plan_plain
+    f = _steal_case(name)
+    host = {k: v.copy() for k, v in f.items()}
+    n = steal_host(host, np.nonzero(f["phase"] == IDLE)[0])
+    D, MAXD = f["dec_cur"].shape
+    plan = kernels.StealPlan(D, MAXD, "cuda:0")
+    for _ in range(2):
+        st = SimpleNamespace(**{k: torch.from_numpy(v.copy()).cuda()
+                                for k, v in f.items()})
+        count = kernels.open_count(st.dec_cur, st.depth, st.phase, plan)
+        want = steal_plan_plain(st.dec_cur, st.depth, st.phase)
+        assert int(count) == int(want[0])
+        for a, b in zip(plan.steals(), want[1:]):
+            assert torch.equal(a, b)
+        kernels.steal(st, plan, n)
+        torch.cuda.synchronize()
+        for k in f:
+            np.testing.assert_array_equal(getattr(st, k).cpu().numpy(),
+                                          host[k], err_msg=k)

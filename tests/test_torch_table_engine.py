@@ -30,8 +30,8 @@ from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
 from turbo_tpu_torch.instances import GOLOMB_OPT, golomb, random_model
 from turbo_tpu_torch.solver.config import EngineConfig
 from turbo_tpu_torch.solver.convert import search_state_to_numpy
-from turbo_tpu_torch.solver.engine import (IDLE, SOLVE, BatchedSolver,
-                                           open_branch_count)
+from turbo_tpu_torch.solver.engine import (IDLE, SOLVE, STEAL_FIELDS,
+                                           BatchedSolver, open_branch_count)
 
 CASES = {
     "rand10": (random_model(10, n_vars=8, n_cons=22),
@@ -166,6 +166,54 @@ def test_steal_and_resplit_match_jax(name, method):
     _assert_same_state(want[0], got[0], method)
     assert not np.array_equal(search_state_to_numpy(got[0])["phase"],
                               fields["phase"])
+
+
+@pytest.mark.parametrize("method", ["_steal_open_branches", "_tail_resplit"])
+@pytest.mark.parametrize("name", sorted(TAIL_CASES))
+def test_steal_and_resplit_are_in_place(name, method):
+    """Both rounds return the state they were given, every field in its
+    own memory (the same ``data_ptr()``, so a CUDA state keeps its
+    StepView and its chunk's CUDA graph), and still equal JAX's."""
+    import dataclasses
+
+    from turbo_tpu_torch.solver.convert import search_state_from_numpy
+    js, ts, fields = _drained(name)
+    st = search_state_from_numpy(fields, "cpu")
+    ptrs = {f.name: getattr(st, f.name).data_ptr()
+            for f in dataclasses.fields(st)}
+    phase = fields["phase"].copy()
+    got = getattr(ts, method)(st, phase)
+    want = getattr(js, method)(_jax_state(js, fields), phase)
+    assert got is not None and got[0] is st and got[1] == want[1]
+    assert {f: getattr(st, f).data_ptr() for f in ptrs} == ptrs
+    _assert_same_state(want[0], st, method)
+
+
+@functools.lru_cache(maxsize=None)
+def _golomb8_d64():
+    """golomb(8) at D=64 over 2^4 subproblems (the drain-forcing case of
+    chip_smoke.py phase 8) after 10 steps: drained, 49 lanes idle, 30
+    open branches on 15 SOLVE lanes."""
+    s = BatchedSolver(compile_model(parse_fzn_text(golomb(8))),
+                      EngineConfig(num_dives=64, subproblems_power=4,
+                                   fp_cap_auto=False), device="cpu")
+    st, _ = s.run_steps(s.init_state(), 10)
+    assert int(st.next_sub[0]) >= int(st.sub_limit[0])
+    return search_state_to_numpy(st)
+
+
+@pytest.mark.parametrize("name", sorted(TAIL_CASES) + ["golomb8_d64"])
+def test_steal_kernel_emulation_matches_host_steal(name):
+    """K5's plan and K9's steals as transliterated
+    (``test_torch_kernels.emulate_open_count``, ``emulate_steal``) and
+    the plain torch versions equal the host steal on drained states of
+    the solver: ``TAIL_CASES`` and golomb(8) at D=64 over 2^4."""
+    from test_torch_kernels import steal_rounds_agree
+    fields = (_golomb8_d64() if name == "golomb8_d64"
+              else _drained(name)[2])
+    n = steal_rounds_agree({k: fields[k].copy() for k in STEAL_FIELDS},
+                           name)
+    assert n > 0
 
 
 def test_steal_without_idle_lanes_or_open_branches_is_none():

@@ -1,6 +1,6 @@
 """The solver's CUDA kernels for Hopper and their wrappers.
 
-Eight kernels on PyTorch's current stream (``csrc/*.cu``), most of them
+Nine kernels on PyTorch's current stream (``csrc/*.cu``), most of them
 one thread block per dive (or table row):
 
 - ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap, on
@@ -14,7 +14,8 @@ one thread block per dive (or table row):
 - ``embed`` (K4): the EPS table build's parent-row gather with the child
   bound, and (``embed.refill``) the table-row refill that seeds the
   first lanes, in place;
-- ``open_count`` (K5): open right branches on the SOLVE-phase stacks;
+- ``open_count`` (K5): open right branches on the SOLVE-phase stacks,
+  and in the same launch the plan of a steal round (``StealPlan``);
 - ``step`` (K6): a search step around K1's step entry, in place: before it
   (``step.head``: the previous step's refill and ring rows, then
   promote and tighten) and after it (``step.post``: the per-lane rest
@@ -26,14 +27,15 @@ one thread block per dive (or table row):
   the element, membership and linear passes) to the fixpoint or the cap;
   ``wac1.step``: the same, then K2's and K3's bodies on each dive's
   result in the same block (the search step's launch under
-  ``fp_mode="wac1"``).
+  ``fp_mode="wac1"``);
+- ``steal`` (K9): a steal round applied in place on K5's plan.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty`` unless the caller passes them
 (``out=``), raises when the launch fails, and counts its launches in
 ``launches`` (and per entry point in ``entry_launches``). K1-K3 and K8
 take an optional ``live`` flag (a 1-element int32 CUDA tensor): when it holds 0
-the kernel returns at once. The plain torch versions live in
+the kernel returns at once. The plain versions live in
 ``solver/propagate.py``, ``solver/engine.py`` and
 ``solver/eps_table.py``; nothing here falls back to them.
 """
@@ -681,24 +683,103 @@ class _Embed(_Kernel):
                          _stream(lb), entry="table_refill")
 
 
+class StealPlan:
+    """K5's workspace and the steal plan it leaves for K9, for D lanes of
+    MAXD-deep stacks on one card (csrc/steal.cuh): one int32 buffer, the
+    head words (K5's ticket, counters and the plan's sizes), the per-depth
+    histogram and seven (D,) arrays. K5 leaves its counters at 0 and the
+    ``last`` links at -1, so a plan is reused from round to round without
+    a memset. Owned by its solver (or made per call of ``open_count``)."""
+    HEAD = 8          # csrc/steal.cuh W_HEAD
+    N_VICT, N_STEAL = 4, 5
+
+    def __init__(self, D: int, MAXD: int, device):
+        self.D, self.MAXD = D, MAXD
+        self.work = torch.zeros(self.HEAD + MAXD + 7 * D, dtype=I32,
+                                device=device)
+        self._array("last").fill_(-1)
+
+    def _array(self, name):
+        k = ("thief", "d0", "victim", "next", "head", "last",
+             "vict").index(name)
+        at = self.HEAD + self.MAXD + k * self.D
+        return self.work[at:at + self.D]
+
+    def steals(self):
+        """(thief, d0, victim) of the last plan, by rank: (n,) int32
+        tensors on the card (one host read of n)."""
+        n = int(self.work[self.N_STEAL])
+        return tuple(self._array(f)[:n] for f in ("thief", "d0", "victim"))
+
+
 class _OpenCount(_Kernel):
     name = "open_count"
     source = "turbo_tpu_torch/kernels/csrc/open_count.cu"
     replaces = "turbo_tpu/solver/engine.py:1185"
 
-    def __call__(self, dec_cur, depth, phase):
+    def __call__(self, dec_cur, depth, phase, plan=None):
         """0-dim int64 tensor on the card: the open right branches of
-        the SOLVE-phase stacks; see csrc/open_count.cu."""
+        the SOLVE-phase stacks; see csrc/open_count.cu. The same launch
+        writes the steal plan of these stacks into ``plan`` (a
+        ``StealPlan`` of this D and MAXD; None: a fresh one)."""
         D, MAXD = dec_cur.shape
         _check(dec_cur, "dec_cur", (D, MAXD))
         _check(depth, "depth", (D,))
         _check(phase, "phase", (D,))
-        out = torch.zeros((), dtype=torch.int64, device=dec_cur.device)
+        if plan is None:
+            plan = StealPlan(D, MAXD, dec_cur.device)
+        if (plan.D, plan.MAXD) != (D, MAXD):
+            raise ValueError(f"a StealPlan of ({plan.D}, {plan.MAXD}) for "
+                             f"stacks of ({D}, {MAXD})")
+        _check(plan.work, "plan.work", plan.work.shape)
+        out = torch.empty((), dtype=torch.int64, device=dec_cur.device)
         with torch.cuda.device(dec_cur.device):
             self._launch(lambda lib: lib.tt_open_count, dec_cur.data_ptr(),
-                         depth.data_ptr(), phase.data_ptr(), out.data_ptr(),
-                         D, MAXD, _stream(dec_cur))
+                         depth.data_ptr(), phase.data_ptr(),
+                         plan.work.data_ptr(), out.data_ptr(), D, MAXD,
+                         _stream(dec_cur))
         return out
+
+
+class StealView(ctypes.Structure):
+    """Mirror of ``struct StealView`` in csrc/steal.cuh."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("D", "V", "MAXD")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "lb", "ub", "root_lb", "root_ub", "dec_var", "dec_l0",
+                    "dec_u0", "dec_l1", "dec_u1", "dec_rope1", "dec_cur",
+                    "depth", "phase", "remaining", "subp", "kpow", "strat",
+                    "snap_strat", "work")])
+
+
+class _Steal(_Kernel):
+    name = "steal"
+    source = "turbo_tpu_torch/kernels/csrc/steal.cu"
+    replaces = "turbo_tpu/solver/engine.py:1203"
+
+    def __call__(self, st, plan, n: int):
+        """Apply the steals of ``plan`` (K5's, on ``st``'s stacks) to the
+        search state ``st`` in place; ``n``: the number of steals (one
+        block each; the blocks beyond the victims return at once). See
+        csrc/steal.cu."""
+        D, MAXD = st.dec_cur.shape
+        V = st.lb.shape[1]
+        if (plan.D, plan.MAXD) != (D, MAXD):
+            raise ValueError(f"a StealPlan of ({plan.D}, {plan.MAXD}) for "
+                             f"stacks of ({D}, {MAXD})")
+        if not 0 < n <= D:
+            raise ValueError(f"{n} steals for {D} lanes")
+        ptr = {}
+        for f, _ in StealView._fields_[3:-1]:  # the state's fields
+            t = getattr(st, f)
+            _check(t, f, (D, V) if f in ("lb", "ub", "root_lb", "root_ub")
+                   else (D, MAXD) if f.startswith("dec_") else (D,))
+            ptr[f] = t.data_ptr()
+        _check(plan.work, "plan.work", plan.work.shape)
+        view = StealView(D=D, V=V, MAXD=MAXD, work=plan.work.data_ptr(),
+                         **ptr)
+        with torch.cuda.device(st.lb.device):
+            self._launch(lambda lib: lib.tt_steal, ctypes.byref(view), int(n),
+                         _stream(st.lb))
 
 
 class _Step(_Kernel):
@@ -760,8 +841,9 @@ open_count = _OpenCount()
 step = _Step()
 step_tail = _StepTail()
 wac1 = _Wac1()
+steal = _Steal()
 KERNELS = (fixpoint, classify, select, embed, open_count, step, step_tail,
-           wac1)
+           wac1, steal)
 
 
 def reset_launches():

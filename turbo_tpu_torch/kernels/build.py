@@ -22,7 +22,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "embed.cu",
-           "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu")
+           "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu", "steal.cu")
 # No FMA contraction: K6's float32 deds must round the multiply and the
 # add separately, as the plain torch version does.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,7 +66,8 @@ def _bind(lib):
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
     lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
     lib.tt_table_refill.argtypes = [P] * 8 + [I, I, I, P]
-    lib.tt_open_count.argtypes = [P, P, P, P, I, I, P]
+    lib.tt_open_count.argtypes = [P, P, P, P, P, I, I, P]
+    lib.tt_steal.argtypes = [P, I, P]
     lib.tt_step_head.argtypes = [P, P, P, P]
     lib.tt_step_post.argtypes = [P, P, P, I, P]
     lib.tt_step_copy.argtypes = [P, P, P]
@@ -77,7 +78,7 @@ def _bind(lib):
                lib.tt_classify, lib.tt_select,
                lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
                lib.tt_step_head, lib.tt_step_post, lib.tt_step_copy,
-               lib.tt_step_live):
+               lib.tt_step_live, lib.tt_steal):
         fn.restype = I
     lib.tt_error_string.argtypes = [I]
     lib.tt_error_string.restype = ctypes.c_char_p

@@ -27,9 +27,11 @@ the root. ``enumerate_all`` counts every all-singleton store, and with
 on-device ring that ``solve`` drains through ``on_solution`` once per
 chunk. ``solve`` calibrates the fixpoint cap live
 (``AutoCapCalibrator``) and, once the subproblem range is drained,
-steals open branches for idle lanes or resplits the stragglers. The
-fixpoint cap is a host integer that ``solve`` owns and passes to
-``step``.
+steals open branches for idle lanes or resplits the stragglers, in
+place: on a CUDA state a steal round is K5 (the count and the plan) and
+K9 (the steals) with one host read of the count, and a resplit one read
+of subp and kpow. The fixpoint cap is a host integer that ``solve``
+owns and passes to ``step``.
 
 ``step`` consumes its input state: the decision stacks (D, MAXD) are
 updated in place (the JAX step donates its input the same way); on the
@@ -49,7 +51,7 @@ from ..host.solver import strategy as _strategy
 from ..host.solver.plan import build_plan
 from .config import (EngineConfig, apply_strategy_config, auto_max_depth,
                      choose_subproblems_power)
-from .convert import DevicePlan, search_state_from_numpy, search_state_to_numpy
+from .convert import DevicePlan
 from ..device import pick_device
 from .propagate import PropagatorKernels
 
@@ -58,6 +60,9 @@ F32 = torch.float32
 DIVE, SOLVE, IDLE = 0, 1, 2
 _STACKS = ("dec_var", "dec_l0", "dec_u0", "dec_l1", "dec_u1", "dec_rope1",
            "dec_cur")
+# The fields a steal round reads or writes.
+STEAL_FIELDS = ("phase", "subp", "kpow", "remaining", "depth", "strat",
+                "snap_strat", "lb", "ub", "root_lb", "root_ub") + _STACKS
 
 
 @dataclasses.dataclass
@@ -133,12 +138,129 @@ def table_refill(tab_lb, tab_ub, idx, refill, lb, ub, root_lb, root_ub):
                               root_lb, root_ub)
 
 
+def _open_entries(dec_cur, depth, phase):
+    """(D, MAXD) bool: the open right branches (dec_cur == 0 below depth)
+    of the SOLVE-phase stacks."""
+    col = torch.arange(dec_cur.shape[1], dtype=I32, device=dec_cur.device)
+    live = (phase == SOLVE)[:, None] & (col[None, :] < depth[:, None])
+    return (dec_cur == 0) & live
+
+
 def open_branch_count_plain(dec_cur, depth, phase):
     """0-dim int64: open right branches (dec_cur == 0 below depth) over
     the SOLVE-phase stacks."""
-    col = torch.arange(dec_cur.shape[1], dtype=I32, device=dec_cur.device)
-    live = (phase == SOLVE)[:, None] & (col[None, :] < depth[:, None])
-    return ((dec_cur == 0) & live).sum()
+    return _open_entries(dec_cur, depth, phase).sum()
+
+
+def steal_plan_plain(dec_cur, depth, phase):
+    """K5 as plain torch ops: (the open count, 0-dim int64; thief, d0,
+    victim, (n,) int32 each): the plan of a steal round, in which the
+    r-th IDLE lane takes the r-th open entry (d0, victim) in (depth,
+    lane) order, n = min(count, IDLE lanes)."""
+    opens = _open_entries(dec_cur, depth, phase)
+    entries = torch.nonzero(opens.t())  # (depth, lane), in that order
+    thieves = torch.nonzero(phase == IDLE)[:, 0]
+    n = min(entries.shape[0], thieves.shape[0])
+    return (opens.sum(), thieves[:n].to(I32), entries[:n, 0].to(I32),
+            entries[:n, 1].to(I32))
+
+
+def steal_apply_plain(st, thief, d0, victim):
+    """K9 as plain torch ops: the steals (thief, d0, victim) applied to
+    the state ``st`` in place, one after another in plan order (the loop
+    of ``steal_host``)."""
+    depth = st.depth.tolist()  # a victim's depth does not change
+    dev = st.depth.device
+    for t, d, v in zip(thief.tolist(), d0.tolist(), victim.tolist()):
+        dep = depth[v]
+        st.dec_cur[v, d] = 1
+        if dep > d + 1:
+            # rope1[j] = the last i in (d, j] with cur[i - 1] == 0, else
+            # rope1[d].
+            j = torch.arange(d + 1, dep, dtype=I32, device=dev)
+            last = torch.cummax(torch.where(st.dec_cur[v, d:dep - 1] == 0,
+                                            j, -1), 0).values
+            st.dec_rope1[v, d + 1:dep] = torch.where(last >= 0, last,
+                                                     st.dec_rope1[v, d])
+        for f in _STACKS:
+            x = getattr(st, f)
+            x[t, :d + 1] = x[v, :d + 1]
+        st.dec_cur[t, d] = 1
+        st.dec_rope1[t, d] = -1
+        st.dec_l1[v, d] = st.dec_l0[v, d]
+        st.dec_u1[v, d] = st.dec_u0[v, d]
+        right = st.dec_cur[t, :d + 1] == 1
+        var = st.dec_var[t, :d + 1].long()
+        lo = torch.where(right, st.dec_l1[t, :d + 1], st.dec_l0[t, :d + 1])
+        hi = torch.where(right, st.dec_u1[t, :d + 1], st.dec_u0[t, :d + 1])
+        st.lb[t] = st.root_lb[v].scatter_reduce(0, var, lo, "amax")
+        st.ub[t] = st.root_ub[v].scatter_reduce(0, var, hi, "amin")
+        st.root_lb[t] = st.root_lb[v]
+        st.root_ub[t] = st.root_ub[v]
+        st.depth[t] = d + 1
+        st.phase[t] = SOLVE
+        st.remaining[t] = 0
+        st.subp[t] = st.subp[v]
+        st.kpow[t] = st.kpow[v]
+        st.strat[t] = st.snap_strat[v]
+        st.snap_strat[t] = st.snap_strat[v]
+
+
+def steal_host(f, idle) -> int:
+    """A steal round as host numpy surgery (``turbo_tpu/solver/engine.py:
+    1203-1314``), in place on ``f``, the state's fields by name
+    (``STEAL_FIELDS``) as numpy arrays; ``idle``: the IDLE lanes, in
+    order. Returns the number of steals. Thieves are IDLE and victims in
+    SOLVE phase, so a victim's rows change only by its own steals."""
+    # All open entries across SOLVE-phase lanes, shallowest first.
+    opens = []
+    for v in np.nonzero(f["phase"] == SOLVE)[0]:
+        for d in range(int(f["depth"][v])):
+            if f["dec_cur"][v, d] == 0:
+                opens.append((d, int(v)))
+    opens.sort()
+    n_steals = 0
+    for t in idle:
+        if not opens:
+            break
+        d0, v = opens.pop(0)
+        # Close the branch on the victim; cur[d0]=1 alone would corrupt
+        # its future rebuilds (it is inside d0's LEFT subtree), so the
+        # right-child interval is rewritten to the left child's below.
+        # Stored rope1 values above d0 are push-time snapshots: recompute
+        # them with the current cur.
+        f["dec_cur"][v, d0] = 1
+        for d in range(d0 + 1, int(f["depth"][v])):
+            f["dec_rope1"][v, d] = (d if f["dec_cur"][v, d - 1] == 0
+                                    else f["dec_rope1"][v, d - 1])
+        # Seed the thief BEFORE the victim's l1/u1 rewrite so it copies
+        # the true right child at d0.
+        for s in _STACKS:
+            f[s][t, :d0 + 1] = f[s][v, :d0 + 1]
+        f["dec_cur"][t, d0] = 1
+        f["dec_rope1"][t, d0] = -1
+        f["dec_l1"][v, d0] = f["dec_l0"][v, d0]
+        f["dec_u1"][v, d0] = f["dec_u0"][v, d0]
+        lb = f["root_lb"][v].copy()
+        ub = f["root_ub"][v].copy()
+        for d in range(d0 + 1):
+            var = f["dec_var"][t, d]
+            right = f["dec_cur"][t, d] == 1
+            lb[var] = max(lb[var], f["dec_l1" if right else "dec_l0"][t, d])
+            ub[var] = min(ub[var], f["dec_u1" if right else "dec_u0"][t, d])
+        f["lb"][t] = lb
+        f["ub"][t] = ub
+        f["root_lb"][t] = f["root_lb"][v]
+        f["root_ub"][t] = f["root_ub"][v]
+        f["depth"][t] = d0 + 1
+        f["phase"][t] = SOLVE
+        f["remaining"][t] = 0
+        f["subp"][t] = f["subp"][v]
+        f["kpow"][t] = f["kpow"][v]
+        f["strat"][t] = f["snap_strat"][v]
+        f["snap_strat"][t] = f["snap_strat"][v]
+        n_steals += 1
+    return n_steals
 
 
 def open_branch_count(dec_cur, depth, phase):
@@ -291,6 +413,7 @@ class BatchedSolver:
         self.last_auto_cap = None
         self.build_time = 0.0
         self._ws = None  # kernel-route scratch (solver/step_cuda.py)
+        self._steal_plan = None  # K5's workspace and plan (kernels.StealPlan)
         if self.device.type == "cuda":
             from .. import kernels
             t0 = time.monotonic()
@@ -807,15 +930,16 @@ class BatchedSolver:
             f["sol_ring"] = ring[:st.sol_ring.shape[0]]
         return f
 
-    # -- EPS tail: resplit and stack steal (host numpy surgery) ---------
+    # -- EPS tail: resplit and stack steal, in place --------------------
 
     def _tail_resplit(self, st, phase, max_new_kpow: int = 28):
         """EPS tail refinement (``turbo_tpu/solver/engine.py:1121-1183``):
         once the range is drained and at most D/4 lanes still work,
         re-split each unfinished subproblem 2^j ways (extending its
         bit-path) and reseed the lane batch over the refined space; the
-        2^j paths partition the straggler's subproblem exactly. Returns
-        (state, number of stragglers) or None."""
+        2^j paths partition the straggler's subproblem exactly. In place:
+        one host read (subp and kpow), then torch writes into the state's
+        own tensors. Returns (st, number of stragglers) or None."""
         D = self.cfg.num_dives
         active = np.nonzero(phase != IDLE)[0]
         if len(active) == 0 or len(active) > D // 4:
@@ -824,43 +948,29 @@ class BatchedSolver:
         j = min(j, 8)
         if j < 2:
             return None
-        host = search_state_to_numpy(st)
-        pairs = [(int(host["subp"][i]), int(host["kpow"][i])) for i in active]
-        pairs = sorted(set(pairs))
+        subp, kpow = torch.stack([st.subp, st.kpow]).cpu().numpy()
+        pairs = sorted({(int(subp[i]), int(kpow[i])) for i in active})
         j = min(j, max_new_kpow - max(kp for _, kp in pairs))
         if j < 2:
             return None
-        new_subp = []
-        new_kpow = []
-        for sp, kp in pairs:
-            for suf in range(1 << j):
-                new_subp.append((sp << j) | suf)
-                new_kpow.append(kp + j)
-        n_new = len(new_subp)
+        new = np.array([((sp << j) | suf, kp + j) for sp, kp in pairs
+                        for suf in range(1 << j)], np.int32)
+        n_new = len(new)
         if n_new > D:  # cannot happen with j from the formula
             return None
-        out = {f: host[f].copy()
-               for f in ("phase", "subp", "kpow", "remaining", "depth",
-                         "strat", "snap_strat", "next_sub", "sub_limit",
-                         "lb", "ub", "root_lb", "root_ub")}
-        out["phase"][:] = IDLE
-        out["phase"][:n_new] = DIVE
-        out["subp"][:n_new] = new_subp
-        out["kpow"][:n_new] = new_kpow
-        out["remaining"][:n_new] = new_kpow
-        out["depth"][:] = 0
-        out["strat"][:] = 0
-        out["snap_strat"][:] = 0
-        out["next_sub"][:] = 0   # every refined subproblem is lane-
-        out["sub_limit"][:] = 0  # resident; no counter refills
-        lb0 = self.plan.lb0[None, :]
-        ub0 = self.plan.ub0[None, :]
-        out["lb"][:] = lb0
-        out["ub"][:] = ub0
-        out["root_lb"][:] = lb0
-        out["root_ub"][:] = ub0
-        host.update(out)
-        return search_state_from_numpy(host, self.device), len(pairs)
+        new = torch.from_numpy(new.T.copy()).to(st.subp.device)
+        st.phase.fill_(IDLE)
+        st.phase[:n_new] = DIVE
+        st.subp[:n_new] = new[0]
+        st.kpow[:n_new] = new[1]
+        st.remaining[:n_new] = new[1]
+        # Every refined subproblem is lane-resident: no counter refills.
+        for f in ("depth", "strat", "snap_strat", "next_sub", "sub_limit"):
+            getattr(st, f).zero_()
+        for f, row in (("lb", self.dp.lb0), ("ub", self.dp.ub0),
+                       ("root_lb", self.dp.lb0), ("root_ub", self.dp.ub0)):
+            getattr(st, f).copy_(row.expand_as(getattr(st, f)))
+        return st, len(pairs)
 
     def _steal_open_branches(self, st, phase):
         """Post-drain work stealing from decision stacks
@@ -878,73 +988,34 @@ class BatchedSolver:
           - victim cur[d0]=1, its right child rewritten to the left one,
             and the rope chain above d0 recomputed.
 
-        Returns (new_state, n_steals) or None."""
+        In place. On a CUDA state K5 counts the open branches and plans
+        the round in one launch, the host reads the count (one int64),
+        and K9 applies the min(count, IDLE lanes) steals; ``phase`` is
+        ``st.phase`` as the host last read it. On a CPU state the round
+        is ``steal_host`` on the state's own memory. Returns (st,
+        n_steals) or None."""
         idle = np.nonzero(phase == IDLE)[0]
         if len(idle) == 0:
             return None
-        host = search_state_to_numpy(st)
-        out = {f: host[f].copy()
-               for f in ("phase", "subp", "kpow", "remaining", "depth",
-                         "strat", "snap_strat", "lb", "ub",
-                         "root_lb", "root_ub") + _STACKS}
-        # All open entries across SOLVE-phase lanes, shallowest first.
-        opens = []
-        for v in np.nonzero(host["phase"] == SOLVE)[0]:
-            dep = int(host["depth"][v])
-            for d in range(dep):
-                if out["dec_cur"][v, d] == 0:
-                    opens.append((d, int(v)))
-        if not opens:
-            return None
-        opens.sort()
-        n_steals = 0
-        for t in idle:
-            if not opens:
-                break
-            d0, v = opens.pop(0)
-            # Close the branch on the victim; cur[d0]=1 alone would
-            # corrupt its future rebuilds (it is inside d0's LEFT
-            # subtree), so the right-child interval is rewritten to the
-            # left child's below. Stored rope1 values above d0 are
-            # push-time snapshots: recompute them with the current cur.
-            out["dec_cur"][v, d0] = 1
-            for d in range(d0 + 1, int(host["depth"][v])):
-                out["dec_rope1"][v, d] = (
-                    d if out["dec_cur"][v, d - 1] == 0
-                    else out["dec_rope1"][v, d - 1])
-            # Seed the thief BEFORE the victim's l1/u1 rewrite so it
-            # copies the true right child at d0.
-            for f in _STACKS:
-                out[f][t, :d0 + 1] = out[f][v, :d0 + 1]
-            out["dec_cur"][t, d0] = 1
-            out["dec_rope1"][t, d0] = -1
-            out["dec_l1"][v, d0] = out["dec_l0"][v, d0]
-            out["dec_u1"][v, d0] = out["dec_u0"][v, d0]
-            lb = host["root_lb"][v].copy()
-            ub = host["root_ub"][v].copy()
-            for d in range(d0 + 1):
-                var = out["dec_var"][t, d]
-                right = out["dec_cur"][t, d] == 1
-                lb[var] = max(lb[var],
-                              out["dec_l1" if right else "dec_l0"][t, d])
-                ub[var] = min(ub[var],
-                              out["dec_u1" if right else "dec_u0"][t, d])
-            out["lb"][t] = lb
-            out["ub"][t] = ub
-            out["root_lb"][t] = host["root_lb"][v]
-            out["root_ub"][t] = host["root_ub"][v]
-            out["depth"][t] = d0 + 1
-            out["phase"][t] = SOLVE
-            out["remaining"][t] = 0
-            out["subp"][t] = host["subp"][v]
-            out["kpow"][t] = host["kpow"][v]
-            out["strat"][t] = host["snap_strat"][v]
-            out["snap_strat"][t] = host["snap_strat"][v]
-            n_steals += 1
-        if n_steals == 0:
-            return None
-        host.update(out)
-        return search_state_from_numpy(host, self.device), n_steals
+        if st.lb.is_cuda:
+            from .. import kernels
+            D, MAXD = st.dec_cur.shape
+            plan = self._steal_plan
+            if plan is None or (plan.D, plan.MAXD) != (D, MAXD):
+                plan = self._steal_plan = kernels.StealPlan(D, MAXD,
+                                                            st.lb.device)
+            n_open = int(kernels.open_count(st.dec_cur, st.depth, st.phase,
+                                            plan))
+            n = min(n_open, len(idle))
+            if n == 0:
+                return None
+            kernels.steal(st, plan, n)
+            return st, n
+        if st.lb.device.type != "cpu":
+            raise RuntimeError(f"no steal round for device {st.lb.device}")
+        n = steal_host({f: getattr(st, f).numpy() for f in STEAL_FIELDS},
+                       idle)
+        return (st, n) if n else None
 
     # -- host loop ------------------------------------------------------
 
@@ -1128,8 +1199,9 @@ class BatchedSolver:
                         print("% range drained: re-calibrating fp_cap",
                               flush=True)
             idle_n = int((phase == IDLE).sum())
-            # idle_n >= D/8: a steal round moves the whole state through
-            # the host, worth it only for a large idle pool.
+            # idle_n >= D/8: JAX's policy (turbo_tpu/solver/engine.py:
+            # 1702), set when a round fetched the whole state; a round here
+            # moves no state through the host, the gate stays JAX's.
             if (drained and idle_n >= max(1, len(phase) // 8)
                     and not (phase == IDLE).all()
                     and not self.cfg.enumerate_all
@@ -1148,31 +1220,37 @@ class BatchedSolver:
                         k0 = int(st.skipped_sub.sum())
                         resplit_base = (
                             s0, k0, max(0, self.num_sub_total - s0 - k0))
-                # Cheap precheck on the card: a zero count spares the
-                # full-state round trip.
-                n_open = int(open_branch_count(st.dec_cur, st.depth,
-                                               st.phase))
-                res3 = None
-                if n_open > 0:
-                    res3 = self._steal_open_branches(st, phase)
+                # The open-branch count gates the steal (on the card K5,
+                # which also plans the round; K9 applies it).
+                tr = time.monotonic()
+                res3 = self._steal_open_branches(st, phase)
                 if res3 is not None:
-                    _freeze_accounting()  # reads the pre-steal counters
+                    self._sync()
+                    round_ms = (time.monotonic() - tr) * 1e3
+                    # The round writes neither solved_sub nor skipped_sub:
+                    # the snapshot reads the pre-steal counters.
+                    _freeze_accounting()
                     st, n_steals = res3
                     steal_rounds += 1
                     steal_wait = 1.0
                     if verbose:
                         print(f"% stack steal #{steal_rounds}: "
-                              f"{n_steals} open branches reseeded")
+                              f"{n_steals} open branches reseeded "
+                              f"({round_ms:.3f} ms)")
                 elif resplit_rounds < 8 and idle_n >= (3 * len(phase)) // 4:
+                    tr = time.monotonic()
                     res2 = self._tail_resplit(st, phase)
                     if res2 is not None:
+                        self._sync()
+                        round_ms = (time.monotonic() - tr) * 1e3
                         _freeze_accounting()
                         st, n_coarse = res2
                         resplit_rounds += 1
                         steal_wait = 1.0
                         if verbose:
                             print(f"% tail resplit #{resplit_rounds}: "
-                                  f"{n_coarse} stragglers refined")
+                                  f"{n_coarse} stragglers refined "
+                                  f"({round_ms:.3f} ms)")
                     else:
                         steal_wait = min(steal_wait * 2, 8.0)
                 else:
