@@ -44,12 +44,26 @@ prints one JSON line: K1's ``-Xptxas -v`` line; for golomb(12) at D=512
 and 2048 and golomb(8) at D=1024 the time to upload the kernel tables
 and three table builds in turn (the first cold: lazy module loads and
 first allocations), each with its K1 launches, rows and K1 ms (CUDA
-events) and the wall time of its first ``dive_level`` call against the
-others'; before them, the process's first upload of the kernel tables,
-table by table; and K1 alone (median of 15) on ``chip_smoke.random_stores``
+events; a tree whose table levels run K1's level entry counts none) and
+the wall time of its first ``dive_level`` call against the others';
+before them, the process's first upload of the kernel tables, table by
+table; and K1 alone (median of 15) on ``chip_smoke.random_stores``
 at the shapes, seeds and caps of ``K1_CASES``, with the sweeps its
 slowest dive needed. Then the default CLI on golomb(12) with ``-t 5000``
 in each tree in the same order, for its cold ``table_build_time``.
+
+``--table-ab DIR`` times the EPS table build of DIR against this
+checkout, each run the CLI in a new process (``chip_smoke.fresh_cli``):
+the golomb(8) proof and golomb(12) with ``-t 3000``, under the default
+options and ``-fp wac1``, in the order DIR, this, this without its
+kernel warm-up (``--cold``), the same again, this, DIR. One JSON line a
+run: ``initTime``, ``table_build_time``, solveTime, status and
+objective, the warm-up's parts, the table levels (each one's wall s up
+to a synchronize and device ms by CUDA events), the first level against
+the others, the host's share of the build (``table_build_time`` less
+the levels' wall) and its time before, between and after the levels,
+and the caching allocator's reserved MB after each level. Each tree's
+kernels are built first, in a process of their own.
 """
 import argparse
 import contextlib
@@ -330,6 +344,55 @@ def k1_ab(other, seconds=5.0):
                           **run_tree(tree, path, seconds)}), flush=True)
 
 
+def table_ab(other):
+    """``--table-ab``: the table build of checkout ``other`` and of this
+    one, a new process a run, in turns (see the module's docstring)."""
+    from chip_smoke import fresh_cli
+    from turbo_tpu_torch.instances import golomb
+    other = pathlib.Path(other).resolve()
+    for tree in (other, ROOT):
+        r = subprocess.run([sys.executable, "-c", "from turbo_tpu_torch "
+                            "import kernels; kernels.load()"], cwd=tree,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"{tree}: kernel build failed: "
+                               f"{r.stderr[-3000:]}")
+    turns = ((other, False), (ROOT, False), (ROOT, True), (ROOT, True),
+             (ROOT, False), (other, False))
+    for m, limit in ((8, ()), (12, ("-t", "3000"))):
+        path = OUT / f"golomb{m}.fzn"
+        path.write_text(golomb(m))
+        for opts in ((), ("-fp", "wac1")):
+            for tree, cold in turns:
+                rec = fresh_cli(tree, [str(path), "-s", *limit, *opts],
+                                cold=cold)
+                walls = [w for w, _ in rec["levels"]]
+                dev_ms = [d for _, d in rec["levels"]]
+                print(json.dumps({
+                    "instance": f"golomb({m})", "opts": " ".join(opts),
+                    "tree": str(tree), "cold": cold,
+                    **{k: rec[k] for k in (
+                        "status", "objective", "init_time",
+                        "table_build_time", "solve_time", "nodes",
+                        "process_s", "warm_up")},
+                    "warm_up_s": sum(rec["warm_up"].values()),
+                    "levels": len(walls),
+                    "first_level": rec["levels"][0],
+                    "other_levels_wall_s": sum(walls[1:]),
+                    "other_levels_median": [
+                        sorted(walls[1:])[(len(walls) - 1) // 2],
+                        sorted(dev_ms[1:])[(len(walls) - 1) // 2]]
+                    if len(walls) > 1 else None,
+                    "levels_device_ms": sum(dev_ms),
+                    "host_s": rec["table_build_time"] - sum(walls),
+                    "level_ms": [[round(1e3 * w, 4), round(d, 4)]
+                                 for w, d in rec["levels"]],
+                    "host_gaps_ms": [round(g, 3)
+                                     for g in rec["host_gaps_ms"]],
+                    "reserved_mb": [round(b / 2 ** 20, 1)
+                                    for b in rec["reserved"]]}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=2)
@@ -340,6 +403,7 @@ def main():
     ap.add_argument("--opts", default="")
     ap.add_argument("--k1-ab", default="")
     ap.add_argument("--k1-child", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--table-ab", default="")
     args = ap.parse_args()
     if args.k1_child:
         k1_child(pathlib.Path(args.k1_child))
@@ -362,6 +426,9 @@ def main():
     OUT.mkdir(parents=True, exist_ok=True)
     if args.k1_ab:
         k1_ab(args.k1_ab)
+        return 0
+    if args.table_ab:
+        table_ab(args.table_ab)
         return 0
     for m in (8, args.big):
         text = golomb(m)

@@ -15,10 +15,15 @@ exits non-zero):
    select on the plain fixpoint's result, caps 2 and 10000, shared- and
    global-memory paths) on 4 seeded random models at D=1024 with randomly
    narrowed stores and stores fixed at a solution, and on golomb(8) at
-   D=1024 and golomb(12) at D=512; K4 (embed and table refill) and K5
-   (the open-branch count and the steal plan) on
+   D=1024 and golomb(12) at D=512; K1's and K8's table level entries
+   (K4's parent gather, the fixpoint, K2 and K3 in one launch: their 13
+   outputs against the plain ``dive_level``, both memory paths) on the
+   widest level of a golomb(12) table build at W=512, at V=2560 and at
+   an unrounded V that is not a multiple of 4 (rows loaded by the loop,
+   not by TMA); K4's table refill (V and V - 1) and K5 (the open-branch
+   count and the steal plan) on
    random stores, table rows, masks and stacks at golomb(12)'s shapes
-   (W=D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
+   (D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
    K8 (WAC1: outer caps 2 and 10000, inner caps 1 and 16; iters, unconv
    and bot of every lane, the store of every lane that is not bot), K8's
    step entry (K8, then K2 and K3 in the same blocks: its 14 outputs
@@ -27,7 +32,7 @@ exits non-zero):
    (V, D) planes at caps 2 and 10000), each on the shared-memory and the
    global-memory path (K1's fixpoint entry at caps 2 and 10000 on both).
    The ``-Xptxas -v`` lines (registers, shared memory, spills) of K1, of
-   its step entry and of K8's four instantiations (each entry on each
+   its step and level entries and of K8's six kernels (each entry on each
    memory path), the resident blocks per SM of K1's and K8's entries at
    golomb(12), K8's times on both memory paths for each store and the
    step entries' epilogue bound are printed. The golomb(12) times go into
@@ -79,6 +84,9 @@ exits non-zero):
    resplit) on the same models against the shared numpy oracle: status
    and objective equal;
 5. golomb(8) through the default CLI proven optimal at 34;
+5c. the same in a fresh process (``fresh_cli``): its ``initTime`` with
+   the kernel warm-up's parts, ``table_build_time``, solveTime, and the
+   first table level's wall and device ms against the others';
 5b. golomb(8) with the cap pinned at 16 (table on, auto D, steal and
    resplit stubbed out): the kernel engine and the plain engine
    (``step_plain`` and the plain fixpoint, classify and select, also in
@@ -108,8 +116,8 @@ exits non-zero):
    the run closes);
 10b. ``-fp wac1`` on golomb(12) through the card CLI at full width
    (``-or 0``, ``-t 30000``): every solution checker-valid, K8's step
-   entry launched once per step, K8 alone, K2 and K3 once per table
-   level, K1 never;
+   entry launched once per step, its level entry once per table level,
+   K8 alone, K1, K2 and K3 never;
 10c. ``fp_mode="fixed"`` and ``fp_layout="vd"`` on golomb(12), D=512,
    through the solver API for 8 s each, the best solution checked;
 10d. ``-arch hybrid`` on golomb(12) through the card CLI (``-or 0``,
@@ -149,27 +157,27 @@ exits non-zero):
    statistics; (d) golomb(9) cut by ``-cutnodes``, resumed from the
    per-host checkpoints, closes at 44;
 11. the launch counts of each path driven in phases 4c-13, each set to
-   0 just before the path and read just after it: the eight kernels of
-   the default search (and every entry point of K4, K6 and K7, and K1's
-   step entry) on the main path (6), K9 excepted on the drain case (8),
-   on the
-   main path and the table-off path K1's step entry once a step and K2
-   and K3 only in the table build (once a level); K1 with its step
-   entry, K6 and K7 on the table-off path (7) and on ``-a``, K2-K4 too
-   on ``-i``; K8 and its step entry in place of K1's, with K2 and K3 in
-   the table build, on 10b, K1's
-   fixed-sweeps and transposed entries with K2 and K3 on 10c, K1 and K2
-   on the hybrid paths, K1 with its step entry, K6 and K7 in each
-   process of 13b (summed over both processes into the path
+   0 just before the path and read just after it (with the table levels
+   built, ``table levels``): the kernels of the default search (K1's
+   step and level entries, K4's refill, K5, K6 and K7, each entry of K6
+   and K7) on the main path (6), K9 excepted on the drain case (8), on
+   the main path and the table-off path K1's step entry once a step,
+   its level entry once a table level, K2 and K3 never; K1 with its step
+   entry, K6 and K7 on the table-off path (7) and on ``-a``, the level
+   entry and K4 too on ``-i``; K8's step and level entries in place of
+   K1's on 10b, K1's fixed-sweeps and transposed entries with K2 and K3
+   on 10c, K1 and K2 on the hybrid paths, K1 with its step entry, K6 and
+   K7 in each process of 13b (summed over both processes into the path
    ``hosts2``).
 
 It prints a JSON line of the kernels (with each one's bound: the larger
 of the bytes it must move over 3.35 TB/s and its int32 operations over
 67 T/s, at the timed shapes and this run's data; ``launches`` is the
 count on the main path, or on the kernel's own path (``path``) where the
-default search does not run it; each entry of K6 and K7, and K1's and
-K8's step entries (with the epilogue's own bound and their blocks per
-SM), has a row of its own beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
+default search does not run it (K2 and K3 on the ``fixed`` path); each
+entry of K6 and K7, and K1's and K8's step and level entries (with the
+epilogue's own bound and their blocks per SM), has a row of its own
+beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
 reads K6 post's launches on the ``-arch multi`` golomb(12) path and its
 times from 3d; K5's and K9's times and bounds are phase 8's steal round;
 ``transports`` holds ``dcn_allgather``, a host transport and
@@ -262,6 +270,34 @@ def median_ms(fn, reps=15):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Device ms of one call of ``fn``: ``n`` calls captured in a CUDA
+    graph, the graph replayed ``reps`` times, the median replay over
+    ``n``. Unlike ``median_ms`` it leaves out the host's time to issue a
+    launch, which a single short launch's events include."""
+    import torch
+    fn()  # warm-up: allocations and attributes outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return sorted(times)[len(times) // 2]
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -362,8 +398,11 @@ def random_stores(plan, tnf, D, rng, solution):
 # mangled template arguments in their names.
 K8_KERNELS = (("K8", "wac1_kernelILb0ELb1E"),
               ("K8's step entry", "wac1_kernelILb1ELb1E"),
+              ("K8's level entry", "wac1_level_kernelILb1E"),
               ("K8, global-memory path", "wac1_kernelILb0ELb0E"),
-              ("K8's step entry, global-memory path", "wac1_kernelILb1ELb0E"))
+              ("K8's step entry, global-memory path", "wac1_kernelILb1ELb0E"),
+              ("K8's level entry, global-memory path",
+               "wac1_level_kernelILb0E"))
 
 
 def phase_kernels(torch, dev):
@@ -375,6 +414,8 @@ def phase_kernels(torch, dev):
         ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
     log("  K1's step entry (-Xptxas -v): " + " | ".join(
         ptxas_lines(kbuild.build_log, "fixpoint_step_kernel")))
+    log("  K1's level entry (-Xptxas -v): " + " | ".join(
+        ptxas_lines(kbuild.build_log, "fixpoint_level_kernel")))
     for what, kernel in K8_KERNELS:
         log(f"  {what} (-Xptxas -v): " + " | ".join(
             ptxas_lines(kbuild.build_log, kernel)))
@@ -567,9 +608,11 @@ def phase_kernels(torch, dev):
     epi_bytes = sum(kp.tensors[n].numel() * kp.tensors[n].element_size()
                     for n in EPILOGUE_TABLES) + 35 * D
     epi_bound = bound(epi_bytes, cls_ops + sel_ops)
-    blocks = {f"{k.name}{e}": k.blocks_per_sm(kp, step=e == ".step")
-              for k in (kernels.fixpoint, kernels.wac1) for e in ("", ".step")}
-    for name in ("fixpoint.step", "wac1.step"):
+    blocks = {f"{k.name}{e}": k.blocks_per_sm(kp, e[1:])
+              for k in (kernels.fixpoint, kernels.wac1)
+              for e in ("", ".step", ".level")}
+    for name in ("fixpoint.step", "wac1.step", "fixpoint.level",
+                 "wac1.level"):
         ROW_EXTRA[name] = {"epilogue_bound_ms": epi_bound[0],
                            "epilogue_bound_by": epi_bound[1]}
     for name, b in blocks.items():
@@ -581,7 +624,9 @@ def phase_kernels(torch, dev):
         f"; the epilogue's own bound {epi_bound[0]:.5f} ms ({epi_bound[1]}"
         f", {epi_bytes} bytes); resident blocks per SM: K1 "
         f"{blocks['fixpoint']}, K1's step entry {blocks['fixpoint.step']}, "
-        f"K8 {blocks['wac1']}, K8's step entry {blocks['wac1.step']}; "
+        f"K1's level entry {blocks['fixpoint.level']}, K8 {blocks['wac1']}, "
+        f"K8's step entry {blocks['wac1.step']}, K8's level entry "
+        f"{blocks['wac1.level']}; "
         f"K8's step entry {times[g12, 'wac1.step'][0]:.4f} ms against K8 "
         f"{times[g12, 'wac1'][0]:.4f}")
     bounds = {
@@ -604,7 +649,7 @@ def phase_kernels(torch, dev):
         "select": bound(planes + 9 * 4 * D, sel_ops),
     }
     kres = {k: (errs[k],) + times["golomb(12)", k] + bounds[k] for k in errs}
-    kres.update(phase_table_kernels(torch, dev, s, tnf))
+    kres.update(phase_table_kernels(torch, dev, s, tnf, cls_ops + sel_ops))
     return kres
 
 
@@ -635,48 +680,114 @@ def exact(name, got, want):
     return err
 
 
-def phase_table_kernels(torch, dev, s, tnf):
-    """K4 (both entry points) and K5 against their plain versions at
-    golomb(12)'s shapes: W = D = 512 rows of V = 2560, 2048 table rows,
-    (512, 10000) stacks."""
+def level_chunk(dev, text, mode, odd=False):
+    """A solver of D=512 lanes for ``text`` under fp_mode ``mode`` and the
+    inputs of its table build's widest level (the one with the most
+    distinct parent rows; through the kernels), as the main path builds
+    it: (solver, the ten inputs). ``odd``: the plan keeps V unrounded (the
+    planner rounds it up to a multiple of 128), a V that is not a
+    multiple of 4, whose rows the level entries load with the loop."""
+    from unittest import mock
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.host.solver import plan as plan_mod
+    from turbo_tpu_torch.solver import eps_table
+    from turbo_tpu_torch.solver.config import EngineConfig
+    from turbo_tpu_torch.solver.engine import BatchedSolver
+    rounded = plan_mod.quantize
+    with mock.patch.object(plan_mod, "quantize", (
+            lambda n, min_gran=32: n if min_gran == 128
+            else rounded(n, min_gran)) if odd else rounded):
+        s = BatchedSolver(compile_model(parse_fzn_text(text)),
+                          EngineConfig(num_dives=512, fp_mode=mode),
+                          device=dev)
+    if (s.plan.V % 4 != 0) != odd or not s.use_table:
+        fail(f"level chunk: V={s.plan.V}, table {s.use_table}")
+    chunks = []
+    level = eps_table.dive_level
+    with mock.patch.object(eps_table, "dive_level", lambda solver, *c: (
+            chunks.append(c), level(solver, *c))[1]):
+        eps_table.build_table(s)
+    return s, max(chunks, key=lambda c: len(set(c[8].tolist())))
+
+
+def phase_table_kernels(torch, dev, s, tnf, epi_ops):
+    """The table build's kernels against their plain versions at
+    golomb(12)'s shapes: K1's and K8's level entries (each on both memory
+    paths, V = 2560 and an unrounded V that is not a multiple of 4, on
+    the widest level of a real build at W = 512) against
+    ``dive_level_plain``; K4's refill (2048 table rows, D = 512) and K5
+    ((512, 10000) stacks) on random inputs. ``epi_ops``: K2's and K3's
+    operations at W = 512."""
     import numpy as np
     from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.instances import golomb
     from turbo_tpu_torch.solver.engine import (steal_plan_plain,
                                                table_refill_plain)
     from turbo_tpu_torch.host.solver.plan import quantize
-    from turbo_tpu_torch.solver.eps_table import embed_plain
+    from turbo_tpu_torch.solver.eps_table import _BIG_CAP, dive_level_plain
     rng = np.random.default_rng(42)
     plan, D, MAXD = s.plan, 512, 10000
     n_pad = quantize(1 << 11)  # golomb(12) at D=512 splits 2^11 ways
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                   device=dev)
-    lb, ub = random_stores(plan, tnf, D, rng, None)
-    var = rng.integers(0, plan.n_active, D)
-    lo, hi = lb[np.arange(D), var], ub[np.arange(D), var]
-    mid = lo + (hi - lo) // 2
-    args = (t(lb), t(ub), t(rng.integers(0, len(s.dp.strat_ids) + 1, D)),
-            t(var), t(lo), t(mid), t(mid + 1), t(hi),
-            t(rng.integers(0, D, D)), t(rng.integers(0, 2, D)))
     out = {}
-    err = exact("embed", kernels.embed(*args), embed_plain(*args))
-    ms = (median_ms(lambda: kernels.embed(*args)),
-          median_ms(lambda: embed_plain(*args)))
-    # Two parent planes read and two child planes written, per row.
-    out["embed"] = (err,) + ms + bound(4 * D * plan.V * 4 + 11 * 4 * D,
-                                       2 * D * plan.V)
+    for mode, k in (("fixpoint", kernels.fixpoint), ("wac1", kernels.wac1)):
+        name = f"{k.name}.level"
+        for odd in (False, True):
+            ls, chunk = level_chunk(dev, golomb(12), mode, odd)
+            kp, V, W = ls.kernels.kernel_plan, ls.plan.V, len(chunk[8])
+            caps = (_BIG_CAP, ls.cfg.wac1_inner_cap) if mode == "wac1" \
+                else (_BIG_CAP,)
+            want = dive_level_plain(ls, *chunk)
+            for smem in (True, False):
+                err = exact(f"{name} (V={V}, smem={smem})", k.level(
+                    kp, chunk, ls.dp.obj, *caps, smem=smem), want)
+            if odd:
+                continue
+            ms = (graph_ms(lambda: k.level(kp, chunk, ls.dp.obj, *caps)),
+                  median_ms(lambda: dive_level_plain(ls, *chunk), reps=3))
+            one = median_ms(lambda: k.level(kp, chunk, ls.dp.obj, *caps))
+            glob = graph_ms(lambda: k.level(kp, chunk, ls.dp.obj, *caps,
+                                            smem=False))
+            # The distinct parent rows read once, the rows and 11 words a
+            # row written, the plan's tables; the sweeps this level
+            # needed (outer sweeps under WAC1), then K2 and K3.
+            parents = len(set(chunk[8].tolist()))
+            sweeps = int(want[11].long().sum()) - W
+            out[name] = (err,) + ms + bound(
+                8 * V * (parents + W) + 44 * W + plan_bytes(kp),
+                sweeps * sweep_ops(ls.dp) + epi_ops)
+            log(f"  {name}, golomb(12) widest level (W={W}, {parents} "
+                f"parent rows, {sweeps} sweeps): exact on both memory paths "
+                f"at V={V} and at an unrounded V; ms {ms[0]:.4f} in a CUDA "
+                f"graph ({one:.4f} a single launch; global-memory path "
+                f"{glob:.4f}; plain {ms[1]:.4f}), bound {out[name][3]:.5f} "
+                f"({out[name][4]})")
     tlb, tub = random_stores(plan, tnf, n_pad, rng, None)
     tab = (t(tlb), t(tub))
     idx = t(rng.integers(-3, n_pad + 3, D))
     refill = torch.as_tensor(rng.random(D) < 0.5, device=dev)
     planes = [t(a) for a in random_stores(plan, tnf, D, rng, None) * 2]
     mine = [p.clone() for p in planes]
-    kernels.embed.refill(*tab, idx, refill, *mine)
+    kernels.table_refill(*tab, idx, refill, *mine)
     table_refill_plain(*tab, idx, refill, *planes)
-    exact("embed.refill", mine, planes)
-    refill_ms = (median_ms(lambda: kernels.embed.refill(*tab, idx, refill,
-                                                        *mine)),
-                 median_ms(lambda: table_refill_plain(*tab, idx, refill,
-                                                      *planes)))
+    err = exact("table_refill", mine, planes)
+    # V - 1 words a row: rows off 16-byte boundaries, moved 4 bytes at a
+    # time.
+    odd = [a[:, :-1].contiguous() for a in tab + tuple(planes)]
+    odd_mine = [a.clone() for a in odd[2:]]
+    kernels.table_refill(*odd[:2], idx, refill, *odd_mine)
+    table_refill_plain(*odd[:2], idx, refill, *odd[2:])
+    exact("table_refill (V % 4 != 0)", odd_mine, odd[2:])
+    # A refilled lane reads two table rows and writes four planes.
+    n_refill = int(refill.sum())
+    out["table_refill"] = (err,) + (
+        graph_ms(lambda: kernels.table_refill(*tab, idx, refill, *mine)),
+        median_ms(lambda: table_refill_plain(*tab, idx, refill, *planes))
+    ) + bound(n_refill * 6 * plan.V * 4 + 5 * D, 0)
+    refill_one = median_ms(lambda: kernels.table_refill(*tab, idx, refill,
+                                                        *mine))
     dec_cur = t(rng.integers(0, 2, (D, MAXD)))
     depth = t(rng.integers(0, MAXD + 1, D))
     phase = t(rng.integers(0, 3, D))
@@ -692,15 +803,12 @@ def phase_table_kernels(torch, dev, s, tnf):
         median_ms(lambda: kernels.open_count(dec_cur, depth, phase, splan)),
         median_ms(lambda: steal_plan_plain(dec_cur, depth, phase))
     ) + bound(4 * live + 8 * D + 8 + 12 * len(want[1]), live)
-    # A refilled lane reads two table rows and writes four planes.
-    n_refill = int(refill.sum())
-    refill_bound = bound(n_refill * 6 * plan.V * 4 + 5 * D, 0)
-    log(f"  golomb(12) shapes: W=D={D} V={plan.V} n_pad={n_pad} MAXD={MAXD}:"
-        f" embed/refill/open_count exact; ms embed {out['embed'][1]:.4f} "
-        f"(plain {out['embed'][2]:.4f}, bound {out['embed'][3]:.5f}), "
-        f"table_refill {refill_ms[0]:.4f} (plain {refill_ms[1]:.4f}, bound "
-        f"{refill_bound[0]:.5f} for {n_refill} lanes), open_count and its "
-        f"plan on random stacks ({len(want[1])} steals) "
+    log(f"  golomb(12) shapes: D={D} V={plan.V} n_pad={n_pad} MAXD={MAXD}:"
+        f" table_refill (V and V - 1)/open_count exact; ms table_refill "
+        f"{out['table_refill'][1]:.4f} in a CUDA graph ({refill_one:.4f} a "
+        f"single launch; plain {out['table_refill'][2]:.4f}, "
+        f"bound {out['table_refill'][3]:.5f} for {n_refill} lanes), "
+        f"open_count and its plan on random stacks ({len(want[1])} steals) "
         f"{out['open_count'][1]:.4f} (plain {out['open_count'][2]:.4f}, "
         f"bound {out['open_count'][3]:.5f}; the JSON line's row is phase "
         "8's)")
@@ -1213,14 +1321,101 @@ def _step_loop(torch, dev, label, kw, full, chunk, cap):
     return out["CUDA graph"]
 
 
+# Run as ``python -c LEVEL_TIMER [--cold] <CLI arguments>`` from the root
+# of a checkout: the CLI of that checkout with each table level timed
+# (each ``eps_table.dive_level`` call: its wall seconds up to a
+# synchronize, and its device ms by CUDA events around it), and, where
+# the checkout has it, the kernel warm-up's parts; both as a last line on
+# stderr, with the host's time around the levels and the caching
+# allocator's reserved bytes after each. ``--cold``: the warm-up does
+# nothing (the first launches fall inside the table build, as before it
+# existed).
+LEVEL_TIMER = """
+import json, sys, time
+import torch
+from turbo_tpu_torch import cli, kernels
+from turbo_tpu_torch.solver import eps_table
+levels, starts, reserved, builds, warm = [], [], [], [], {}
+level, build = eps_table.dive_level, eps_table.build_table
+
+
+def timed_level(solver, *chunk):
+    t0 = time.monotonic()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    res = level(solver, *chunk)
+    ev[1].record()
+    torch.cuda.synchronize()
+    levels.append((time.monotonic() - t0, ev[0].elapsed_time(ev[1])))
+    starts.append(t0)
+    reserved.append(torch.cuda.memory_reserved())
+    return res
+
+
+def timed_build(*a, **k):
+    t0 = time.monotonic()
+    res = build(*a, **k)
+    builds.append((t0, time.monotonic()))
+    return res
+
+
+eps_table.dive_level = timed_level
+eps_table.build_table = timed_build
+cold = sys.argv[1:2] == ["--cold"]
+if hasattr(kernels, "warm_up"):
+    warm_up = kernels.warm_up
+
+    def timed_warm_up(owner):
+        parts = {} if cold else warm_up(owner)
+        warm.update(parts)
+        return parts
+    kernels.warm_up = timed_warm_up
+rc = cli.main(sys.argv[2 if cold else 1:])
+# The host's time before the first level, between levels and after the
+# last, in ms, and the caching allocator's reserved bytes after each level.
+b0, b1 = builds[0] if builds else (0.0, 0.0)
+ends = [t + w for t, (w, _) in zip(starts, levels)]
+gaps = [1e3 * (a - b) for a, b in zip(starts + [b1], [b0] + ends)]
+print("%levels " + json.dumps({"levels": levels, "warm_up": warm,
+                               "host_gaps_ms": gaps, "reserved": reserved}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def fresh_cli(tree, args, cold=False, timeout=600):
+    """The CLI of checkout ``tree`` as a process of its own
+    (``LEVEL_TIMER``) with the arguments ``args``: its statistics, status,
+    objective, each table level's (wall s, device ms), the warm-up's
+    parts and the process's wall seconds; fails if it fails."""
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-c", LEVEL_TIMER,
+                        *(["--cold"] if cold else []), *args], cwd=tree,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.monotonic() - t0
+    if r.returncode != 0:
+        fail(f"{tree}: the CLI {args} returned {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    stats = dict(re.findall(r"^%%%mzn-stat: (\w+)=(.*)$", r.stdout, re.M))
+    timed = json.loads(re.findall(r"^%levels (.*)$", r.stderr, re.M)[-1])
+    return {"status": status_of(r.stdout, True),
+            "objective": int(stats["objective"]) if "objective" in stats
+            else None, "init_time": float(stats["initTime"]),
+            "table_build_time": float(stats.get("table_build_time", 0.0)),
+            "solve_time": float(stats["solveTime"]),
+            "nodes": int(stats["nodes"]), "process_s": wall, **timed}
+
+
 def plain_engine(s):
     """Solver ``s`` with the plain versions in place of the kernels: the
     step is ``step_plain`` and the fixpoint, classify and select (also in
     the table build) are the plain torch functions. Returns ``s``."""
     import torch
+    from turbo_tpu_torch.solver.eps_table import dive_level_plain
     pk = s.kernels
     pk.fixpoint, pk.classify = pk.fixpoint_plain, pk.classify_plain
     s._select = s._select_plain
+    s._dive_level = lambda *chunk: dive_level_plain(s, *chunk)
 
     def run_steps(st, n, cap=0):
         count = torch.zeros((), dtype=torch.int32, device=st.lb.device)
@@ -1232,14 +1427,34 @@ def plain_engine(s):
     return s
 
 
+# The table levels built in this process (``dive_level`` calls, kernels
+# or plain), counted by ``count_table_levels``.
+TABLE_LEVELS = [0]
+
+
+def count_table_levels():
+    """Counts every call of ``eps_table.dive_level`` (each solver's table
+    build calls it once a level) in ``TABLE_LEVELS``."""
+    from turbo_tpu_torch.solver import eps_table
+    level = eps_table.dive_level
+
+    def counted_level(solver, *chunk):
+        TABLE_LEVELS[0] += 1
+        return level(solver, *chunk)
+    eps_table.dive_level = counted_level
+
+
 def counted(label, fn, required=()):
-    """Drive one path: every launch count is set to 0 just before ``fn``
-    and read just after; fails unless each kernel (or ``embed.<entry>``)
-    in ``required`` was launched. Returns the counts."""
+    """Drive one path: every launch count (and the count of table levels,
+    ``table levels``) is set to 0 just before ``fn`` and read just after;
+    fails unless each kernel (or ``<kernel>.<entry>``) in ``required`` was
+    launched. Returns the counts."""
     from turbo_tpu_torch import kernels
     kernels.reset_launches()
+    TABLE_LEVELS[0] = 0
     fn()
     counts = kernels.launch_counts()
+    counts["table levels"] = TABLE_LEVELS[0]
     log(f"  launches on {label}: " + ", ".join(f"{k} {n}"
                                                for k, n in counts.items()))
     missing = [k for k in required if counts[k] <= 0]
@@ -1248,23 +1463,27 @@ def counted(label, fn, required=()):
     return counts
 
 
-def fused_only(label, c):
-    """Fails unless every step of the path ran K1's step entry and K2 and
-    K3 ran only in the table build (once a level each). Returns ``c``."""
-    if c["fixpoint.step"] != c["step.head"] or not (
-            c["classify"] == c["select"] == c["embed.embed"]):
-        fail(f"{label}: K1's step entry {c['fixpoint.step']} for "
-             f"{c['step.head']} steps; K2 {c['classify']}, K3 "
-             f"{c['select']} for {c['embed.embed']} table levels")
+def fused_only(label, c, prop="fixpoint"):
+    """Fails unless every step of the path ran the step entry of K1 (K8
+    with ``prop="wac1"``), every table level was one launch of its level
+    entry, and K2 and K3 never ran on their own. Returns ``c``."""
+    if (c[f"{prop}.step"] != c["step.head"]
+            or c[f"{prop}.level"] != c["table levels"]
+            or c["classify"] or c["select"]):
+        fail(f"{label}: {prop}'s step entry {c[f'{prop}.step']} for "
+             f"{c['step.head']} steps, its level entry "
+             f"{c[f'{prop}.level']} for {c['table levels']} table levels; "
+             f"K2 {c['classify']}, K3 {c['select']}")
     return c
 
 
-# The default step's kernels (K2 and K3 run inside K1's step entry),
-# and the table build's (K4, then K1, K2 and K3 a level).
-STEP_KERNELS = ("fixpoint", "fixpoint.step", "step", "step_tail",
-                "step.head", "step.post", "step_tail.live", "step_tail.copy")
-TABLE_KERNELS = ("embed", "embed.embed", "embed.table_refill", "classify",
-                 "select")
+# The step's own kernels (K6, K7), the default step's (K2 and K3 run
+# inside K1's step entry), and the default table build's (a level is one
+# launch of K1's level entry; the refill seeds the first lanes).
+STEP_OWN = ("step", "step_tail", "step.head", "step.post", "step_tail.live",
+            "step_tail.copy")
+STEP_KERNELS = ("fixpoint", "fixpoint.step") + STEP_OWN
+TABLE_KERNELS = ("table_refill", "fixpoint.level")
 
 
 def api_run(dev, big, tnf, model, seconds, **kw):
@@ -1374,6 +1593,23 @@ def run_path(torch, dev, big=12):
     log("[5] golomb(8) proof, default CLI")
     paths["default CLI, golomb(8)"] = counted("the default CLI, golomb(8)",
                                               golomb8_proof)
+
+    log("[5c] golomb(8) proof, default CLI, in a fresh process")
+    rec = fresh_cli(ROOT, [write_model("golomb8", golomb(8)), "-s"])
+    if (rec["status"], rec["objective"]) != ("optimal", 34):
+        fail(f"golomb(8) in a fresh process: {rec['status']} "
+             f"{rec['objective']}")
+    first, rest = rec["levels"][0], rec["levels"][1:]
+    mid = len(rest) // 2
+    log(f"  optimal 34: initTime {rec['init_time']:.3f} s (kernel warm-up "
+        f"{sum(rec['warm_up'].values()):.4f} s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec["warm_up"].items())
+        + f"), table_build_time {rec['table_build_time']:.3f} s, solveTime "
+        f"{rec['solve_time']:.3f} s; {len(rec['levels'])} table levels, the "
+        f"first {1e3 * first[0]:.3f} ms wall ({first[1]:.4f} ms device), the "
+        f"others' median {1e3 * sorted(w for w, _ in rest)[mid]:.3f} ms wall "
+        f"({sorted(d for _, d in rest)[mid]:.4f} ms device); the process "
+        f"{rec['process_s']:.1f} s")
 
     log("[5b] golomb(8), cap pinned at 16: kernel engine vs plain engine")
 
@@ -1530,11 +1766,11 @@ def run_option_paths(torch, dev, big=12):
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
     from turbo_tpu_torch.instances import GOLOMB_OPT, golomb
-    step_kernels, table_kernels = STEP_KERNELS, TABLE_KERNELS
+    table_kernels = TABLE_KERNELS
     # The step's kernels besides its propagation launch, where K2 and K3
     # run as launches of their own.
-    rest = ("classify", "select") + tuple(
-        k for k in step_kernels if not k.startswith("fixpoint"))
+    rest = ("classify", "select") + STEP_OWN
+    wac1_kernels = ("wac1", "wac1.step", "wac1.level", "table_refill")
     paths = {}
     text = golomb(big)
     model = parse_fzn_text(text)
@@ -1570,18 +1806,12 @@ def run_option_paths(torch, dev, big=12):
         return run
 
     log(f"[10b] -fp wac1: golomb({big}), card CLI, -or 0, -t 30000")
-    c = paths[WAC1] = counted(
+    c = paths[WAC1] = fused_only(WAC1, counted(
         f"-fp wac1, golomb({big})", cli_big("-fp wac1", 30, "-fp", "wac1"),
-        required=("wac1", "wac1.wac1", "wac1.step") + rest + table_kernels)
-    # K8's step entry ran in every step, K8 alone, K2 and K3 in every level
-    # of the table build, K1 never.
-    if (c["fixpoint"] != 0 or c["wac1.step"] != c["step.head"]
-            or not c["wac1.wac1"] == c["classify"] == c["select"]
-            == c["embed.embed"]):
-        fail(f"-fp wac1: K8's step entry {c['wac1.step']} for "
-             f"{c['step.head']} steps; K8 {c['wac1.wac1']}, K2 "
-             f"{c['classify']}, K3 {c['select']} for {c['embed.embed']} "
-             f"table levels; K1 {c['fixpoint']}")
+        required=wac1_kernels + STEP_OWN), prop="wac1")
+    # K8 alone and K1 never: a level is one launch of K8's level entry.
+    if c["fixpoint"] != 0 or c["wac1.wac1"] != 0:
+        fail(f"-fp wac1: K8 alone {c['wac1.wac1']}, K1 {c['fixpoint']}")
 
     log(f"[10c] fp_mode fixed and fp_layout vd: golomb({big}), D=512, solver "
         f"API, 8 s each")
@@ -1636,7 +1866,7 @@ def run_option_paths(torch, dev, big=12):
     log("[10e] golomb(8) proven optimal under -fp wac1, -arch hybrid and both")
     paths["golomb(8) proofs: wac1, hybrid, hybrid wac1"] = counted(
         "the golomb(8) proofs", proofs,
-        required=("wac1", "fixpoint", "classify") + rest + table_kernels)
+        required=wac1_kernels + ("fixpoint", "classify") + STEP_OWN)
 
     g9 = write_model("golomb9", golomb(9))
     g9model = parse_fzn_text(golomb(9))
@@ -1671,7 +1901,7 @@ def run_option_paths(torch, dev, big=12):
     log("[10f] -checkpoint: golomb(9) cut by -cutnodes, resumed, closes at 44")
     paths["-checkpoint, golomb(9)"] = counted(
         "-checkpoint, golomb(9)", resume("tpu", 5000),
-        required=step_kernels + table_kernels)
+        required=STEP_KERNELS + table_kernels)
     paths["-checkpoint -arch hybrid, golomb(9)"] = counted(
         "-checkpoint -arch hybrid, golomb(9)", resume("hybrid", 5000, *few),
         required=("fixpoint", "classify"))
@@ -2289,6 +2519,7 @@ def main():
     from turbo_tpu_torch.kernels import build as kbuild
 
     dev = torch.device("cuda:0")
+    count_table_levels()
     shutil.rmtree(WORK, ignore_errors=True)
     WORK.mkdir(parents=True)
     smi = nvidia_smi()
@@ -2355,15 +2586,20 @@ def main():
     # JAX function of its own. ``launches`` is read on the main path, or,
     # for a kernel the default search does not run, on its own path.
     # (name, kernel, replaces, path, launch-count key)
+    # K2 and K3 run on their own only where the step has no step entry
+    # (fp_mode fixed, the vd layout) and in the hybrid rounds.
     k1 = kernels.fixpoint
-    listed = [(k.name, k, k.replaces, WAC1 if k is kernels.wac1 else MAIN,
-               k.name) for k in kernels.KERNELS]
+    own_path = {kernels.wac1: WAC1, kernels.classify: FIXED,
+                kernels.select: FIXED}
+    listed = [(k.name, k, k.replaces, own_path.get(k, MAIN), k.name)
+              for k in kernels.KERNELS]
     listed += [(f"{k.name}.{e}", k, k.ENTRY_REPLACES[e], path,
                 f"{k.name}.{e}")
-               for k, e, path in ((k1, "step", MAIN),
+               for k, e, path in ((k1, "step", MAIN), (k1, "level", MAIN),
                                   (k1, "fixed_sweeps", FIXED),
                                   (k1, "transposed", VD),
-                                  (kernels.wac1, "step", WAC1))]
+                                  (kernels.wac1, "step", WAC1),
+                                  (kernels.wac1, "level", WAC1))]
     # Each entry of K6 and K7 on its own.
     listed += [(f"{k.name}.{e}", k, k.replaces, MAIN, f"{k.name}.{e}")
                for k in (kernels.step, kernels.step_tail) for e in k.ENTRIES]

@@ -46,12 +46,12 @@ CASES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(name):
-    """One JAX and one port table-mode solver per case (the JAX dive
-    program compiles once per solver)."""
+def _pair(name, fp_mode="fixpoint"):
+    """One JAX and one port table-mode solver per case and propagation
+    mode (the JAX dive program compiles once per solver)."""
     text, kw = CASES[name]
     kw = dict(kw, max_depth=96, fp_max_iters=10000, use_table=True,
-              fp_cap_auto=False)
+              fp_cap_auto=False, fp_mode=fp_mode)
     js = JaxSolver(jax_compile(jax_parse(text)),
                    JaxConfig(fp_layout="dv", **kw))
     ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw),
@@ -104,9 +104,13 @@ def _dive_inputs(ts, seed):
     return lb, ub, strat, var, c0l, c0u, c1l, c1u, pidx, pbit
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_dive_level_matches_jax(name):
-    js, ts = _pair(name)
+@pytest.mark.parametrize("name,fp_mode", [
+    pytest.param(n, m, id=n if m == "fixpoint" else f"{n}-{m}")
+    for m in ("fixpoint", "wac1") for n in sorted(CASES)])
+def test_dive_level_matches_jax(name, fp_mode):
+    """The port's dive_level (its plain version on the CPU) against JAX's
+    dive program, under the default AC-1 fixpoint and under WAC1."""
+    js, ts = _pair(name, fp_mode)
     prog = jax_eps_table._make_programs(js)["dive"]
     for seed in range(3):
         args = _dive_inputs(ts, seed)

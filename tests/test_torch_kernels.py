@@ -553,6 +553,108 @@ def emulate_wac1_step(t, lb_row, ub_row, cap, inner_cap, strat):
             + tuple(emulate_select(t, el, eu, strat)))
 
 
+def gather_parent(chunk, r):
+    """level.cuh's prologue for row r: the parent row pidx[r] met at its
+    branch variable with the child interval pbit[r] selects (row r of
+    ``embed_plain``). ``chunk``: dive_level's ten inputs as lists.
+    Returns (lb, ub, the parent's cursor)."""
+    lb, ub, strat, var, c0l, c0u, c1l, c1u, pidx, pbit = chunk
+    p = pidx[r]
+    right = pbit[r] == 1
+    l, u, v = list(lb[p]), list(ub[p]), var[p]
+    l[v] = max(l[v], (c1l if right else c0l)[p])
+    u[v] = min(u[v], (c1u if right else c0u)[p])
+    return l, u, strat[p]
+
+
+def emulate_level(t, chunk, r, step, obj):
+    """A level entry (``tt_fixpoint_level`` / ``tt_wac1_level``) for row
+    r: the gathered parent row, then ``step(lb, ub, cursor)`` (the step
+    entry's 14 outputs: the fixpoint, then K2 and K3 on its store), then
+    level_epilogue's outputs. With no propagator the store is the
+    gathered one and iters 0. Returns dive_level's 13 outputs of row r."""
+    lb, ub, stp = gather_parent(chunk, r)
+    if t["P"] == 0:
+        out = ((lb, ub, 0, False) + emulate_classify(t, lb, ub)
+               + tuple(emulate_select(t, lb, ub, stp)))
+    else:
+        out = step(lb, ub, stp)
+    el, eu, iters, _, bot, ent, found, var, chosen, _, *children = out
+    return (el, eu, chosen if found else stp, var, *children, bot,
+            ent and not bot, found, iters, el[obj])
+
+
+def emulate_fixpoint_level(t, chunk, r, cap, obj):
+    """fixpoint.cu's ``tt_fixpoint_level`` for row r (``emulate_level``
+    around ``emulate_fixpoint_step``)."""
+    return emulate_level(t, chunk, r, lambda lb, ub, stp:
+                         emulate_fixpoint_step(t, lb, ub, cap, stp), obj)
+
+
+def emulate_wac1_level(t, chunk, r, cap, inner_cap, obj):
+    """wac1.cu's ``tt_wac1_level`` for row r (``emulate_level`` around
+    ``emulate_wac1_step``)."""
+    return emulate_level(t, chunk, r, lambda lb, ub, stp:
+                         emulate_wac1_step(t, lb, ub, cap, inner_cap, stp),
+                         obj)
+
+
+def level_solver(case, mode, device="cpu"):
+    """A table-mode solver for the level tests, on ``device``: golomb(6)
+    (``"golomb6"``) or ``random_model(1)`` (``"rand1"``) under fp_mode
+    ``mode``. With the suffix ``"_odd"`` its plan keeps V as the planner
+    counts it, not rounded up to a multiple of 128: a V that is not a
+    multiple of 4, whose rows the level entries load with the loop and
+    not by TMA."""
+    from unittest import mock
+
+    from turbo_tpu_torch.host.solver import plan as plan_mod
+    name, odd = case.removesuffix("_odd"), case.endswith("_odd")
+    text = golomb(6) if name == "golomb6" else random_model(1, n_vars=7,
+                                                            n_cons=18)
+    rounded = plan_mod.quantize
+    with mock.patch.object(plan_mod, "quantize", (
+            lambda n, min_gran=32: n if min_gran == 128
+            else rounded(n, min_gran)) if odd else rounded):
+        s = BatchedSolver(compile_model(parse_fzn_text(text)),
+                          EngineConfig(num_dives=8, subproblems_power=4,
+                                       max_depth=64, fp_mode=mode,
+                                       fp_cap_auto=False), device=device)
+    assert s.use_table and (s.plan.V % 4 != 0) == odd
+    return s
+
+
+def level_chunk(s, seed):
+    """dive_level's ten inputs as numpy arrays, W = num_dives rows, in
+    the manner of test_torch_eps_table's ``_dive_inputs``: parents with
+    root boxes narrowed at random and one bot row, branch variables,
+    their children (a quarter neutral), cursors (some past every
+    strategy), parent rows and bits."""
+    rng = np.random.default_rng(seed)
+    plan, W = s.plan, s.cfg.num_dives
+    lb = np.tile(plan.lb0, (W, 1)).astype(np.int32)
+    ub = np.tile(plan.ub0, (W, 1)).astype(np.int32)
+    for d in range(W):
+        for v in rng.choice(plan.n_active, size=3, replace=False):
+            if lb[d, v] < ub[d, v]:
+                lo = rng.integers(lb[d, v], ub[d, v] + 1)
+                lb[d, v], ub[d, v] = lo, rng.integers(lo, ub[d, v] + 1)
+    lb[1, 0] = ub[1, 0] + 1
+    var = rng.integers(0, plan.n_active, W).astype(np.int32)
+    lo, hi = lb[np.arange(W), var], ub[np.arange(W), var]
+    mid = lo + (hi - lo) // 2
+    neutral = rng.random(W) < 0.25
+    c0l, c1l = (np.where(neutral, NINF, c).astype(np.int32)
+                for c in (lo, mid + 1))
+    c0u, c1u = (np.where(neutral, INF, c).astype(np.int32)
+                for c in (mid, hi))
+    strat = rng.integers(0, len(s.dp.strat_ids) + 1, W).astype(np.int32)
+    pidx = rng.integers(0, W, W).astype(np.int32)
+    pidx[0] = 1  # the bot parent
+    pbit = rng.integers(0, 2, W).astype(np.int32)
+    return lb, ub, strat, var, c0l, c0u, c1l, c1u, pidx, pbit
+
+
 def _case(seed):
     text = golomb(4) if seed < 0 else random_model(seed, n_vars=7, n_cons=18)
     tnf = compile_model(parse_fzn_text(text))
@@ -724,6 +826,39 @@ def test_wac1_step_emulation_matches_plain(case):
                 seen["ent"] += bool(want[5][d] & ~want[4][d])
                 seen["default"] += not bool(want[6][d])
     assert all(seen.values()), seen
+
+
+@pytest.mark.parametrize("mode", ("fixpoint", "wac1"))
+@pytest.mark.parametrize("case", ("golomb6", "golomb6_odd", "rand1",
+                                  "rand1_odd"))
+def test_level_emulation_matches_plain_dive_level(case, mode):
+    """K1's and K8's table level entries as transliterated above (the
+    parent gathered into the store, the fixpoint to the table build's
+    cap, K2 and K3, the rest of dive_level's outputs) equal the plain
+    ``dive_level`` on every row and output, on chunks with a bot parent
+    and neutral children, V a multiple of 4 and not; tolerance 0."""
+    from turbo_tpu_torch.solver import eps_table
+    s = level_solver(case, mode)
+    t = flat_tables(s)
+    obj = s.dp.obj
+    seen = {"bot": 0, "ent": 0, "found": 0}
+    for seed in (0, 1):
+        chunk = level_chunk(s, seed)
+        want = eps_table.dive_level_plain(s, *map(torch.as_tensor, chunk))
+        lists = [a.tolist() for a in chunk]
+        for r in range(len(chunk[8])):
+            got = (emulate_wac1_level(t, lists, r, eps_table._BIG_CAP,
+                                      s.cfg.wac1_inner_cap, obj)
+                   if mode == "wac1" else
+                   emulate_fixpoint_level(t, lists, r, eps_table._BIG_CAP,
+                                          obj))
+            assert got[:2] == (want[0][r].tolist(), want[1][r].tolist()), r
+            assert tuple(int(x) for x in got[2:]) == tuple(
+                int(w[r]) for w in want[2:]), (seed, r)
+            seen["bot"] += bool(want[8][r])
+            seen["ent"] += bool(want[9][r])
+            seen["found"] += bool(want[10][r])
+    assert seen["bot"] and seen["found"], seen
 
 
 @pytest.mark.parametrize("seed", [-1, 0, 1, 2, 3])
@@ -1047,15 +1182,32 @@ def test_cuda_engine_matches_cpu_engine(seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_cuda_embed_refill_open_count_match_plain(seed):
-    """K4 (both entry points) and K5 against their plain versions on the
-    same CUDA tensors, exactly."""
+    """The table level entries of K1 and K8 (K4's parent gather in their
+    prologue; both memory paths, V a multiple of 4 and not), K4's table
+    refill and K5 against their plain versions on the same CUDA tensors,
+    exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.solver.engine import (open_branch_count_plain,
                                                table_refill_plain)
-    from turbo_tpu_torch.solver.eps_table import embed_plain
+    from turbo_tpu_torch.solver.eps_table import _BIG_CAP, dive_level_plain
     dev = torch.device("cuda:0")
+    for case in ("golomb6", "golomb6_odd"):
+        for mode in ("fixpoint", "wac1"):
+            s = level_solver(case, mode, device=dev)
+            kp = s.kernels.kernel_plan
+            chunk = tuple(torch.as_tensor(a, device=dev)
+                          for a in level_chunk(s, seed))
+            want = dive_level_plain(s, *chunk)
+            k = kernels.wac1 if mode == "wac1" else kernels.fixpoint
+            caps = (_BIG_CAP, s.cfg.wac1_inner_cap) if mode == "wac1" \
+                else (_BIG_CAP,)
+            for smem in (True, False):
+                got = k.level(kp, chunk, s.dp.obj, *caps, smem=smem)
+                assert len(got) == len(want) == 13
+                for i, (a, b) in enumerate(zip(got, want)):
+                    assert torch.equal(a, b), (case, mode, smem, i)
     g = torch.Generator().manual_seed(seed)
     W, V, n_pad, MAXD = 96, 300, 64, 500
 
@@ -1063,19 +1215,15 @@ def test_cuda_embed_refill_open_count_match_plain(seed):
         return torch.randint(lo, hi, shape, generator=g,
                              dtype=torch.int32).to(dev)
 
-    args = (ri(-50, 50, W, V), ri(-50, 50, W, V), ri(0, 4, W), ri(0, V, W),
-            ri(-60, 60, W), ri(-60, 60, W), ri(-60, 60, W), ri(-60, 60, W),
-            ri(0, W, W), ri(0, 2, W))
-    for a, b in zip(kernels.embed(*args), embed_plain(*args)):
-        assert torch.equal(a, b)
-    tab = (ri(-9, 9, n_pad, V), ri(-9, 9, n_pad, V))
-    idx, refill = ri(-5, n_pad + 5, W), ri(0, 2, W) == 1
-    planes = [ri(-9, 9, W, V) for _ in range(4)]
-    mine = [p.clone() for p in planes]
-    kernels.embed.refill(*tab, idx, refill, *mine)
-    table_refill_plain(*tab, idx, refill, *planes)
-    for a, b in zip(mine, planes):
-        assert torch.equal(a, b)
+    for v in (V, V + 1):  # 16-byte rows and not
+        tab = (ri(-9, 9, n_pad, v), ri(-9, 9, n_pad, v))
+        idx, refill = ri(-5, n_pad + 5, W), ri(0, 2, W) == 1
+        planes = [ri(-9, 9, W, v) for _ in range(4)]
+        mine = [p.clone() for p in planes]
+        kernels.table_refill(*tab, idx, refill, *mine)
+        table_refill_plain(*tab, idx, refill, *planes)
+        for a, b in zip(mine, planes):
+            assert torch.equal(a, b)
     dec_cur, depth, phase = ri(0, 2, W, MAXD), ri(0, MAXD + 1, W), ri(0, 3, W)
     assert int(kernels.open_count(dec_cur, depth, phase)) == int(
         open_branch_count_plain(dec_cur, depth, phase))

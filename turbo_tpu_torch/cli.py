@@ -127,7 +127,8 @@ def run(cfg: Configuration) -> int:
                          disable_simplify=cfg.disable_simplify,
                          shave=cfg.shave,
                          sol_ring_size=ring)
-    # Plan and kernel build count in initTime, outside the -t window.
+    # Plan, kernel build and warm-up count in initTime, outside the -t
+    # window.
     tb = time.monotonic()
     if hybrid:
         from .solver.hybrid import HybridSolver
@@ -143,8 +144,8 @@ def run(cfg: Configuration) -> int:
     if cfg.verbose:
         print(f"% D={num_dives} k={engine.k} MAXD={engine.cfg.max_depth} "
               f"device={device} shards={getattr(solver, 'n_shards', 1)} "
-              f"setup={setup:.2f}s (kernel build {engine.build_time:.2f}s)",
-              file=sys.stderr)
+              f"setup={setup:.2f}s (kernel build {engine.build_time:.2f}s, "
+              f"warm-up {engine.warm_time:.3f}s)", file=sys.stderr)
     printed_last = [None]
 
     def on_solution(lb_tnf):

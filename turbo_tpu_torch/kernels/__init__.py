@@ -8,12 +8,14 @@ one thread block per dive (or table row):
   ``fixpoint.transposed``: the fixpoint on dive-minor (V, D) planes;
   ``fixpoint.step``: the fixpoint, then K2's and K3's bodies on each
   dive's result in the same block (the search step's launch);
+  ``fixpoint.level``: one level of the EPS table build in one launch
+  (each row's parent gathered into the block's store, the fixpoint,
+  then K2's and K3's bodies: the 13 outputs of ``dive_level``);
 - ``classify`` (K2): per dive, some domain empty / every propagator
   entailed;
 - ``select`` (K3): branch variable and the two children;
-- ``embed`` (K4): the EPS table build's parent-row gather with the child
-  bound, and (``embed.refill``) the table-row refill that seeds the
-  first lanes, in place;
+- ``table_refill`` (K4): the table-row refill that seeds the first
+  lanes, in place (K4's parent gather runs in the level entries);
 - ``open_count`` (K5): open right branches on the SOLVE-phase stacks,
   and in the same launch the plan of a steal round (``StealPlan``);
 - ``step`` (K6): a search step around K1's step entry, in place: before it
@@ -27,7 +29,8 @@ one thread block per dive (or table row):
   the element, membership and linear passes) to the fixpoint or the cap;
   ``wac1.step``: the same, then K2's and K3's bodies on each dive's
   result in the same block (the search step's launch under
-  ``fp_mode="wac1"``);
+  ``fp_mode="wac1"``); ``wac1.level``: K1's level entry with K8's
+  fixpoint;
 - ``steal`` (K9): a steal round applied in place on K5's plan.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -38,15 +41,21 @@ take an optional ``live`` flag (a 1-element int32 CUDA tensor): when it holds 0
 the kernel returns at once. The plain versions live in
 ``solver/propagate.py``, ``solver/engine.py`` and
 ``solver/eps_table.py``; nothing here falls back to them.
+
+``warm_up`` does, when a solver is built, what the first launch of each
+kernel would do inside the ``-t`` window: the library's CUDA runtime,
+every kernel's module load and the shared-memory attributes of the
+plan's launches, after the plan's upload.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
 
-from .build import load
+from .build import SOURCES, load
 
 I32 = torch.int32
 
@@ -242,6 +251,17 @@ class StepView(ctypes.Structure):
             "newidx", "havework", "ridx", "steps", "tail_sync", "bmin")])
 
 
+class LevelView(ctypes.Structure):
+    """Mirror of ``struct LevelView`` in csrc/level.cuh: one table level's
+    inputs, its 13 outputs (in ``dive_level``'s order) and ``obj``."""
+    INPUTS = ("lb_par", "ub_par", "strat_par", "var_par", "c0l", "c0u",
+              "c1l", "c1u", "pidx", "pbit")
+    OUTPUTS = ("lb", "ub", "strat", "var", "c0l_out", "c0u_out", "c1l_out",
+               "c1u_out", "bot", "ent", "found", "iters", "objlb")
+    _fields_ = ([(n, ctypes.c_void_p) for n in INPUTS + OUTPUTS]
+                + [("obj", ctypes.c_int)])
+
+
 def _check(t, name, shape, dtype=I32):
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
@@ -295,8 +315,8 @@ def _stream(t):
 
 
 # Static shared memory that K1's and K8's launches leave beside the
-# dynamic one (csrc/epilogue.cuh ``TT_STATIC_SMEM``: the step entries'
-# K2 and K3 words).
+# dynamic one (csrc/epilogue.cuh ``TT_STATIC_SMEM``: the step and level
+# entries' K2 and K3 words, the level entries' mbarrier).
 STATIC_SMEM = 128
 
 
@@ -447,15 +467,52 @@ class _Propagator(_Kernel):
                          *(t.data_ptr() for t in out[5:]), entry="step")
         return (lb_out, ub_out, iters, unconv) + tuple(out[5:])
 
-    def blocks_per_sm(self, kp, step: bool = True) -> int:
-        """Resident blocks per SM of a shared-memory launch of the step
-        entry (``step``) or of the other entries, at this plan's shared
-        memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    def level(self, kp, chunk, obj: int, *args, smem: bool = True):
+        """One level of the EPS table build in one launch (csrc/level.cuh):
+        ``chunk`` holds ``dive_level``'s ten inputs (the previous chunk's
+        lb, ub (Wp, V), strat, var, c0l, c0u, c1l, c1u (Wp,), then pidx
+        and pbit (W,)); ``args`` the launch's caps (``level``'s
+        signature in each kernel). Returns ``dive_level``'s 13 outputs:
+        (lb, ub, strat, var, c0l, c0u, c1l, c1u, bot, ent, found, iters,
+        objlb), ``objlb`` being lb[:, obj]."""
+        dp = kp.dp
+        lb_par = chunk[0]
+        Wp, W = lb_par.shape[0], chunk[8].shape[0]
+        for name, t in zip(LevelView.INPUTS, chunk):
+            _check(t, name, (Wp, dp.V) if name in ("lb_par", "ub_par") else
+                   (W,) if name in ("pidx", "pbit") else (Wp,))
+        dev = lb_par.device
+        out = (torch.empty((W, dp.V), dtype=I32, device=dev),
+               torch.empty((W, dp.V), dtype=I32, device=dev),
+               *(torch.empty(W, dtype=I32, device=dev) for _ in range(6)),
+               *(torch.empty(W, dtype=torch.bool, device=dev)
+                 for _ in range(3)),
+               torch.empty(W, dtype=I32, device=dev),
+               torch.empty(W, dtype=I32, device=dev))
+        scratch = self.scratch(kp, W, smem)
+        names = LevelView.INPUTS + LevelView.OUTPUTS
+        view = LevelView(obj=int(obj) % dp.V, **{
+            n: t.data_ptr() for n, t in zip(names, tuple(chunk) + out)})
+        with torch.cuda.device(dev):
+            self._launch(lambda lib: getattr(lib, f"tt_{self.PREFIX}_level"),
+                         ctypes.byref(kp.view), ctypes.byref(view),
+                         None if scratch is None else scratch.data_ptr(), W,
+                         *(int(a) for a in args),
+                         kp.smem_limit if smem else 0, _stream(lb_par),
+                         entry="level")
+        return out
+
+    def blocks_per_sm(self, kp, entry: str = "step") -> int:
+        """Resident blocks per SM of a shared-memory launch of ``entry``
+        (``"step"``, ``"level"``, or the fixpoint's other entries) at this
+        plan's shared memory
+        (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
         blocks = ctypes.c_int(0)
         lib = load()
         fn = getattr(lib, f"tt_{self.PREFIX}_blocks_per_sm")
         with torch.cuda.device(kp.dp.device):
-            rc = fn(ctypes.byref(kp.view), int(step), kp.smem_limit,
+            rc = fn(ctypes.byref(kp.view),
+                    {"step": 1, "level": 2}.get(entry, 0), kp.smem_limit,
                     ctypes.byref(blocks))
         if rc != 0:
             raise RuntimeError(f"{self.name} occupancy query failed: "
@@ -468,12 +525,14 @@ class _Fixpoint(_Propagator):
     source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:912"
     PREFIX = "fixpoint"
-    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed", "step")
+    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed", "step", "level")
     # The step entry replaces the fixpoint (912), all_entailed / is_bot
-    # (983) and _select / _children (engine.py:550) of one JAX step.
+    # (983) and _select / _children (engine.py:550) of one JAX step; the
+    # level entry the table build's dive program, _embed included.
     ENTRY_REPLACES = {"fixed_sweeps": "turbo_tpu/solver/propagate_jax.py:967",
                       "transposed": "turbo_tpu/solver/propagate_jax.py:782",
-                      "step": "turbo_tpu/solver/propagate_jax.py:912"}
+                      "step": "turbo_tpu/solver/propagate_jax.py:912",
+                      "level": "turbo_tpu/solver/eps_table.py:122"}
     smem_bytes = staticmethod(fixpoint_smem_bytes)
     scratch_shape = staticmethod(fixpoint_scratch_shape)
 
@@ -533,16 +592,24 @@ class _Fixpoint(_Propagator):
         ``select``."""
         return self._step(kp, lb, ub, strat, smem, live, out, (int(cap),))
 
+    def level(self, kp, chunk, obj: int, cap: int, smem: bool = True):
+        """One table level: each row's parent gathered and met with its
+        child interval, the AC-1 fixpoint (``cap`` sweeps at most), then
+        K2 and K3 on the result; see ``_Propagator.level``."""
+        return super().level(kp, chunk, obj, cap, smem=smem)
+
 
 class _Wac1(_Propagator):
     name = "wac1"
     source = "turbo_tpu_torch/kernels/csrc/wac1.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:884"
     PREFIX = "wac1"
-    ENTRIES = ("wac1", "step")
+    ENTRIES = ("wac1", "step", "level")
     # The step entry replaces fixpoint_wac1 (884), all_entailed / is_bot
-    # (983) and _select / _children (engine.py:550) of one JAX step.
-    ENTRY_REPLACES = {"step": "turbo_tpu/solver/propagate_jax.py:884"}
+    # (983) and _select / _children (engine.py:550) of one JAX step; the
+    # level entry the table build's dive program under fp_mode="wac1".
+    ENTRY_REPLACES = {"step": "turbo_tpu/solver/propagate_jax.py:884",
+                      "level": "turbo_tpu/solver/eps_table.py:122"}
     smem_bytes = staticmethod(wac1_smem_bytes)
     scratch_shape = staticmethod(wac1_scratch_shape)
 
@@ -581,6 +648,12 @@ class _Wac1(_Propagator):
         launch, ``out`` as there."""
         return self._step(kp, lb, ub, strat, smem, live, out,
                           (int(cap), int(inner_cap)))
+
+    def level(self, kp, chunk, obj: int, cap: int, inner_cap: int,
+              smem: bool = True):
+        """K1's ``level`` with K8's fixpoint (outer cap ``cap``, inner cap
+        ``inner_cap``)."""
+        return super().level(kp, chunk, obj, cap, inner_cap, smem=smem)
 
 
 class _Classify(_Kernel):
@@ -635,37 +708,16 @@ class _Select(_Kernel):
         return (found, *outs)
 
 
-class _Embed(_Kernel):
-    name = "embed"
-    source = "turbo_tpu_torch/kernels/csrc/embed.cu"
-    replaces = "turbo_tpu/solver/eps_table.py:109"
-    ENTRIES = ("embed", "table_refill")
+class _TableRefill(_Kernel):
+    name = "table_refill"
+    source = "turbo_tpu_torch/kernels/csrc/table_refill.cu"
+    replaces = "turbo_tpu/solver/engine.py:696"
 
-    def __call__(self, lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l,
-                 c1u, pidx, pbit):
-        """(lbp, ubp, stp): row r is parent row pidx[r] met at the
-        parent's branch variable with child pbit[r]; see csrc/embed.cu."""
-        W, V = lb_par.shape
-        _check(lb_par, "lb_par", (W, V))
-        _check(ub_par, "ub_par", (W, V))
-        vecs = dict(strat_par=strat_par, var_par=var_par, c0l=c0l, c0u=c0u,
-                    c1l=c1l, c1u=c1u, pidx=pidx, pbit=pbit)
-        for n, t in vecs.items():
-            _check(t, n, (W,))
-        lbp = torch.empty_like(lb_par)
-        ubp = torch.empty_like(ub_par)
-        stp = torch.empty_like(strat_par)
-        with torch.cuda.device(lb_par.device):
-            self._launch(lambda lib: lib.tt_embed, lb_par.data_ptr(),
-                         ub_par.data_ptr(),
-                         *(t.data_ptr() for t in vecs.values()),
-                         lbp.data_ptr(), ubp.data_ptr(), stp.data_ptr(), W,
-                         V, _stream(lb_par), entry="embed")
-        return lbp, ubp, stp
-
-    def refill(self, tab_lb, tab_ub, idx, refill, lb, ub, root_lb, root_ub):
+    def __call__(self, tab_lb, tab_ub, idx, refill, lb, ub, root_lb,
+                 root_ub):
         """In place: every lane d with refill[d] takes table row
-        clip(idx[d], 0, n_pad - 1) into lb, ub, root_lb and root_ub."""
+        clip(idx[d], 0, n_pad - 1) into lb, ub, root_lb and root_ub; see
+        csrc/table_refill.cu."""
         n_pad, V = tab_lb.shape
         D = lb.shape[0]
         _check(tab_lb, "tab_lb", (n_pad, V))
@@ -680,7 +732,7 @@ class _Embed(_Kernel):
                          tab_ub.data_ptr(), idx.data_ptr(),
                          refill.data_ptr(), lb.data_ptr(), ub.data_ptr(),
                          root_lb.data_ptr(), root_ub.data_ptr(), D, n_pad, V,
-                         _stream(lb), entry="table_refill")
+                         _stream(lb))
 
 
 class StealPlan:
@@ -836,14 +888,48 @@ class _StepTail(_Kernel):
 fixpoint = _Fixpoint()
 classify = _Classify()
 select = _Select()
-embed = _Embed()
+table_refill = _TableRefill()
 open_count = _OpenCount()
 step = _Step()
 step_tail = _StepTail()
 wac1 = _Wac1()
 steal = _Steal()
-KERNELS = (fixpoint, classify, select, embed, open_count, step, step_tail,
-           wac1, steal)
+KERNELS = (fixpoint, classify, select, table_refill, open_count, step,
+           step_tail, wac1, steal)
+
+
+def warm_up(owner) -> dict:
+    """Does now what the first launch of each kernel would do: uploads
+    ``owner.kernel_plan`` (a ``PropagatorKernels``), initialises the
+    library's CUDA runtime, loads every kernel's module (each source's
+    ``tt_<source>_load``: cudaFuncGetAttributes of each of its kernels)
+    and sets the shared-memory attributes of this plan's launches. A
+    solver calls it when it is built, so that the table build and the
+    first steps inside ``-t`` launch loaded kernels. Launches nothing;
+    raises when a kernel does not load. Returns the seconds of each part
+    by name, each measured up to a synchronize."""
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize(owner.dp.device)
+        times[name] = time.monotonic() - t0
+        return res
+
+    kp = timed("plan upload", lambda: owner.kernel_plan)
+    lib = load()
+    with torch.cuda.device(kp.dp.device):
+        parts = [("runtime", lib.tt_runtime_init)] + [
+            (src[:-3], lambda src=src: getattr(lib, f"tt_{src[:-3]}_load")(
+                ctypes.byref(kp.view), kp.smem_limit)) for src in SOURCES]
+        for name, fn in parts:
+            rc = timed(name, fn)
+            if rc != 0:
+                raise RuntimeError(f"kernel warm-up ({name}) failed: "
+                                   f"{lib.tt_error_string(rc).decode()} "
+                                   f"({rc})")
+    return times
 
 
 def reset_launches():

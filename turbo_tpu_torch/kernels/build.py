@@ -21,7 +21,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "embed.cu",
+SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "table_refill.cu",
            "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu", "steal.cu")
 # No FMA contraction: K6's float32 deds must round the multiply and the
 # add separately, as the plain torch version does.
@@ -58,13 +58,14 @@ def _bind(lib):
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t):
         fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, P]
     lib.tt_fixpoint_step.argtypes = [P] * 8 + [I, I, I, P, P] + [P] * 11
+    lib.tt_fixpoint_level.argtypes = [P, P, P, I, I, I, P]
     lib.tt_fixpoint_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_wac1.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P, P]
     lib.tt_wac1_step.argtypes = [P] * 8 + [I, I, I, I, P, P] + [P] * 11
+    lib.tt_wac1_level.argtypes = [P, P, P, I, I, I, I, P]
     lib.tt_wac1_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
-    lib.tt_embed.argtypes = [P] * 13 + [I, I, P]
     lib.tt_table_refill.argtypes = [P] * 8 + [I, I, I, P]
     lib.tt_open_count.argtypes = [P, P, P, P, P, I, I, P]
     lib.tt_steal.argtypes = [P, I, P]
@@ -72,13 +73,18 @@ def _bind(lib):
     lib.tt_step_post.argtypes = [P, P, P, I, P]
     lib.tt_step_copy.argtypes = [P, P, P]
     lib.tt_step_live.argtypes = [P, P, P]
+    loads = [getattr(lib, f"tt_{s[:-3]}_load") for s in SOURCES]
+    for fn in loads:
+        fn.argtypes = [P, I]
+    lib.tt_runtime_init.argtypes = []
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t,
-               lib.tt_fixpoint_step, lib.tt_fixpoint_blocks_per_sm,
-               lib.tt_wac1, lib.tt_wac1_step, lib.tt_wac1_blocks_per_sm,
-               lib.tt_classify, lib.tt_select,
-               lib.tt_embed, lib.tt_table_refill, lib.tt_open_count,
-               lib.tt_step_head, lib.tt_step_post, lib.tt_step_copy,
-               lib.tt_step_live, lib.tt_steal):
+               lib.tt_fixpoint_step, lib.tt_fixpoint_level,
+               lib.tt_fixpoint_blocks_per_sm, lib.tt_wac1, lib.tt_wac1_step,
+               lib.tt_wac1_level, lib.tt_wac1_blocks_per_sm,
+               lib.tt_classify, lib.tt_select, lib.tt_table_refill,
+               lib.tt_open_count, lib.tt_step_head, lib.tt_step_post,
+               lib.tt_step_copy, lib.tt_step_live, lib.tt_steal,
+               lib.tt_runtime_init, *loads):
         fn.restype = I
     lib.tt_error_string.argtypes = [I]
     lib.tt_error_string.restype = ctypes.c_char_p

@@ -47,3 +47,10 @@ extern "C" int tt_classify(const PlanView* p, const int* lb, const int* ub,
                                             staged);
   return (int)cudaGetLastError();
 }
+
+// What the kernel's first launch would do: its module load
+// (cudaFuncGetAttributes loads a lazily loaded kernel).
+extern "C" int tt_classify_load(const void*, int) {
+  cudaFuncAttributes a;
+  return (int)cudaFuncGetAttributes(&a, (const void*)classify_kernel);
+}

@@ -6,7 +6,8 @@
 #include "select.cuh"
 
 // Static shared memory left beside the dynamic one under the block's
-// limit: the epilogue's K2 and K3 words (68 bytes). Mirrored by
+// limit: the epilogue's K2 and K3 words (68 bytes) and the level
+// entries' mbarrier (8 bytes, level.cuh). Mirrored by
 // kernels.STATIC_SMEM.
 #define TT_STATIC_SMEM 128
 

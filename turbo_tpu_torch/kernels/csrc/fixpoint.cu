@@ -86,10 +86,10 @@
 // In the search step (solver/step_cuda.py) the kernel runs in place
 // (lb_in == lb_out: each block reads its own rows before it writes
 // them) and returns at once when *live is 0 (every lane was IDLE when the
-// step began); the EPS table build passes no live flag. It allocates
+// step began); the hybrid rounds pass no live flag. It allocates
 // nothing, so a chunk of steps is captured into a CUDA graph.
 //
-// Four entry points share the kernel's body:
+// Five entry points share the kernel's sweeps:
 // - tt_fixpoint: (D, V) planes, sweeps to the fixpoint or the cap;
 // - tt_fixed_sweeps: (D, V) planes, exactly n sweeps with no exit on
 //   convergence or bot, iters = n and unconv = 0
@@ -107,8 +107,16 @@
 //   memory (or the output rows on the global path), so that the step
 //   needs no launch of K2 or K3 and reads the store back from nowhere.
 //   On a bot lane the store is K1's, as the separate launches read it.
-//   It is built for at most 64 registers, to keep four blocks per SM.
-#include "epilogue.cuh"
+//   It is built for at most 64 registers, to keep four blocks per SM;
+// - tt_fixpoint_level, one level of the EPS table build
+//   (fixpoint_level_kernel, level.cuh): K4's parent gather as the load
+//   stage (by TMA into shared memory), the sweeps, then K2's and K3's
+//   bodies and the rest of dive_level's outputs, so that a table level
+//   is one launch. Also at most 64 registers.
+// tt_fixpoint_load does what each kernel's first launch would (its
+// module load and shared-memory attribute), so that the solver pays it
+// when it is built and not inside the -t window.
+#include "level.cuh"
 
 #ifdef TT_NO_SKIP
 #define TT_K1_SKIP 0
@@ -360,31 +368,76 @@ fixpoint_step_kernel(PlanView p, const int* lb_in, const int* ub_in,
                       so);
 }
 
-// Dynamic shared memory of a launch (16 bytes of flags on the global
-// path, which needs the scratch), with the kernel's attribute raised to
-// it; each kernel keeps its own attribute. Returns a CUDA error code.
-template <bool STEP>
-static int prepare(const PlanView* p, const int* scratch, int smem_limit,
-                   size_t* smem, int* use_smem) {
-  static int attr_set = -1;
+// The table level entry (level.cuh): row r's parent gathered into the
+// block's store, K1's sweeps to the fixpoint or the cap, the rows
+// written, then dive_level's epilogue on the store. A is in shared
+// memory, or in the output rows on the global path (B, the worklist and
+// the marks in the row's scratch); ``bulk``: the parent rows arrive by
+// TMA. With no propagator (P == 0) the store is the gathered one and
+// iters 0, as the JAX fixpoint returns. At most 64 registers a thread.
+__global__ void __launch_bounds__(TT_THREADS, 4)
+fixpoint_level_kernel(PlanView p, LevelView lv, int* scratch, int cap,
+                      int use_smem, int bulk) {
+  extern __shared__ __align__(16) int level_smem[];
+  const int V = p.V;
+  const long long r = blockIdx.x;
+  int* flag = level_smem;
+  int* al = level_smem + 4;  // 16-byte aligned: a TMA destination
+  int* au = al + V;
+  int* bl = au + V;
+  if (!use_smem) {
+    al = lv.lb + r * V;
+    au = lv.ub + r * V;
+    bl = scratch + r * scratch_words(p);
+  }
+  int* bu = bl + V;
+  int* wl = bu + V;
+  unsigned char* mk = reinterpret_cast<unsigned char*>(wl + p.P);
+  gather_parent(lv, r, V, al, au, bl, bu, bulk);
+  if (threadIdx.x == 0) flag[0] = flag[1] = flag[2] = 0;
+  __syncthreads();
+  bool m;
+  const int iters =
+      p.P > 0 ? sweep_loop(p, al, au, bl, bu, wl, mk, flag, cap, 0, &m) + 1
+              : 0;
+  if (use_smem)
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      lv.lb[r * V + v] = al[v];
+      lv.ub[r * V + v] = au[v];
+    }
+  level_epilogue(p, al, au, lv, r);
+  if (threadIdx.x == 0) lv.iters[r] = iters;
+}
+
+// K1's kernels by entry: the fixpoint (and its fixed-sweeps and
+// transposed entries), the step entry, the level entry.
+enum { FP_FIXPOINT = 0, FP_STEP = 1, FP_LEVEL = 2 };
+
+static const void* entry_kernel(int entry) {
+  return entry == FP_STEP    ? (const void*)fixpoint_step_kernel
+         : entry == FP_LEVEL ? (const void*)fixpoint_level_kernel
+                             : (const void*)fixpoint_kernel;
+}
+
+// Dynamic shared memory of a launch of ``entry`` (16 bytes of flags on
+// the global path, which needs the scratch), with the kernel's attribute
+// raised to it; each kernel keeps its own attribute. Returns a CUDA
+// error code.
+static int prepare(int entry, const PlanView* p, const int* scratch,
+                   int smem_limit, size_t* smem, int* use_smem) {
+  static int attr_set[3] = {-1, -1, -1};
   *smem = smem_bytes(*p);
   *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit;
   if (!*use_smem) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     *smem = 16;
   }
-  if ((int)*smem > attr_set) {
-    cudaError_t e;
-    if constexpr (STEP)
-      e = cudaFuncSetAttribute(fixpoint_step_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)*smem);
-    else
-      e = cudaFuncSetAttribute(fixpoint_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)*smem);
+  if ((int)*smem > attr_set[entry]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        entry_kernel(entry), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)*smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = (int)*smem;
+    attr_set[entry] = (int)*smem;
   }
   return 0;
 }
@@ -396,7 +449,7 @@ static int launch(const PlanView* p, const int* lb_in, const int* ub_in,
                   int fixed) {
   size_t smem;
   int use_smem;
-  int rc = prepare<false>(p, scratch, smem_limit, &smem, &use_smem);
+  int rc = prepare(FP_FIXPOINT, p, scratch, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
   fixpoint_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
       *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
@@ -445,7 +498,7 @@ extern "C" int tt_fixpoint_step(const PlanView* p, const int* lb_in,
                                 int* c0u, int* c1l, int* c1u) {
   size_t smem;
   int use_smem;
-  int rc = prepare<true>(p, scratch, smem_limit, &smem, &use_smem);
+  int rc = prepare(FP_STEP, p, scratch, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
   const StepOut so{strat, bot, ent,
                    SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}};
@@ -455,21 +508,54 @@ extern "C" int tt_fixpoint_step(const PlanView* p, const int* lb_in,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of a launch at the smem_limit the wrappers
-// pass (step: the step entry), into *blocks.
-extern "C" int tt_fixpoint_blocks_per_sm(const PlanView* p, int step,
+// One level of the EPS table build, W rows, in one launch (level.cuh).
+extern "C" int tt_fixpoint_level(const PlanView* p, const LevelView* lv,
+                                 int* scratch, int W, int cap,
+                                 int smem_limit, void* stream) {
+  size_t smem;
+  int use_smem;
+  int rc = prepare(FP_LEVEL, p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  const int bulk = use_smem && level_rows_aligned(*lv, p->V);
+  fixpoint_level_kernel<<<W, TT_THREADS, smem, (cudaStream_t)stream>>>(
+      *p, *lv, scratch, cap, use_smem, bulk);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of a launch of ``entry`` (0 the fixpoint, 1 the
+// step entry, 2 the level entry) at the smem_limit the wrappers pass,
+// into *blocks.
+extern "C" int tt_fixpoint_blocks_per_sm(const PlanView* p, int entry,
                                          int smem_limit, int* blocks) {
   size_t smem;
   int use_smem;
   const int* scratch = blocks;  // not read: any pointer allows the global path
-  int rc = step ? prepare<true>(p, scratch, smem_limit, &smem, &use_smem)
-                : prepare<false>(p, scratch, smem_limit, &smem, &use_smem);
+  int rc = prepare(entry, p, scratch, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
-  return (int)(step ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, fixpoint_step_kernel, TT_THREADS, smem)
-                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          blocks, fixpoint_kernel, TT_THREADS, smem));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, entry_kernel(entry), TT_THREADS, smem);
 }
+
+// What a first launch of each of K1's kernels would do, for this plan:
+// the kernel's module load (cudaFuncGetAttributes loads a lazily loaded
+// kernel) and its shared-memory attribute.
+extern "C" int tt_fixpoint_load(const PlanView* p, int smem_limit) {
+  for (int entry = FP_FIXPOINT; entry <= FP_LEVEL; ++entry) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, entry_kernel(entry));
+    if (e != cudaSuccess) return (int)e;
+    size_t smem;
+    int use_smem;
+    const int* scratch = &smem_limit;  // not read
+    int rc = prepare(entry, p, scratch, smem_limit, &smem, &use_smem);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// Initialises the library's CUDA runtime (its first call does) on the
+// current device.
+extern "C" int tt_runtime_init() { return (int)cudaFree(nullptr); }
 
 extern "C" const char* tt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

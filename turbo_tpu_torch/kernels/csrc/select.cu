@@ -49,3 +49,10 @@ extern "C" int tt_select(const PlanView* p, const int* lb, const int* ub,
       *p, lb, ub, strat, o, live, staged);
   return (int)cudaGetLastError();
 }
+
+// What the kernel's first launch would do: its module load
+// (cudaFuncGetAttributes loads a lazily loaded kernel).
+extern "C" int tt_select_load(const void*, int) {
+  cudaFuncAttributes a;
+  return (int)cudaFuncGetAttributes(&a, (const void*)select_kernel);
+}

@@ -24,7 +24,8 @@
 #pragma once
 #include "common.cuh"
 
-// K3's eight outputs, each indexed by the dive.
+// K3's eight outputs, each indexed by the dive (valo may be null: the
+// table level entries do not keep it).
 struct SelectOut {
   unsigned char* found;
   int* var;
@@ -116,7 +117,7 @@ __device__ __forceinline__ void select_block(const PlanView& p,
       o.found[d] = found != 0;
       o.var[d] = var;
       o.chosen[d] = chosen;
-      o.valo[d] = valo;
+      if (o.valo != nullptr) o.valo[d] = valo;
       o.c0l[d] = c0l;
       o.c0u[d] = c0u;
       o.c1l[d] = c1l;

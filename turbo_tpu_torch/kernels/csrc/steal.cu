@@ -98,3 +98,10 @@ extern "C" int tt_steal(const StealView* s, int n, void* stream) {
   steal_kernel<<<n, TT_THREADS, 0, (cudaStream_t)stream>>>(*s);
   return (int)cudaGetLastError();
 }
+
+// What the kernel's first launch would do: its module load
+// (cudaFuncGetAttributes loads a lazily loaded kernel).
+extern "C" int tt_steal_load(const void*, int) {
+  cudaFuncAttributes a;
+  return (int)cudaFuncGetAttributes(&a, (const void*)steal_kernel);
+}

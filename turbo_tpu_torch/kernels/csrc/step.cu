@@ -516,20 +516,45 @@ extern "C" int tt_step_head(const StepView* s, const int* prev_live,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tt_step_post(const StepView* s, const int* live,
-                            int* live_next, int smem_limit, void* stream) {
+// The post's dynamic shared memory for stores of V variables (the lane's
+// two rows where they fit under smem_limit, else none), with the
+// kernel's attribute set to it. Returns a CUDA error code.
+static int post_smem(int V, int smem_limit, size_t* smem, int* use_smem) {
   static int attr_set = -1;
-  size_t smem = 2 * sizeof(int) * (size_t)s->V;
-  const int use_smem = smem <= (size_t)smem_limit;
-  if (!use_smem) smem = 0;
-  if ((int)smem != attr_set) {
+  *smem = 2 * sizeof(int) * (size_t)V;
+  *use_smem = *smem <= (size_t)smem_limit;
+  if (!*use_smem) *smem = 0;
+  if ((int)*smem != attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
         step_post_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        (int)*smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = (int)smem;
+    attr_set = (int)*smem;
   }
+  return 0;
+}
+
+extern "C" int tt_step_post(const StepView* s, const int* live,
+                            int* live_next, int smem_limit, void* stream) {
+  size_t smem;
+  int use_smem;
+  const int rc = post_smem(s->V, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
   step_post_kernel<<<s->S * s->D, TT_THREADS, smem, (cudaStream_t)stream>>>(
       *s, live, live_next, use_smem);
   return (int)cudaGetLastError();
+}
+
+// What the kernels' first launches would do for this plan: their module
+// loads (cudaFuncGetAttributes loads a lazily loaded kernel) and the
+// post's shared-memory attribute.
+extern "C" int tt_step_load(const PlanView* p, int smem_limit) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, (const void*)step_head_kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&a, (const void*)step_post_kernel);
+  if (e != cudaSuccess) return (int)e;
+  size_t smem;
+  int use_smem;
+  return post_smem(p->V, smem_limit, &smem, &use_smem);
 }

@@ -86,16 +86,21 @@
 //
 // Like K1 the kernel runs in place in the search step (lb_in ==
 // lb_out), returns at once when *live is 0 and allocates nothing, so a
-// chunk of steps is captured into a CUDA graph. Two entry points, each
-// an instantiation of wac1_kernel per memory path:
-// - tt_wac1: the fixpoint (the EPS table build, the hybrid rounds);
+// chunk of steps is captured into a CUDA graph. Three entry points, each
+// a kernel per memory path:
+// - tt_wac1: the fixpoint (the hybrid rounds);
 // - tt_wac1_step, the search step's launch (wac1_kernel<true, ...>): the
 //   fixpoint, then K2's and K3's bodies (classify.cuh, select.cuh) on
 //   the block's final store, A in shared memory (or in the scratch row
-//   on the global path), so that the step launches neither K2 nor K3.
-// On the shared-memory path both are built for at most 64 registers, to
-// keep four blocks per SM.
-#include "epilogue.cuh"
+//   on the global path), so that the step launches neither K2 nor K3;
+// - tt_wac1_level, one level of the EPS table build under -fp wac1
+//   (wac1_level_kernel, level.cuh): K4's parent gather as the load stage
+//   (by TMA into shared memory), the sweeps, then K2's and K3's bodies
+//   and the rest of dive_level's outputs, so that a level is one launch.
+// On the shared-memory path all are built for at most 64 registers, to
+// keep four blocks per SM. tt_wac1_load does what each kernel's first
+// launch would (its module load and shared-memory attribute).
+#include "level.cuh"
 
 #ifdef TT_NO_SKIP
 #define TT_K8_SKIP 0
@@ -108,7 +113,7 @@
 // each for three passes in turn: pass t uses t % 3); a dirty bit per
 // rule; a claim bit per variable; then, on the shared-memory path, the
 // stores and the lists. Named here, so that its words need no register.
-extern __shared__ int k8_smem[];
+extern __shared__ __align__(16) int k8_smem[];
 #define TT_FLAG_WORDS 8
 
 // Rules in one numbering: the TNF propagators [0, P), the element rows,
@@ -399,25 +404,17 @@ static size_t smem_bytes(const PlanView& p) {
          ((size_t)TT_WARPS * work_seg(p) + 7) / 8 * 16;
 }
 
-// Loads the dive's store into A and B, marks every rule dirty, clears
-// the claims and the flag words, runs the sweeps, writes A to the output
-// rows and, for the step entry, runs the epilogue on A. Returns the
-// sweeps.
-template <bool STEP, class W>
+// Loads the dive's store into A and B (``load``: returns this thread's
+// OR of lb > ub over its variables), marks every rule dirty, clears the
+// claims and the flag words, runs the sweeps (none without a propagator),
+// writes A to the output rows, then runs ``epilogue`` (which synchronises
+// first if it reads A). Returns the sweeps.
+template <class W, class Load, class Epilogue>
 __device__ __forceinline__ int run(const PlanView& p, const W& w,
-                                   const int* lb_in, const int* ub_in,
-                                   int* lb_out, int* ub_out, int cap,
-                                   int inner_cap, bool* m, const StepOut& so,
-                                   long long d) {
-  int b0 = 0;
-  for (int v = threadIdx.x; v < p.V; v += blockDim.x) {
-    const int l = lb_in[v], u = ub_in[v];
-    w.al()[v] = l;
-    w.au()[v] = u;
-    w.bl()[v] = l;
-    w.bu()[v] = u;
-    b0 |= l > u;
-  }
+                                   const Load& load, int* lb_out,
+                                   int* ub_out, int cap, int inner_cap,
+                                   bool* m, const Epilogue& epilogue) {
+  const int b0 = load();
   const int R = rule_count(p);
   for (int i = threadIdx.x; i < head_words(p); i += blockDim.x) {
     const int j = i - TT_FLAG_WORDS;  // the dirty word j: rules 32 j on
@@ -426,25 +423,41 @@ __device__ __forceinline__ int run(const PlanView& p, const W& w,
                                     : (int)((1u << (R - 32 * j)) - 1);
   }
   const bool bot = __syncthreads_or(b0) != 0;
-  const int sweeps = sweep_loop(p, w, bot, cap, inner_cap, m);
+  *m = false;
+  const int sweeps = p.P > 0 ? sweep_loop(p, w, bot, cap, inner_cap, m) : 0;
   for (int v = threadIdx.x; v < p.V; v += blockDim.x) {
     lb_out[v] = w.al()[v];
     ub_out[v] = w.au()[v];
   }
-  if constexpr (STEP) {
-    __syncthreads();
-    step_epilogue(p, &w.al()[0], &w.au()[0], so, d);
-  }
+  epilogue();
   return sweeps;
 }
 
+// The working set of dive d: the block's shared memory, or the dive's
+// row of ``scratch`` ((D, scratch_words(p)) int32).
+template <bool SMEM>
+struct WorkSet;
+template <>
+struct WorkSet<true> {
+  static __device__ __forceinline__ SmemSet of(const PlanView& p, int*,
+                                               long long) {
+    return SmemSet{head_words(p), p.V};
+  }
+};
+template <>
+struct WorkSet<false> {
+  static __device__ __forceinline__ GlobalSet of(const PlanView& p,
+                                                 int* scratch, long long d) {
+    return GlobalSet{scratch + d * scratch_words(p), p.V};
+  }
+};
+
 // The kernel: one block a dive. SMEM: the working set in shared memory,
-// else in the dive's row of ``scratch`` ((D, scratch_words(p)) int32).
-// STEP: the step entry, which ends with the epilogue. Each memory path
-// is a kernel of its own, so that each gets its own registers: the
-// shared one at most 64 (four blocks per SM at golomb(12)); the global
-// one, for stores that shared memory cannot hold, at most 80 (three
-// blocks).
+// else in the dive's row of ``scratch``. STEP: the step entry, which ends
+// with the epilogue. Each memory path is a kernel of its own, so that
+// each gets its own registers: the shared one at most 64 (four blocks
+// per SM at golomb(12)); the global one, for stores that shared memory
+// cannot hold, at most 80 (three blocks).
 template <bool STEP, bool SMEM>
 __global__ void __launch_bounds__(TT_THREADS, SMEM ? 4 : 3)
 wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
@@ -456,51 +469,99 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
   const long long d = blockIdx.x;
   lb_in += d * V;
   ub_in += d * V;
-  lb_out += d * V;
-  ub_out += d * V;
+  const auto w = WorkSet<SMEM>::of(p, scratch, d);
+  const auto load = [&] {
+    int b0 = 0;
+    for (int v = threadIdx.x; v < V; v += blockDim.x) {
+      const int l = lb_in[v], u = ub_in[v];
+      w.al()[v] = l;
+      w.au()[v] = u;
+      w.bl()[v] = l;
+      w.bu()[v] = u;
+      b0 |= l > u;
+    }
+    return b0;
+  };
+  const auto epilogue = [&] {
+    if constexpr (STEP) {
+      __syncthreads();
+      step_epilogue(p, &w.al()[0], &w.au()[0], so, d);
+    }
+  };
   bool m;
-  int sweeps;
-  if constexpr (SMEM)
-    sweeps = run<STEP>(p, SmemSet{head_words(p), V}, lb_in, ub_in, lb_out,
-                       ub_out, cap, inner_cap, &m, so, d);
-  else
-    sweeps = run<STEP>(p, GlobalSet{scratch + d * scratch_words(p), V},
-                       lb_in, ub_in, lb_out, ub_out, cap, inner_cap, &m, so,
-                       d);
+  const int sweeps = run(p, w, load, lb_out + d * V, ub_out + d * V, cap,
+                         inner_cap, &m, epilogue);
   if (threadIdx.x == 0) {
     iters_out[d] = sweeps + 1;
     unconv_out[d] = m;
   }
 }
 
-// The kernel of a launch, its dynamic shared memory (the head words
-// alone on the global path, which needs the scratch), with the kernel's
-// attribute raised to it (each kernel keeps its own). Returns a CUDA
-// error code.
-template <bool STEP, bool SMEM>
-static int raise_smem(size_t smem) {
-  static int attr_set = -1;
-  if ((int)smem > attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        wac1_kernel<STEP, SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = (int)smem;
-  }
-  return 0;
+// The table level entry (level.cuh): row r's parent gathered into A and
+// B (by TMA into shared memory where ``bulk``), K8's sweeps, the rows
+// written, then dive_level's epilogue on A. With no propagator (P == 0)
+// the store is the gathered one and iters 0, as the JAX fixpoint
+// returns. Registers as wac1_kernel's.
+template <bool SMEM>
+__global__ void __launch_bounds__(TT_THREADS, SMEM ? 4 : 3)
+wac1_level_kernel(PlanView p, LevelView lv, int* scratch, int cap,
+                  int inner_cap, int bulk) {
+  const int V = p.V;
+  const long long r = blockIdx.x;
+  const auto w = WorkSet<SMEM>::of(p, scratch, r);
+  const auto load = [&] {
+    return gather_parent(lv, r, V, &w.al()[0], &w.au()[0], &w.bl()[0],
+                         &w.bu()[0], SMEM && bulk);
+  };
+  const auto epilogue = [&] {
+    __syncthreads();
+    level_epilogue(p, &w.al()[0], &w.au()[0], lv, r);
+  };
+  bool m;
+  const int sweeps = run(p, w, load, lv.lb + r * V, lv.ub + r * V, cap,
+                         inner_cap, &m, epilogue);
+  if (threadIdx.x == 0) lv.iters[r] = p.P > 0 ? sweeps + 1 : 0;
 }
 
-template <bool STEP>
-static int prepare(const PlanView* p, const int* scratch, int smem_limit,
-                   size_t* smem, int* use_smem) {
+// K8's kernels by entry (the fixpoint, the step entry, the level entry)
+// and memory path.
+enum { K8_FIXPOINT = 0, K8_STEP = 1, K8_LEVEL = 2 };
+
+static const void* entry_kernel(int entry, bool smem) {
+  if (entry == K8_LEVEL)
+    return smem ? (const void*)wac1_level_kernel<true>
+                : (const void*)wac1_level_kernel<false>;
+  if (entry == K8_STEP)
+    return smem ? (const void*)wac1_kernel<true, true>
+                : (const void*)wac1_kernel<true, false>;
+  return smem ? (const void*)wac1_kernel<false, true>
+              : (const void*)wac1_kernel<false, false>;
+}
+
+// The memory path of a launch of ``entry`` and its dynamic shared memory
+// (the head words alone on the global path, which needs the scratch),
+// with that kernel's attribute raised to it (each kernel keeps its own).
+// Returns a CUDA error code.
+static int prepare(int entry, const PlanView* p, const int* scratch,
+                   int smem_limit, size_t* smem, int* use_smem) {
+  static int attr_set[3][2] = {{-1, -1}, {-1, -1}, {-1, -1}};
   *smem = smem_bytes(*p);
   // uint16 worklist entries: a segment of at most 65536.
   *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit &&
               work_seg(*p) <= 65536;
-  if (*use_smem) return raise_smem<STEP, true>(*smem);
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  *smem = 4 * (size_t)head_words(*p);
-  return raise_smem<STEP, false>(*smem);
+  if (!*use_smem) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    *smem = 4 * (size_t)head_words(*p);
+  }
+  int& set = attr_set[entry][*use_smem];
+  if ((int)*smem > set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        entry_kernel(entry, *use_smem),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+    if (e != cudaSuccess) return (int)e;
+    set = (int)*smem;
+  }
+  return 0;
 }
 
 template <bool STEP>
@@ -510,7 +571,8 @@ static int launch(const PlanView* p, const int* lb_in, const int* ub_in,
                   const int* live, void* stream, const StepOut& so) {
   size_t smem;
   int use_smem;
-  int rc = prepare<STEP>(p, scratch, smem_limit, &smem, &use_smem);
+  int rc = prepare(STEP ? K8_STEP : K8_FIXPOINT, p, scratch, smem_limit,
+                   &smem, &use_smem);
   if (rc != 0) return rc;
   auto* kernel = use_smem ? wac1_kernel<STEP, true> : wac1_kernel<STEP, false>;
   kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
@@ -548,21 +610,52 @@ extern "C" int tt_wac1_step(const PlanView* p, const int* lb_in,
               SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}});
 }
 
-// Resident blocks per SM of a launch at the smem_limit the wrappers
-// pass (step: the step entry), into *blocks.
-extern "C" int tt_wac1_blocks_per_sm(const PlanView* p, int step,
+// One level of the EPS table build, W rows, in one launch (level.cuh).
+extern "C" int tt_wac1_level(const PlanView* p, const LevelView* lv,
+                             int* scratch, int W, int cap, int inner_cap,
+                             int smem_limit, void* stream) {
+  size_t smem;
+  int use_smem;
+  int rc = prepare(K8_LEVEL, p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  const int bulk = level_rows_aligned(*lv, p->V);
+  auto* kernel = use_smem ? wac1_level_kernel<true> : wac1_level_kernel<false>;
+  kernel<<<W, TT_THREADS, smem, (cudaStream_t)stream>>>(*p, *lv, scratch,
+                                                        cap, inner_cap, bulk);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of a launch of ``entry`` (0 the fixpoint, 1 the
+// step entry, 2 the level entry) at the smem_limit the wrappers pass,
+// into *blocks.
+extern "C" int tt_wac1_blocks_per_sm(const PlanView* p, int entry,
                                      int smem_limit, int* blocks) {
   size_t smem;
   int use_smem;
   const int* scratch = blocks;  // not read: any pointer allows the global path
-  int rc = step ? prepare<true>(p, scratch, smem_limit, &smem, &use_smem)
-                : prepare<false>(p, scratch, smem_limit, &smem, &use_smem);
+  int rc = prepare(entry, p, scratch, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
-  const void* kernel =
-      step ? (use_smem ? (const void*)wac1_kernel<true, true>
-                       : (const void*)wac1_kernel<true, false>)
-           : (use_smem ? (const void*)wac1_kernel<false, true>
-                       : (const void*)wac1_kernel<false, false>);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kernel, TT_THREADS, smem);
+      blocks, entry_kernel(entry, use_smem), TT_THREADS, smem);
+}
+
+// What a first launch of each of K8's six kernels would do, for this
+// plan: the module load of each (cudaFuncGetAttributes loads a lazily
+// loaded kernel), and the shared-memory attribute of each entry on the
+// memory path this plan takes.
+extern "C" int tt_wac1_load(const PlanView* p, int smem_limit) {
+  for (int entry = K8_FIXPOINT; entry <= K8_LEVEL; ++entry) {
+    for (int smem_path = 0; smem_path < 2; ++smem_path) {
+      cudaFuncAttributes a;
+      const cudaError_t e =
+          cudaFuncGetAttributes(&a, entry_kernel(entry, smem_path));
+      if (e != cudaSuccess) return (int)e;
+    }
+    size_t smem;
+    int use_smem;
+    const int* scratch = &smem_limit;  // not read
+    int rc = prepare(entry, p, scratch, smem_limit, &smem, &use_smem);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }

@@ -15,8 +15,11 @@ prefixes seed the incumbent. The host bookkeeping is the JAX module's,
 with its semantics unchanged (that module imports jax at its top, so
 none of it can be imported here).
 
-``embed`` dispatches by device: a CPU tensor runs ``embed_plain``, a
-CUDA tensor launches K4 (``kernels/csrc/embed.cu``) or raises.
+``dive_level`` dispatches by device: on CUDA tensors a level is one
+launch of K1's level entry (``kernels.fixpoint.level``; K8's under
+``fp_mode="wac1"``), which gathers each row's parent into its block,
+propagates it and classifies and selects on the result; on CPU tensors
+it is ``dive_level_plain``, the same four stages in plain torch.
 """
 from __future__ import annotations
 
@@ -100,35 +103,44 @@ def embed_plain(lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l, c1u,
     return lbp, ubp, stp
 
 
-def embed(*args):
-    if args[0].is_cuda:
-        from ..kernels import embed as k_embed
-        return k_embed(*args)
-    if args[0].device.type != "cpu":
-        raise RuntimeError(f"no embed for device {args[0].device}")
-    return embed_plain(*args)
-
-
-def dive_level(solver, lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l,
-               c1u, pidx, pbit):
+def dive_level_plain(solver, lb_par, ub_par, strat_par, var_par, c0l, c0u,
+                     c1l, c1u, pidx, pbit):
     """One frontier chunk of W rows: embed -> fixpoint (true fixpoint;
-    WAC1 under ``fp_mode="wac1"``) -> classify -> select. Returns the 13
-    outputs of the JAX program (lb, ub, strat, var, c0l, c0u, c1l, c1u,
-    bot, ent, found, iters, objlb)."""
-    lbp, ubp, stp = embed(lb_par, ub_par, strat_par, var_par, c0l, c0u,
-                          c1l, c1u, pidx, pbit)
+    WAC1 under ``fp_mode="wac1"``) -> classify -> select, each stage's
+    plain torch version. Returns the 13 outputs of the JAX program (lb,
+    ub, strat, var, c0l, c0u, c1l, c1u, bot, ent, found, iters,
+    objlb)."""
+    pk = solver.kernels
+    lbp, ubp, stp = embed_plain(lb_par, ub_par, strat_par, var_par, c0l,
+                                c0u, c1l, c1u, pidx, pbit)
     if solver.cfg.fp_mode == "wac1":
-        lb2, ub2, iters, _ = solver.kernels.fixpoint_wac1(
+        lb2, ub2, iters, _ = pk.fixpoint_wac1_plain(
             lbp, ubp, _BIG_CAP, solver.cfg.wac1_inner_cap)
     else:
-        lb2, ub2, iters, _ = solver.kernels.fixpoint(lbp, ubp, _BIG_CAP)
-    bot, ent = solver.kernels.classify(lb2, ub2)
+        lb2, ub2, iters, _ = pk.fixpoint_plain(lbp, ubp, _BIG_CAP)
+    bot, ent = pk.classify_plain(lb2, ub2)
     ent = ent & ~bot
-    found, var2, nstrat, _, d0l, d0u, d1l, d1u = solver._select(lb2, ub2,
-                                                                stp)
+    found, var2, nstrat, _, d0l, d0u, d1l, d1u = solver._select_plain(
+        lb2, ub2, stp)
     strat2 = torch.where(found, nstrat, stp)
     return (lb2, ub2, strat2, var2, d0l, d0u, d1l, d1u, bot, ent, found,
             iters, lb2[:, solver.dp.obj])
+
+
+def dive_level(solver, *chunk):
+    """``dive_level_plain``'s 13 outputs for the ten inputs ``chunk``: on
+    the card one launch of the level entry of K1 (K8 under
+    ``fp_mode="wac1"``)."""
+    if chunk[0].is_cuda:
+        from .. import kernels
+        kp = solver.kernels.kernel_plan
+        if solver.cfg.fp_mode == "wac1":
+            return kernels.wac1.level(kp, chunk, solver.dp.obj, _BIG_CAP,
+                                      solver.cfg.wac1_inner_cap)
+        return kernels.fixpoint.level(kp, chunk, solver.dp.obj, _BIG_CAP)
+    if chunk[0].device.type != "cpu":
+        raise RuntimeError(f"no table level for device {chunk[0].device}")
+    return dive_level_plain(solver, *chunk)
 
 
 class _Chunk:
@@ -240,8 +252,8 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
     z = torch.zeros(W, dtype=I32, device=dev)
     neu0l = torch.full((W,), NINF, dtype=I32, device=dev)
     neu0u = torch.full((W,), INF, dtype=I32, device=dev)
-    raw = dive_level(solver, lb_r, ub_r, z, z, neu0l, neu0u, neu0l, neu0u,
-                     z, z)
+    raw = solver._dive_level(lb_r, ub_r, z, z, neu0l, neu0u, neu0l, neu0u,
+                             z, z)
     parents = [classify(raw, np.asarray([0]), np.asarray([0]), 0)]
 
     def expand(level):
@@ -264,10 +276,10 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
                 pbit = np.zeros(W, dtype=np.int32)
                 pidx[:len(grp)] = [g[0] for g in grp]
                 pbit[:len(grp)] = [g[1] for g in grp]
-                res = dive_level(solver, ch.lb, ch.ub, ch.strat, ch.var,
-                                 ch.c0l, ch.c0u, ch.c1l, ch.c1u,
-                                 torch.from_numpy(pidx).to(dev),
-                                 torch.from_numpy(pbit).to(dev))
+                res = solver._dive_level(ch.lb, ch.ub, ch.strat, ch.var,
+                                         ch.c0l, ch.c0u, ch.c1l, ch.c1u,
+                                         torch.from_numpy(pidx).to(dev),
+                                         torch.from_numpy(pbit).to(dev))
                 out.append((res, np.arange(len(grp)),
                             np.asarray([g[2] for g in grp])))
         return out

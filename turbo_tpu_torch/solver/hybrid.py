@@ -33,6 +33,7 @@ from ..host.solver.plan import build_plan
 from .config import (EngineConfig, apply_strategy_config, auto_max_depth,
                      probe_tree_power)
 from .convert import DevicePlan
+from .engine import warm_kernels
 from .propagate import PropagatorKernels
 from .result import EngineResult
 
@@ -88,11 +89,7 @@ class HybridSolver:
         self.wac1 = (config.fp_mode == "wac1"
                      and self.plan.num_real_props >= config.wac1_threshold)
         self.build_time = 0.0
-        if self.device.type == "cuda":
-            from .. import kernels
-            t0 = time.monotonic()
-            kernels.load()
-            self.build_time = time.monotonic() - t0
+        self.warm_time = warm_kernels(self)
 
     # -- device round ---------------------------------------------------
 
