@@ -64,6 +64,13 @@ the others, the host's share of the build (``table_build_time`` less
 the levels' wall) and its time before, between and after the levels,
 and the caching allocator's reserved MB after each level. Each tree's
 kernels are built first, in a process of their own.
+
+``--sass-ab DIR`` builds the kernels of DIR and of this checkout, each
+in a process of its own, and compares the SASS of every kernel the two
+libraries share (``cuobjdump -sass``, function by function): one JSON
+line with the kernels whose code is the same, those that differ (with
+their SASS lines in each tree and the lines only one of them has), and
+those of one tree only.
 """
 import argparse
 import contextlib
@@ -393,6 +400,49 @@ def table_ab(other):
                                     for b in rec["reserved"]]}), flush=True)
 
 
+def sass_by_kernel(lib):
+    """{mangled kernel name: its SASS lines} of a built library."""
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", lib],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and line.strip():
+            funcs[name].append(line.strip())
+    return funcs
+
+
+def sass_ab(other):
+    """The SASS of each kernel of ``other``'s library against this
+    checkout's, each built in a process of its own."""
+    libs = []
+    for tree in (pathlib.Path(other).resolve(), ROOT):
+        r = subprocess.run(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, sys.argv[1]); "
+             "from turbo_tpu_torch.kernels import build; "
+             "print(build.load()._name)", str(tree)],
+            capture_output=True, text=True, cwd=tree)
+        if r.returncode != 0:
+            raise RuntimeError(f"{tree}: the kernel build failed:\n"
+                               f"{r.stderr[-4000:]}")
+        libs.append(r.stdout.strip().splitlines()[-1])
+    a, b = (sass_by_kernel(lib) for lib in libs)
+    both = sorted(set(a) & set(b))
+    print(json.dumps({
+        "tree": other,
+        "same": [k for k in both if a[k] == b[k]],
+        # (its SASS lines there, here; lines in one and not the other)
+        "differ": {k: (len(a[k]), len(b[k]),
+                       len(set(a[k]) ^ set(b[k])))
+                   for k in both if a[k] != b[k]},
+        "only_other": sorted(set(a) - set(b)),
+        "only_this": sorted(set(b) - set(a))}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=2)
@@ -404,7 +454,11 @@ def main():
     ap.add_argument("--k1-ab", default="")
     ap.add_argument("--k1-child", default="", help=argparse.SUPPRESS)
     ap.add_argument("--table-ab", default="")
+    ap.add_argument("--sass-ab", default="")
     args = ap.parse_args()
+    if args.sass_ab:
+        sass_ab(args.sass_ab)
+        return 0
     if args.k1_child:
         k1_child(pathlib.Path(args.k1_child))
         return 0

@@ -197,6 +197,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 WORK = ROOT / "chiprun_out" / "chip_smoke"
+# Seconds between the heartbeat lines of the cold build (phase 2).
+HEARTBEAT_S = 2.0
 # The path whose launch counts the JSON line's ``launches`` reports.
 MAIN = "default CLI, golomb(12)"
 # The paths of K8 and of K1's other entries, read for their ``launches``.
@@ -338,6 +340,28 @@ def run_cli(args):
     return out.getvalue(), err.getvalue(), stats
 
 
+def split_line(label, err):
+    """The run's FIXPOINT/SEARCH split from the CLI's ``-v`` line. Fails
+    on the measured chunks' no-kernel warning, and unless the split was
+    measured with a fraction in (0, 1). Returns (fraction, the profile's
+    wall s, the least-squares fit's fraction)."""
+    if "% warning: the measured chunks timed no kernel" in err:
+        fail(f"{label}: the measured chunks timed no kernel")
+    m = re.search(r"^% timer split: measured, fixpoint fraction ([\d.]+) "
+                  r"\(profile ([\d.]+) s; least-squares fit ([\d.]+|n/a)\)$",
+                  err, re.M)
+    if not m:
+        fail(f"{label}: timer_split_measured False: "
+             f"{re.findall(r'^% timer split.*$', err, re.M)}")
+    frac, wall = float(m.group(1)), float(m.group(2))
+    fit = None if m.group(3) == "n/a" else float(m.group(3))
+    if not 0 < frac < 1:
+        fail(f"{label}: measured fixpoint fraction {frac}")
+    log(f"  timer_split_measured True: fixpoint fraction {frac:.4f} (the "
+        f"least-squares fit's {m.group(3)}), the profile's wall {wall:.3f} s")
+    return frac, wall, fit
+
+
 def check_solution(model, block):
     """Fail unless the solution block satisfies every constraint."""
     from turbo_tpu_torch.host.utils.checker import Checker
@@ -402,7 +426,10 @@ K8_KERNELS = (("K8", "wac1_kernelILb0ELb1E"),
               ("K8, global-memory path", "wac1_kernelILb0ELb0E"),
               ("K8's step entry, global-memory path", "wac1_kernelILb1ELb0E"),
               ("K8's level entry, global-memory path",
-               "wac1_level_kernelILb0E"))
+               "wac1_level_kernelILb0E"),
+              ("K8's stamped step entry", "wac1_step_stamped_kernelILb1E"),
+              ("K8's stamped step entry, global-memory path",
+               "wac1_step_stamped_kernelILb0E"))
 
 
 def phase_kernels(torch, dev):
@@ -414,6 +441,14 @@ def phase_kernels(torch, dev):
         ptxas_lines(kbuild.build_log, "fixpoint_kernel")))
     log("  K1's step entry (-Xptxas -v): " + " | ".join(
         ptxas_lines(kbuild.build_log, "fixpoint_step_kernel")))
+    log("  K1's stamped step entry (-Xptxas -v): " + " | ".join(
+        ptxas_lines(kbuild.build_log, "fixpoint_step_stamped_kernel")))
+    for what, kernel in (("K6 head", "step_head_kernel"),
+                         ("K6 post", "step_post_kernel"),
+                         ("K6's timed head", "step_head_timed_kernel"),
+                         ("K6's timed post", "step_post_timed_kernel")):
+        log(f"  {what} (-Xptxas -v): " + " | ".join(
+            ptxas_lines(kbuild.build_log, kernel)))
     log("  K1's level entry (-Xptxas -v): " + " | ".join(
         ptxas_lines(kbuild.build_log, "fixpoint_level_kernel")))
     for what, kernel in K8_KERNELS:
@@ -428,7 +463,8 @@ def phase_kernels(torch, dev):
 
     errs = dict.fromkeys(("fixpoint", "fixpoint.step", "classify", "select",
                           "wac1", "wac1.step", "fixpoint.fixed_sweeps",
-                          "fixpoint.transposed"), 0)
+                          "fixpoint.transposed", "fixpoint.step_stamped",
+                          "wac1.step_stamped"), 0)
     times = {}
     sweeps = {}
     # Exactness on 4 random models at D=1024; exactness and times at
@@ -495,6 +531,15 @@ def phase_kernels(torch, dev):
             return (w + pk.classify_plain(w[0], w[1])
                     + s._select_plain(w[0], w[1], strat))
 
+        # The stamped step entries' outputs but their stamps (3b checks
+        # those), which go to one buffer.
+        stamps = torch.zeros((D, 2), dtype=torch.int64, device=dev)
+        span = torch.zeros(2, dtype=torch.int64, device=dev)
+
+        def stamped(k, *caps, smem):
+            return k.step_stamped(kp, lb, ub, *caps, strat, stamps, span,
+                                  smem=smem)
+
         # A 4th element keys the plain result (it does not depend on the
         # memory path, so it is computed once for both); a 5th is applied
         # to both results before they are compared, outside the timing.
@@ -505,6 +550,11 @@ def phase_kernels(torch, dev):
                     "fixpoint.step",
                     lambda c=cap, m=smem: kernels.fixpoint.step(
                         kp, lb, ub, c, strat, smem=m),
+                    lambda c=cap: step_plain(c), ("s", cap)))
+                cases.append((
+                    "fixpoint.step_stamped",
+                    lambda c=cap, m=smem: stamped(kernels.fixpoint, c,
+                                                  smem=m),
                     lambda c=cap: step_plain(c), ("s", cap)))
                 cases.append((
                     "fixpoint.transposed",
@@ -524,6 +574,12 @@ def phase_kernels(torch, dev):
                         "wac1.step",
                         lambda c=cap, i=inner, m=smem: kernels.wac1.step(
                             kp, lb, ub, c, i, strat, smem=m),
+                        lambda c=cap, i=inner: step_plain(c, i),
+                        ("ws", cap, inner)))
+                    cases.append((
+                        "wac1.step_stamped",
+                        lambda c=cap, i=inner, m=smem: stamped(
+                            kernels.wac1, c, i, smem=m),
                         lambda c=cap, i=inner: step_plain(c, i),
                         ("ws", cap, inner)))
             for n in (2, 5):
@@ -610,9 +666,9 @@ def phase_kernels(torch, dev):
     epi_bound = bound(epi_bytes, cls_ops + sel_ops)
     blocks = {f"{k.name}{e}": k.blocks_per_sm(kp, e[1:])
               for k in (kernels.fixpoint, kernels.wac1)
-              for e in ("", ".step", ".level")}
+              for e in ("", ".step", ".level", ".step_stamped")}
     for name in ("fixpoint.step", "wac1.step", "fixpoint.level",
-                 "wac1.level"):
+                 "wac1.level", "fixpoint.step_stamped", "wac1.step_stamped"):
         ROW_EXTRA[name] = {"epilogue_bound_ms": epi_bound[0],
                            "epilogue_bound_by": epi_bound[1]}
     for name, b in blocks.items():
@@ -626,9 +682,15 @@ def phase_kernels(torch, dev):
         f"{blocks['fixpoint']}, K1's step entry {blocks['fixpoint.step']}, "
         f"K1's level entry {blocks['fixpoint.level']}, K8 {blocks['wac1']}, "
         f"K8's step entry {blocks['wac1.step']}, K8's level entry "
-        f"{blocks['wac1.level']}; "
+        f"{blocks['wac1.level']}, the stamped step entries: K1's "
+        f"{blocks['fixpoint.step_stamped']}, K8's "
+        f"{blocks['wac1.step_stamped']}; "
         f"K8's step entry {times[g12, 'wac1.step'][0]:.4f} ms against K8 "
-        f"{times[g12, 'wac1'][0]:.4f}")
+        f"{times[g12, 'wac1'][0]:.4f}; the stamped step entries against "
+        f"the step entries: K1's {times[g12, 'fixpoint.step_stamped'][0]:.4f}"
+        f" against {times[g12, 'fixpoint.step'][0]:.4f}, K8's "
+        f"{times[g12, 'wac1.step_stamped'][0]:.4f} against "
+        f"{times[g12, 'wac1.step'][0]:.4f}")
     bounds = {
         "fixpoint": bound(fp_bytes, sweeps[g12, "fixpoint"] * sweep_ops(dp)),
         "fixpoint.step": bound(
@@ -645,6 +707,13 @@ def phase_kernels(torch, dev):
         "wac1.step": bound(
             fp_bytes + 35 * D, sweeps[g12, "wac1.step"] * sweep_ops(dp)
             + cls_ops + sel_ops),
+        # The step entries' work, and 16 bytes of stamps a dive.
+        "fixpoint.step_stamped": bound(
+            fp_bytes + 51 * D, sweeps[g12, "fixpoint.step_stamped"]
+            * sweep_ops(dp) + cls_ops + sel_ops),
+        "wac1.step_stamped": bound(
+            fp_bytes + 51 * D, sweeps[g12, "wac1.step_stamped"]
+            * sweep_ops(dp) + cls_ops + sel_ops),
         "classify": bound(planes + tabs + 2 * D, cls_ops),
         "select": bound(planes + 9 * 4 * D, sel_ops),
     }
@@ -926,7 +995,181 @@ def phase_step_kernels(torch, dev):
             # with K2 and K3, and without the skip.
             fused_turns(torch, label, s, st0, cap)
             skip_turns(torch, label, s, st0, cap)
+            for c in SPLIT_CAPS:
+                head, post = split_check(torch, label, s, st0, c)
+                if c == cap and s.cfg.fp_mode == "fixpoint":
+                    timed = (head, post)
+    # K6's timed entries: the work of head and post, their time the mean
+    # of their own spans in 3b's profiled chunks (default step, cap 16).
+    for e, ms in zip(("head", "post"), timed):
+        row = out[f"step.{e}"]
+        out[f"step.{e}_timed"] = (row[0], ms) + tuple(row[2:])
     return out
+
+
+# How far profile_split's fraction (the launches' own spans and the clock
+# stamps) may lie from the fraction of torch.profiler's kernel times of the
+# same chunks with the same stamps (3b), as a share of what the stamps
+# move there (the epilogue's share of the device time: the profiler's
+# fraction with each step entry counted whole, less its fraction). Below
+# 1, so that counting the step entries whole fails the check, which 3b
+# checks too. A launch's own span misses its start-up and drain, which
+# the profiler's kernel time holds.
+SPLIT_TOL_SHARE = 0.5
+# How far it may lie from the CUDA events' share at cap 16 (K1's fixpoint
+# entry alone over the step, eager launches, ``time_step_parts``), which
+# may not pass 1. At lower caps that share holds the host's gaps between
+# short eager launches, and under ``fp_mode="wac1"`` K8's fixpoint entry
+# is another kernel than its step entry's body, which it outran or
+# trailed by up to a tenth on one state: printed, not held.
+EVENT_TOL = 0.05
+# 3b's cap, then the caps that the calibrator locks on the main path.
+SPLIT_CAPS = (16, 8, 4)
+
+
+def kernel_kind(name):
+    """The kind (``profile_split.FIXPOINT``, ``OTHER``, ``STAMPED``) of a
+    kernel in torch.profiler's trace by its name, as ``step_cuda`` tags
+    the launch; None for a kernel that is not the step's."""
+    from turbo_tpu_torch.solver.profile_split import FIXPOINT, OTHER, STAMPED
+    name = re.sub(r"^void ", "", name)
+    if "step_stamped_kernel" in name:
+        return STAMPED
+    if re.match(r"fixpoint_kernel\b|wac1_kernel<false", name):
+        return FIXPOINT
+    if re.match(r"(step_(head|post|live|copy)(_timed)?|classify|select)"
+                r"_kernel\b", name):
+        return OTHER
+    return None
+
+
+def split_check(torch, label, s, st, cap, steps=20):
+    """On the state ``st`` of a step with K1's or K8's step entry, at fixpoint
+    cap ``cap``: a profiled chunk (the stamped step entries and K6's timed
+    entries, ``solver/step_cuda.py``) equals an uncaptured chunk of the
+    step entries and the plain steps in every field and step count, every
+    launch that ran wrote positive stamps (sweep > 0, epilogue > 0) and
+    every timed launch a positive span; ``profile_split``'s fraction of
+    two profiled chunks (as ``solve`` measures it) is printed; then two
+    more run under ``torch.profiler``, and their fraction from the
+    launches' own spans lies within ``SPLIT_TOL_SHARE`` of the
+    epilogue's share of the device time from the fraction of the
+    profiler's kernel times with the same stamps, while counting each
+    step entry whole as FIXPOINT lies outside it. At cap 16 the CUDA
+    events' share of the propagation alone in a step is printed, and
+    with K1 it is at most 1 and the fraction lies within ``EVENT_TOL``
+    of it. Returns the mean span (ms) of K6's timed head and post."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from turbo_tpu_torch.solver import profile_split, step_cuda
+    D, dev = st.phase.shape[0], st.lb.device
+    label = f"{label}, split at cap {cap}"
+    a, b, c = clone_state(st), clone_state(st), clone_state(st)
+    stamps = torch.zeros((steps, D, 2), dtype=torch.int64, device=dev)
+    spans = step_cuda.Spans(steps, dev)
+    ran_a = int(step_cuda.run(s, a, steps, cap, stamps=stamps, spans=spans))
+    ran_b = int(step_cuda.run(s, b, steps, cap, graph=False))
+    live = 0
+    for _ in range(steps):
+        c, lv = s.step_plain(c, cap)
+        live += int(lv)
+    if not ran_a == ran_b == live:
+        fail(f"{label}: the profiled chunk ran {ran_a} steps, the step "
+             f"entries {ran_b}, the plain step {live}")
+    same_state(f"{label}, profiled chunk vs step entries", a, b)
+    same_state(f"{label}, profiled chunk vs plain step", a, c)
+    sweep, epi = stamps[..., 0], stamps[..., 1]
+    on = (stamps != 0).any(dim=2).any(dim=1)  # the launches that ran
+    durs = [e.dur for e in spans.events()]
+    if (int(on.sum()) != ran_a or not bool((sweep[on] > 0).all())
+            or not bool((epi[on] > 0).all())
+            or min(durs[:3 * ran_a], default=1.0) <= 0):
+        fail(f"{label}: stamps of {int(on.sum())} launches for {ran_a} "
+             f"steps; sweep cycles min {int(sweep[on].min())}, epilogue "
+             f"min {int(epi[on].min())}; spans min "
+             f"{min(durs[:3 * ran_a], default=None)} ms")
+    stamp_share = float(sweep[on].sum()) / float(stamps[on].sum())
+
+    d = clone_state(st)
+    got = []
+
+    def chunk():
+        nonlocal d
+        d, _, measured = s._profiled_steps(d, steps, cap)
+        got.append(measured)
+        return measured
+
+    t0 = time.monotonic()
+    frac = profile_split.measure_fixpoint_fraction(chunk, cuda=True)
+    wall = time.monotonic() - t0
+    # Two more under torch.profiler: the port's spans and the profiler's
+    # kernel times of the same launches, with the same stamps.
+    del got[:]
+    t0 = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            chunk()
+    prof_wall = time.monotonic() - t0
+    cyc = tuple(sum(int(m[1][i]) for m in got) for i in (0, 1))
+    port = [e for m in got for e in m[0]]
+    kernels_ = [(e.name, e.time_range.elapsed_us() / 1e3)
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+    prof_ev = [profile_split.Event(kernel_kind(n), ms) for n, ms in kernels_
+               if kernel_kind(n) is not None]
+    prof_frac = profile_split.fraction(prof_ev, cyc)
+    port_frac = profile_split.fraction(port, cyc)
+    whole = profile_split.fraction(port, (1, 0))
+    prof_whole = profile_split.fraction(prof_ev, (1, 0))
+    if None in (frac, port_frac, prof_frac, prof_whole):
+        fail(f"{label}: a fraction is None (solve's {frac}, spans "
+             f"{port_frac}, profiler {prof_frac}, {prof_whole})")
+    tol = SPLIT_TOL_SHARE * (prof_whole - prof_frac)
+    by = {}
+    for n, ms in kernels_:
+        key = re.sub(r"\(.*", "", n)[:40]
+        k, t = by.get(key, (0, 0.0))
+        by[key] = (k + 1, t + ms)
+    mean = {}
+    for i, part in enumerate(("head", "step entry", "post")):
+        xs = [e.dur for e in port[i::3]]
+        mean[part] = sum(xs) / max(len(xs), 1)
+    log(f"  {label}: a profiled chunk of {steps} equals the step entries "
+        f"and the plain step; stamps and spans positive on all {ran_a} "
+        f"launches, the sweeps' share of the cycles {stamp_share:.4f}; "
+        f"profile_split's fraction {frac:.4f} ({wall:.3f} s for two "
+        f"chunks); under torch.profiler ({prof_wall:.3f} s with its start) "
+        f"the launches' spans read {port_frac:.4f} against the kernel "
+        f"times' {prof_frac:.4f} (counted "
+        f"whole {prof_whole:.4f}: tolerance {tol:.4f}), the step entries "
+        f"counted whole {whole:.4f}; spans ms a launch: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in mean.items())
+        + "; the profiler's kernels (launches, ms a launch): " + "; ".join(
+            f"{k}: {n}, {t / n:.4f}" for k, (n, t) in
+            sorted(by.items(), key=lambda kv: -kv[1][1])))
+    if abs(port_frac - prof_frac) > tol:
+        fail(f"{label}: the spans' fraction {port_frac:.4f} is not within "
+             f"{tol:.4f} of torch.profiler's {prof_frac:.4f}")
+    if abs(whole - prof_frac) <= tol:
+        fail(f"{label}: the step entries counted whole as FIXPOINT "
+             f"({whole:.4f}) also lie within {tol:.4f} of "
+             f"torch.profiler's {prof_frac:.4f}: the check cannot see the "
+             f"stamps")
+    if cap == SPLIT_CAPS[0]:
+        alone = time_step_parts(torch, f"{label}, propagation alone", s,
+                                clone_state(st), cap, steps, alone=True)[1]
+        fused = time_step_parts(torch, f"{label}, step entry", s,
+                                clone_state(st), cap, steps)[1]
+        ev_share = alone["propagation"] / sum(fused.values())
+        log(f"  {label}: the CUDA events' share {ev_share:.4f} (the "
+            f"propagation alone {alone['propagation']:.4f} ms over the "
+            f"step's {sum(fused.values()):.4f} ms)")
+        if s.cfg.fp_mode == "fixpoint" and (
+                ev_share > 1 or abs(frac - ev_share) > EVENT_TOL):
+            fail(f"{label}: the CUDA events' share {ev_share:.4f} is above "
+                 f"1 or not within {EVENT_TOL} of profile_split's "
+                 f"{frac:.4f}")
+    return mean["head"], mean["post"]
 
 
 def phase_sharded_step_kernels(torch, dev, single):
@@ -1424,6 +1667,10 @@ def plain_engine(s):
             count += live.to(torch.int32)
         return st, count
     s.run_steps = run_steps
+    # solve's measured chunks (profile_split) run the plain step too, and
+    # time no kernel (the run keeps the least-squares fit).
+    s._profiled_steps = lambda st, n, cap: run_steps(st, n, cap) + (
+        ([], (0, 0)),)
     return s
 
 
@@ -1465,13 +1712,17 @@ def counted(label, fn, required=()):
 
 def fused_only(label, c, prop="fixpoint"):
     """Fails unless every step of the path ran the step entry of K1 (K8
-    with ``prop="wac1"``), every table level was one launch of its level
-    entry, and K2 and K3 never ran on their own. Returns ``c``."""
-    if (c[f"{prop}.step"] != c["step.head"]
+    with ``prop="wac1"``; its stamped form, beside K6's timed entries, in
+    the run's profiled chunks), every table level was one launch of its
+    level entry, and K2 and K3 never ran on their own. Returns ``c``."""
+    steps = c["step.head"] + c["step.head_timed"]
+    if (c[f"{prop}.step"] + c[f"{prop}.step_stamped"] != steps
+            or c[f"{prop}.step_stamped"] != c["step.head_timed"]
             or c[f"{prop}.level"] != c["table levels"]
             or c["classify"] or c["select"]):
-        fail(f"{label}: {prop}'s step entry {c[f'{prop}.step']} for "
-             f"{c['step.head']} steps, its level entry "
+        fail(f"{label}: {prop}'s step entry {c[f'{prop}.step']} (stamped "
+             f"{c[f'{prop}.step_stamped']}) for "
+             f"{steps} steps ({c['step.head_timed']} timed), its level entry "
              f"{c[f'{prop}.level']} for {c['table levels']} table levels; "
              f"K2 {c['classify']}, K3 {c['select']}")
     return c
@@ -1483,6 +1734,8 @@ def fused_only(label, c, prop="fixpoint"):
 STEP_OWN = ("step", "step_tail", "step.head", "step.post", "step_tail.live",
             "step_tail.copy")
 STEP_KERNELS = ("fixpoint", "fixpoint.step") + STEP_OWN
+# K6's timed entries, which a CLI run's profiled chunks launch.
+PROFILED = ("step.head_timed", "step.post_timed")
 TABLE_KERNELS = ("table_refill", "fixpoint.level")
 
 
@@ -1641,6 +1894,7 @@ def run_path(torch, dev, big=12):
     def golomb_big():
         out, err, stats = run_cli([write_model(f"golomb{big}", text), "-s",
                                    "-or", "0", "-t", "60000", "-v", "-v"])
+        split_line(MAIN, err)
         blocks = [b for b in out.split("----------\n")[:-1]]
         if not blocks:
             fail(f"golomb({big}): no solution printed")
@@ -1675,7 +1929,8 @@ def run_path(torch, dev, big=12):
     # table, refills from it, drains the range and reaches the steal gate.
     log(f"[6] golomb({big}), default CLI, -or 0, -t 60000")
     paths[MAIN] = fused_only(MAIN, counted(
-        f"the default CLI, golomb({big})", golomb_big, required=all_kernels))
+        f"the default CLI, golomb({big})", golomb_big,
+        required=all_kernels + PROFILED + ("fixpoint.step_stamped",)))
 
     tnf_big = compile_model(model)
 
@@ -1785,11 +2040,15 @@ def run_option_paths(torch, dev, big=12):
                                         if not l.startswith("%")))
         return len(blocks)
 
-    def cli_big(what, seconds, *opts):
+    def cli_big(what, seconds, *opts, split=False):
+        # ``split``: -v, and the run's measured split checked.
         def run():
-            out, _, stats = run_cli([write_model(f"golomb{big}", text), "-s",
-                                     "-or", "0", "-t", str(seconds * 1000),
-                                     *opts])
+            out, err, stats = run_cli([write_model(f"golomb{big}", text),
+                                       "-s", "-or", "0", "-t",
+                                       str(seconds * 1000), *opts,
+                                       *(("-v",) if split else ())])
+            if split:
+                split_line(what, err)
             n = checked_blocks(out, what)
             nodes, solve_t = int(stats["nodes"]), float(stats["solveTime"])
             log(f"  {n} solution(s) checked; objective "
@@ -1807,8 +2066,11 @@ def run_option_paths(torch, dev, big=12):
 
     log(f"[10b] -fp wac1: golomb({big}), card CLI, -or 0, -t 30000")
     c = paths[WAC1] = fused_only(WAC1, counted(
-        f"-fp wac1, golomb({big})", cli_big("-fp wac1", 30, "-fp", "wac1"),
-        required=wac1_kernels + STEP_OWN), prop="wac1")
+        f"-fp wac1, golomb({big})", cli_big("-fp wac1", 30, "-fp", "wac1",
+                                            split=True),
+        required=wac1_kernels + STEP_OWN + PROFILED
+        + ("wac1.step_stamped",)),
+        prop="wac1")
     # K8 alone and K1 never: a level is one launch of K8's level entry.
     if c["fixpoint"] != 0 or c["wac1.wac1"] != 0:
         fail(f"-fp wac1: K8 alone {c['wac1.wac1']}, K1 {c['fixpoint']}")
@@ -2527,9 +2789,17 @@ def main():
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, device {kind}")
     shutil.rmtree(kbuild.BUILD_DIR, ignore_errors=True)
+    from turbo_tpu_torch.solver.engine import heartbeat
+    beats = io.StringIO()
     t0 = time.monotonic()
-    kernels.load()
-    log(f"[2] kernel build (cold, nvcc sm_90a): {time.monotonic() - t0:.1f} s")
+    # The solver's build heartbeat, every HEARTBEAT_S here (20 s in a
+    # solver), its lines caught.
+    with contextlib.redirect_stderr(beats), heartbeat(HEARTBEAT_S):
+        kernels.load()
+    log(f"[2] kernel build (cold, nvcc sm_90a): {time.monotonic() - t0:.1f} "
+        f"s; heartbeat lines (every {HEARTBEAT_S:g} s):")
+    for line in beats.getvalue().splitlines():
+        log(f"    {line}")
     for line in kbuild.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"    {line.strip()}")
@@ -2598,8 +2868,10 @@ def main():
                for k, e, path in ((k1, "step", MAIN), (k1, "level", MAIN),
                                   (k1, "fixed_sweeps", FIXED),
                                   (k1, "transposed", VD),
+                                  (k1, "step_stamped", MAIN),
                                   (kernels.wac1, "step", WAC1),
-                                  (kernels.wac1, "level", WAC1))]
+                                  (kernels.wac1, "level", WAC1),
+                                  (kernels.wac1, "step_stamped", WAC1))]
     # Each entry of K6 and K7 on its own.
     listed += [(f"{k.name}.{e}", k, k.replaces, MAIN, f"{k.name}.{e}")
                for k in (kernels.step, kernels.step_tail) for e in k.ENTRIES]

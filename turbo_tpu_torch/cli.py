@@ -19,8 +19,10 @@ printing.
 ``-a``, ``-i`` and ``-n N`` stream every accepted solution through the
 on-device solution ring (``-arch hybrid``: each improving solution as it
 is found). ``-checkpoint FILE`` resumes from FILE when it matches and
-writes it when the run is cut. ``-v -v`` prints the calibrator's choice,
-the steal and resplit rounds and a line per chunk.
+writes it when the run is cut. ``-v`` prints the setup (kernel build
+and warm-up), the table, the cap and whether the FIXPOINT/SEARCH split
+was measured (``solver/profile_split.py``); ``-v -v`` also the
+calibrator's choice, the steal and resplit rounds and a line per chunk.
 """
 from __future__ import annotations
 
@@ -170,6 +172,18 @@ def run(cfg: Configuration) -> int:
                                   if tb is not None else "off")
               + f"; fp_cap={engine.last_auto_cap or 'not calibrated'}",
               file=sys.stderr)
+        # (measured fraction or None, profile s, least-squares fraction)
+        split = getattr(solver, "last_split", None)
+        if split is None:
+            line = "least-squares fit (no measured chunks)"
+        else:
+            frac, wall, fit = split
+            fit = "n/a" if fit is None else f"{fit:.4f}"
+            line = (f"least-squares fit {fit} (profile {wall:.3f} s "
+                    "measured nothing)" if frac is None else
+                    f"measured, fixpoint fraction {frac:.4f} (profile "
+                    f"{wall:.3f} s; least-squares fit {fit})")
+        print(f"% timer split: {line}", file=sys.stderr)
     # Final block, unless the stream printed this very store last; under
     # enumeration a stream that lost nothing printed every solution.
     stream_complete = (enumerate_all and want_stream

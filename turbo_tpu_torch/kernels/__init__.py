@@ -8,6 +8,10 @@ one thread block per dive (or table row):
   ``fixpoint.transposed``: the fixpoint on dive-minor (V, D) planes;
   ``fixpoint.step``: the fixpoint, then K2's and K3's bodies on each
   dive's result in the same block (the search step's launch);
+  ``fixpoint.step_stamped``: the same, with each block's clock stamps
+  (the cycles before the epilogue and the epilogue's) and the launch's
+  span on the global timer (profiled chunks only,
+  ``solver/profile_split.py``);
   ``fixpoint.level``: one level of the EPS table build in one launch
   (each row's parent gathered into the block's store, the fixpoint,
   then K2's and K3's bodies: the 13 outputs of ``dive_level``);
@@ -22,15 +26,18 @@ one thread block per dive (or table row):
   (``step.head``: the previous step's refill and ring rows, then
   promote and tighten) and after it (``step.post``: the per-lane rest
   of the step, then, in each shard's last block, the shard scan and the
-  next step's live flag);
+  next step's live flag); ``step.head_timed`` and ``step.post_timed``:
+  the same, with the launch's span on the global timer (profiled
+  chunks only);
 - ``step_tail`` (K7): the chunk's live flag (``step_tail.live``) and
   the last step's refill and ring rows (``step_tail.copy``);
 - ``wac1`` (K8): WAC1 propagation (per op-group local fixpoints, then
   the element, membership and linear passes) to the fixpoint or the cap;
   ``wac1.step``: the same, then K2's and K3's bodies on each dive's
   result in the same block (the search step's launch under
-  ``fp_mode="wac1"``); ``wac1.level``: K1's level entry with K8's
-  fixpoint;
+  ``fp_mode="wac1"``); ``wac1.step_stamped``: the same, with the clock
+  stamps and the span of ``fixpoint.step_stamped``; ``wac1.level``: K1's
+  level entry with K8's fixpoint;
 - ``steal`` (K9): a steal round applied in place on K5's plan.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -430,15 +437,23 @@ class _Propagator(_Kernel):
                                None if self.uses_smem(kp, smem)
                                else self.scratch_shape(D, kp.view))
 
-    def _step(self, kp, lb, ub, strat, smem, live, out, args):
+    def _step(self, kp, lb, ub, strat, smem, live, out, args, stamps=None,
+              span=None):
         """The step entry ``tt_<PREFIX>_step`` with the integer arguments
         ``args`` after the scratch: (lb, ub, iters, unconv, bot, ent,
-        found, var, chosen, valo, c0l, c0u, c1l, c1u). With no propagator
-        (P == 0) the fixpoint is the copy of ``__call__``, and K2 and K3
-        run as launches of their own."""
+        found, var, chosen, valo, c0l, c0u, c1l, c1u). With ``stamps``
+        ((D, 2) int64) and ``span`` ((2,) int64) the stamped entry
+        ``tt_<PREFIX>_step_stamped``, which also writes each block's
+        clock stamps and the launch's span on the global timer there.
+        With no propagator (P == 0) the fixpoint is the copy of
+        ``__call__``, K2 and K3 run as launches of their own, and the
+        stamps are 0 and the span is left as it was."""
         dp = kp.dp
         D = lb.shape[0]
         _check(strat, "strat", (D,))
+        if stamps is not None:
+            _check(stamps, "stamps", (D, 2), torch.int64)
+            _check(span, "span", (2,), torch.int64)
         if out is None:
             out = _fixpoint_out(lb, D, self.scratch(kp, D, smem)) + (
                 *(torch.empty(D, dtype=torch.bool, device=lb.device)
@@ -453,18 +468,24 @@ class _Propagator(_Kernel):
         for i, o in enumerate(sel_out[1:]):
             _check(o, f"out[{i + 8}]", (D,))
         if dp.P == 0:
+            if stamps is not None:
+                stamps.zero_()
             res = _no_propagators(lb, ub, fp_out)
             return res + classify(kp, res[0], res[1], live, out[5:7]) + \
                 select(kp, res[0], res[1], strat, live, sel_out)
         lb_out, ub_out, iters, unconv, _ = fp_out
+        entry = "step" if stamps is None else "step_stamped"
         with torch.cuda.device(lb.device):
-            self._launch(lambda lib: getattr(lib, f"tt_{self.PREFIX}_step"),
+            self._launch(lambda lib: getattr(lib, f"tt_{self.PREFIX}_{entry}"),
                          ctypes.byref(kp.view), lb.data_ptr(), ub.data_ptr(),
                          lb_out.data_ptr(), ub_out.data_ptr(),
                          iters.data_ptr(), unconv.data_ptr(), scratch, D,
                          *args, kp.smem_limit if smem else 0,
                          _live_ptr(live), _stream(lb), strat.data_ptr(),
-                         *(t.data_ptr() for t in out[5:]), entry="step")
+                         *(t.data_ptr() for t in out[5:]),
+                         *(() if stamps is None else (stamps.data_ptr(),
+                                                      span.data_ptr())),
+                         entry=entry)
         return (lb_out, ub_out, iters, unconv) + tuple(out[5:])
 
     def level(self, kp, chunk, obj: int, *args, smem: bool = True):
@@ -504,15 +525,16 @@ class _Propagator(_Kernel):
 
     def blocks_per_sm(self, kp, entry: str = "step") -> int:
         """Resident blocks per SM of a shared-memory launch of ``entry``
-        (``"step"``, ``"level"``, or the fixpoint's other entries) at this
-        plan's shared memory
+        (``"step"``, ``"level"``, ``"step_stamped"``, or the fixpoint's
+        other entries) at this plan's shared memory
         (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
         blocks = ctypes.c_int(0)
         lib = load()
         fn = getattr(lib, f"tt_{self.PREFIX}_blocks_per_sm")
         with torch.cuda.device(kp.dp.device):
             rc = fn(ctypes.byref(kp.view),
-                    {"step": 1, "level": 2}.get(entry, 0), kp.smem_limit,
+                    {"step": 1, "level": 2, "step_stamped": 3}.get(entry, 0),
+                    kp.smem_limit,
                     ctypes.byref(blocks))
         if rc != 0:
             raise RuntimeError(f"{self.name} occupancy query failed: "
@@ -525,14 +547,16 @@ class _Fixpoint(_Propagator):
     source = "turbo_tpu_torch/kernels/csrc/fixpoint.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:912"
     PREFIX = "fixpoint"
-    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed", "step", "level")
+    ENTRIES = ("fixpoint", "fixed_sweeps", "transposed", "step", "level",
+               "step_stamped")
     # The step entry replaces the fixpoint (912), all_entailed / is_bot
     # (983) and _select / _children (engine.py:550) of one JAX step; the
     # level entry the table build's dive program, _embed included.
     ENTRY_REPLACES = {"fixed_sweeps": "turbo_tpu/solver/propagate_jax.py:967",
                       "transposed": "turbo_tpu/solver/propagate_jax.py:782",
                       "step": "turbo_tpu/solver/propagate_jax.py:912",
-                      "level": "turbo_tpu/solver/eps_table.py:122"}
+                      "level": "turbo_tpu/solver/eps_table.py:122",
+                      "step_stamped": "turbo_tpu/solver/propagate_jax.py:912"}
     smem_bytes = staticmethod(fixpoint_smem_bytes)
     scratch_shape = staticmethod(fixpoint_scratch_shape)
 
@@ -592,6 +616,18 @@ class _Fixpoint(_Propagator):
         ``select``."""
         return self._step(kp, lb, ub, strat, smem, live, out, (int(cap),))
 
+    def step_stamped(self, kp, lb, ub, cap: int, strat, stamps, span,
+                     smem: bool = True, live=None, out=None):
+        """``step``, each block's clock stamps into ``stamps`` ((D, 2)
+        int64, csrc/epilogue.cuh): the cycles of the load, the sweeps and
+        the row write, then the epilogue's; and the launch's span on the
+        global timer into ``span`` ((2,) int64, set to (INT64_MAX, 0)
+        before: the first block's start and the last block's end in ns,
+        csrc/common.cuh). Its other outputs are ``step``'s, bit for bit;
+        profiled chunks launch it (``solver/profile_split.py``)."""
+        return self._step(kp, lb, ub, strat, smem, live, out, (int(cap),),
+                          stamps, span)
+
     def level(self, kp, chunk, obj: int, cap: int, smem: bool = True):
         """One table level: each row's parent gathered and met with its
         child interval, the AC-1 fixpoint (``cap`` sweeps at most), then
@@ -604,12 +640,13 @@ class _Wac1(_Propagator):
     source = "turbo_tpu_torch/kernels/csrc/wac1.cu"
     replaces = "turbo_tpu/solver/propagate_jax.py:884"
     PREFIX = "wac1"
-    ENTRIES = ("wac1", "step", "level")
+    ENTRIES = ("wac1", "step", "level", "step_stamped")
     # The step entry replaces fixpoint_wac1 (884), all_entailed / is_bot
     # (983) and _select / _children (engine.py:550) of one JAX step; the
     # level entry the table build's dive program under fp_mode="wac1".
     ENTRY_REPLACES = {"step": "turbo_tpu/solver/propagate_jax.py:884",
-                      "level": "turbo_tpu/solver/eps_table.py:122"}
+                      "level": "turbo_tpu/solver/eps_table.py:122",
+                      "step_stamped": "turbo_tpu/solver/propagate_jax.py:884"}
     smem_bytes = staticmethod(wac1_smem_bytes)
     scratch_shape = staticmethod(wac1_scratch_shape)
 
@@ -648,6 +685,12 @@ class _Wac1(_Propagator):
         launch, ``out`` as there."""
         return self._step(kp, lb, ub, strat, smem, live, out,
                           (int(cap), int(inner_cap)))
+
+    def step_stamped(self, kp, lb, ub, cap: int, inner_cap: int, strat,
+                     stamps, span, smem: bool = True, live=None, out=None):
+        """``step`` with K1's ``step_stamped`` clock stamps and span."""
+        return self._step(kp, lb, ub, strat, smem, live, out,
+                          (int(cap), int(inner_cap)), stamps, span)
 
     def level(self, kp, chunk, obj: int, cap: int, inner_cap: int,
               smem: bool = True):
@@ -841,26 +884,39 @@ class _Step(_Kernel):
     # The shard scan in each shard's last post block is the per-shard
     # part of the JAX mesh's sharded step.
     SHARDED_REPLACES = "turbo_tpu/parallel/mesh.py:184"
-    ENTRIES = ("head", "post")
+    ENTRIES = ("head", "post", "head_timed", "post_timed")
 
-    def head(self, view, prev_live, live, device):
+    def head(self, view, prev_live, live, device, span=None):
         """The previous step's refill and ring rows under ``prev_live``
         (None: the chunk's first step, no copy), then promote, strat0 and
         the objective tighten under ``live``, in place; see
-        csrc/step.cu. ``view``: a StepView of the state."""
+        csrc/step.cu. ``view``: a StepView of the state. ``span`` ((2,)
+        int64): the timed entry, which also writes the launch's span on
+        the global timer there (``fixpoint.step_stamped``)."""
+        if span is not None:
+            _check(span, "span", (2,), torch.int64)
         with torch.cuda.device(device):
-            self._launch(lambda lib: lib.tt_step_head, ctypes.byref(view),
-                         _live_ptr(prev_live), _live_ptr(live),
-                         _stream_of(device), entry="head")
+            self._launch(
+                lambda lib: lib.tt_step_head if span is None
+                else lib.tt_step_head_timed, ctypes.byref(view),
+                _live_ptr(prev_live), _live_ptr(live), _stream_of(device),
+                *(() if span is None else (span.data_ptr(),)),
+                entry="head" if span is None else "head_timed")
 
-    def post(self, view, live, live_next, device, smem_limit):
+    def post(self, view, live, live_next, device, smem_limit, span=None):
         """The per-lane rest of the step after K1-K3, then the shard
         scan, the next step's live flag ``live_next`` and the incumbent
-        min, in place; see csrc/step.cu."""
+        min, in place; see csrc/step.cu. ``span``: as for ``head``."""
+        if span is not None:
+            _check(span, "span", (2,), torch.int64)
         with torch.cuda.device(device):
-            self._launch(lambda lib: lib.tt_step_post, ctypes.byref(view),
-                         _live_ptr(live), _live_ptr(live_next),
-                         int(smem_limit), _stream_of(device), entry="post")
+            self._launch(
+                lambda lib: lib.tt_step_post if span is None
+                else lib.tt_step_post_timed, ctypes.byref(view),
+                _live_ptr(live), _live_ptr(live_next), int(smem_limit),
+                _stream_of(device),
+                *(() if span is None else (span.data_ptr(),)),
+                entry="post" if span is None else "post_timed")
 
 
 class _StepTail(_Kernel):

@@ -58,10 +58,13 @@ def _bind(lib):
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t):
         fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P, P]
     lib.tt_fixpoint_step.argtypes = [P] * 8 + [I, I, I, P, P] + [P] * 11
+    lib.tt_fixpoint_step_stamped.argtypes = (lib.tt_fixpoint_step.argtypes
+                                             + [P, P])
     lib.tt_fixpoint_level.argtypes = [P, P, P, I, I, I, P]
     lib.tt_fixpoint_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_wac1.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P, P]
     lib.tt_wac1_step.argtypes = [P] * 8 + [I, I, I, I, P, P] + [P] * 11
+    lib.tt_wac1_step_stamped.argtypes = lib.tt_wac1_step.argtypes + [P, P]
     lib.tt_wac1_level.argtypes = [P, P, P, I, I, I, I, P]
     lib.tt_wac1_blocks_per_sm.argtypes = [P, I, I, P]
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
@@ -70,7 +73,9 @@ def _bind(lib):
     lib.tt_open_count.argtypes = [P, P, P, P, P, I, I, P]
     lib.tt_steal.argtypes = [P, I, P]
     lib.tt_step_head.argtypes = [P, P, P, P]
+    lib.tt_step_head_timed.argtypes = [P, P, P, P, P]
     lib.tt_step_post.argtypes = [P, P, P, I, P]
+    lib.tt_step_post_timed.argtypes = [P, P, P, I, P, P]
     lib.tt_step_copy.argtypes = [P, P, P]
     lib.tt_step_live.argtypes = [P, P, P]
     loads = [getattr(lib, f"tt_{s[:-3]}_load") for s in SOURCES]
@@ -78,11 +83,13 @@ def _bind(lib):
         fn.argtypes = [P, I]
     lib.tt_runtime_init.argtypes = []
     for fn in (lib.tt_fixpoint, lib.tt_fixed_sweeps, lib.tt_fixpoint_t,
-               lib.tt_fixpoint_step, lib.tt_fixpoint_level,
-               lib.tt_fixpoint_blocks_per_sm, lib.tt_wac1, lib.tt_wac1_step,
+               lib.tt_fixpoint_step, lib.tt_fixpoint_step_stamped,
+               lib.tt_fixpoint_level, lib.tt_fixpoint_blocks_per_sm,
+               lib.tt_wac1, lib.tt_wac1_step, lib.tt_wac1_step_stamped,
                lib.tt_wac1_level, lib.tt_wac1_blocks_per_sm,
                lib.tt_classify, lib.tt_select, lib.tt_table_refill,
-               lib.tt_open_count, lib.tt_step_head, lib.tt_step_post,
+               lib.tt_open_count, lib.tt_step_head, lib.tt_step_head_timed,
+               lib.tt_step_post, lib.tt_step_post_timed,
                lib.tt_step_copy, lib.tt_step_live, lib.tt_steal,
                lib.tt_runtime_init, *loads):
         fn.restype = I

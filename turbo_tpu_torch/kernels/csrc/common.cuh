@@ -29,6 +29,31 @@
 enum { OP_ADD = 0, OP_MUL = 1, OP_DIV = 2, OP_MIN = 3, OP_MAX = 4,
        OP_LE = 5, OP_EQ = 6 };
 
+// A launch's own span in a profiled chunk (solver/step_cuda.py), the
+// time between launches left out: the first block's start and the last
+// block's end on the global timer (ns), thread 0 of each block
+// taking the atomic min into span[0] and, after the block's last
+// barrier, the atomic max into span[1] (the host sets them to INT64_MAX
+// and 0). The timed entries wrap a kernel's body in the two: span_end's
+// barrier is the block's last, so a body may return early only where
+// no barrier follows for the threads that go on.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void span_begin(long long* span) {
+  if (threadIdx.x == 0)
+    atomicMin((unsigned long long*)span, global_ns());
+}
+
+__device__ __forceinline__ void span_end(long long* span) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    atomicMax((unsigned long long*)span + 1, global_ns());
+}
+
 // Device tables of one plan (see kernels/__init__.py: KernelPlan).
 // Candidate slots: [3P roles | E idx | E res | M x | M b | linear terms
 // | linear b], the layout of solver/plan.py.

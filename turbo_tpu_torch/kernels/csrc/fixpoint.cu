@@ -286,17 +286,20 @@ __device__ __forceinline__ int sweep_loop(const PlanView& p, S al, S au,
 // The kernel's body. ds / vs: the strides of the dive and of the
 // variable in the planes ((D, V): V and 1; (V, D): 1 and D). scratch:
 // (D, scratch_words(p)) int32, read only on the global path. STEP: the
-// step entry (only (D, V) planes), which ends with step_epilogue.
-template <bool STEP>
+// step entry (only (D, V) planes), which ends with step_epilogue. STAMP:
+// the stamped step entry, which also writes the block's clock stamps
+// (epilogue.cuh) into ``stamps``.
+template <bool STEP, bool STAMP = false>
 __device__ __forceinline__ void fixpoint_body(
     const PlanView& p, const int* lb_in, const int* ub_in, int* lb_out,
     int* ub_out, int* iters_out, unsigned char* unconv_out, int* scratch,
     int cap, int use_smem, const int* live, long long ds, long long vs,
-    int fixed, const StepOut& so) {
+    int fixed, const StepOut& so, long long* stamps = nullptr) {
   if (live != nullptr && *live == 0) return;
   extern __shared__ int smem[];
   const int V = p.V;
   const long long d = blockIdx.x;
+  if constexpr (STAMP) stamp_start(stamps, d);
   int* flag = smem;
   int* al = smem + 4;
   int* au = al + V;
@@ -328,11 +331,13 @@ __device__ __forceinline__ void fixpoint_body(
       lb_out[d * ds + v * vs] = al[v];
       ub_out[d * ds + v * vs] = au[v];
     }
+    if constexpr (STAMP) stamp_epilogue(stamps, d);
     if constexpr (STEP) step_epilogue(p, al, au, so, d);
   } else if (vs == 1) {
     // sweep_loop ends on a block barrier: the rows are visible.
     iters = sweep_loop(p, lb_out + d * ds, ub_out + d * ds, bl, bu, wl, mk,
                        flag, cap, fixed, &m);
+    if constexpr (STAMP) stamp_epilogue(stamps, d);
     if constexpr (STEP) step_epilogue(p, lb_out + d * ds, ub_out + d * ds,
                                       so, d);
   } else if constexpr (!STEP) {
@@ -344,6 +349,7 @@ __device__ __forceinline__ void fixpoint_body(
     iters_out[d] = fixed ? iters : iters + 1;
     unconv_out[d] = fixed ? 0 : m;
   }
+  if constexpr (STAMP) stamp_end(stamps, d);
 }
 
 __global__ void __launch_bounds__(TT_THREADS)
@@ -366,6 +372,24 @@ fixpoint_step_kernel(PlanView p, const int* lb_in, const int* ub_in,
   fixpoint_body<true>(p, lb_in, ub_in, lb_out, ub_out, iters_out,
                       unconv_out, scratch, cap, use_smem, live, p.V, 1, 0,
                       so);
+}
+
+// The stamped step entry: the step entry's work and outputs, each
+// block's clock stamps in ``stamps`` ((D, 2) int64: the cycles before the
+// epilogue, the epilogue's) and the launch's span on the global timer in
+// ``span`` (common.cuh). Only profiled chunks launch it.
+__global__ void __launch_bounds__(TT_THREADS, 4)
+fixpoint_step_stamped_kernel(PlanView p, const int* lb_in, const int* ub_in,
+                             int* lb_out, int* ub_out, int* iters_out,
+                             unsigned char* unconv_out, int* scratch,
+                             int cap, int use_smem, const int* live,
+                             StepOut so, long long* stamps,
+                             long long* span) {
+  span_begin(span);
+  fixpoint_body<true, true>(p, lb_in, ub_in, lb_out, ub_out, iters_out,
+                            unconv_out, scratch, cap, use_smem, live, p.V, 1,
+                            0, so, stamps);
+  span_end(span);
 }
 
 // The table level entry (level.cuh): row r's parent gathered into the
@@ -410,13 +434,15 @@ fixpoint_level_kernel(PlanView p, LevelView lv, int* scratch, int cap,
 }
 
 // K1's kernels by entry: the fixpoint (and its fixed-sweeps and
-// transposed entries), the step entry, the level entry.
-enum { FP_FIXPOINT = 0, FP_STEP = 1, FP_LEVEL = 2 };
+// transposed entries), the step entry, the level entry, the stamped step
+// entry.
+enum { FP_FIXPOINT = 0, FP_STEP = 1, FP_LEVEL = 2, FP_STEP_STAMPED = 3 };
 
 static const void* entry_kernel(int entry) {
-  return entry == FP_STEP    ? (const void*)fixpoint_step_kernel
-         : entry == FP_LEVEL ? (const void*)fixpoint_level_kernel
-                             : (const void*)fixpoint_kernel;
+  return entry == FP_STEP           ? (const void*)fixpoint_step_kernel
+         : entry == FP_LEVEL        ? (const void*)fixpoint_level_kernel
+         : entry == FP_STEP_STAMPED ? (const void*)fixpoint_step_stamped_kernel
+                                    : (const void*)fixpoint_kernel;
 }
 
 // Dynamic shared memory of a launch of ``entry`` (16 bytes of flags on
@@ -425,7 +451,7 @@ static const void* entry_kernel(int entry) {
 // error code.
 static int prepare(int entry, const PlanView* p, const int* scratch,
                    int smem_limit, size_t* smem, int* use_smem) {
-  static int attr_set[3] = {-1, -1, -1};
+  static int attr_set[4] = {-1, -1, -1, -1};
   *smem = smem_bytes(*p);
   *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit;
   if (!*use_smem) {
@@ -508,6 +534,27 @@ extern "C" int tt_fixpoint_step(const PlanView* p, const int* lb_in,
   return (int)cudaGetLastError();
 }
 
+// tt_fixpoint_step, each block's clock stamps into ``stamps`` ((D, 2)
+// int64) and the launch's span into ``span`` (2 int64).
+extern "C" int tt_fixpoint_step_stamped(
+    const PlanView* p, const int* lb_in, const int* ub_in, int* lb_out,
+    int* ub_out, int* iters, unsigned char* unconv, int* scratch, int D,
+    int cap, int smem_limit, const int* live, void* stream, const int* strat,
+    unsigned char* bot, unsigned char* ent, unsigned char* found, int* var,
+    int* chosen, int* valo, int* c0l, int* c0u, int* c1l, int* c1u,
+    long long* stamps, long long* span) {
+  size_t smem;
+  int use_smem;
+  int rc = prepare(FP_STEP_STAMPED, p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  const StepOut so{strat, bot, ent,
+                   SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}};
+  fixpoint_step_stamped_kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
+      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
+      use_smem, live, so, stamps, span);
+  return (int)cudaGetLastError();
+}
+
 // One level of the EPS table build, W rows, in one launch (level.cuh).
 extern "C" int tt_fixpoint_level(const PlanView* p, const LevelView* lv,
                                  int* scratch, int W, int cap,
@@ -523,8 +570,8 @@ extern "C" int tt_fixpoint_level(const PlanView* p, const LevelView* lv,
 }
 
 // Resident blocks per SM of a launch of ``entry`` (0 the fixpoint, 1 the
-// step entry, 2 the level entry) at the smem_limit the wrappers pass,
-// into *blocks.
+// step entry, 2 the level entry, 3 the stamped step entry) at the
+// smem_limit the wrappers pass, into *blocks.
 extern "C" int tt_fixpoint_blocks_per_sm(const PlanView* p, int entry,
                                          int smem_limit, int* blocks) {
   size_t smem;
@@ -540,7 +587,7 @@ extern "C" int tt_fixpoint_blocks_per_sm(const PlanView* p, int entry,
 // the kernel's module load (cudaFuncGetAttributes loads a lazily loaded
 // kernel) and its shared-memory attribute.
 extern "C" int tt_fixpoint_load(const PlanView* p, int smem_limit) {
-  for (int entry = FP_FIXPOINT; entry <= FP_LEVEL; ++entry) {
+  for (int entry = FP_FIXPOINT; entry <= FP_STEP_STAMPED; ++entry) {
     cudaFuncAttributes a;
     cudaError_t e = cudaFuncGetAttributes(&a, entry_kernel(entry));
     if (e != cudaSuccess) return (int)e;

@@ -37,6 +37,9 @@
 //   advance by the totals. The last shard to scan publishes live_next
 //   (some lane of any shard is not IDLE after this step), bmin, and the
 //   step count.
+// - tt_step_head_timed, tt_step_post_timed: the same, each launch also
+//   writing its span on the global timer (common.cuh span_begin /
+//   span_end); only profiled chunks launch them (solver/step_cuda.py).
 //
 // Every kernel of a step returns at once when *live is 0 (every lane was
 // IDLE when the step began; the post's block 0 then writes live_next =
@@ -75,9 +78,11 @@
 
 #define TT_WARPS (TT_THREADS / 32)
 
-__global__ void __launch_bounds__(TT_THREADS)
-step_head_kernel(StepView s, const int* __restrict__ prev_live,
-                 const int* __restrict__ live) {
+// The head's body (step_head_kernel, and step_head_timed_kernel of a
+// profiled chunk).
+__device__ __forceinline__ void step_head_body(
+    const StepView& s, const int* __restrict__ prev_live,
+    const int* __restrict__ live) {
   const int lane = threadIdx.x & 31;
   const long long d = (long long)blockIdx.x * TT_WARPS + (threadIdx.x >> 5);
   if (d >= (long long)s.S * s.D) return;
@@ -102,6 +107,22 @@ step_head_kernel(StepView s, const int* __restrict__ prev_live,
     const int lim = sub32(g < bb ? g : bb, 1);
     if (lim < uo) *u = lim;
   }
+}
+
+__global__ void __launch_bounds__(TT_THREADS)
+step_head_kernel(StepView s, const int* __restrict__ prev_live,
+                 const int* __restrict__ live) {
+  step_head_body(s, prev_live, live);
+}
+
+// The head of a profiled chunk: the head's work, and the launch's span
+// on the global timer in ``span`` (common.cuh span_begin / span_end).
+__global__ void __launch_bounds__(TT_THREADS)
+step_head_timed_kernel(StepView s, const int* __restrict__ prev_live,
+                       const int* __restrict__ live, long long* span) {
+  span_begin(span);
+  step_head_body(s, prev_live, live);
+  span_end(span);
 }
 
 // The lane scalars of K6 post, one per thread of warp 0.
@@ -290,9 +311,11 @@ __device__ __forceinline__ int shard_scan(const StepView& s, long long sh,
   return any;
 }
 
-__global__ void __launch_bounds__(TT_THREADS)
-step_post_kernel(StepView s, const int* __restrict__ live,
-                 int* __restrict__ live_next, int use_smem) {
+// The post's body (step_post_kernel, and step_post_timed_kernel of a
+// profiled chunk).
+__device__ __forceinline__ void step_post_body(
+    const StepView& s, const int* __restrict__ live,
+    int* __restrict__ live_next, int use_smem) {
   if (*live == 0) {
     if (blockIdx.x == 0 && threadIdx.x == 0) *live_next = 0;
     return;
@@ -508,6 +531,23 @@ step_post_kernel(StepView s, const int* __restrict__ live,
   }
 }
 
+__global__ void __launch_bounds__(TT_THREADS)
+step_post_kernel(StepView s, const int* __restrict__ live,
+                 int* __restrict__ live_next, int use_smem) {
+  step_post_body(s, live, live_next, use_smem);
+}
+
+// The post of a profiled chunk: the post's work, and the launch's span
+// on the global timer in ``span``.
+__global__ void __launch_bounds__(TT_THREADS)
+step_post_timed_kernel(StepView s, const int* __restrict__ live,
+                       int* __restrict__ live_next, int use_smem,
+                       long long* span) {
+  span_begin(span);
+  step_post_body(s, live, live_next, use_smem);
+  span_end(span);
+}
+
 extern "C" int tt_step_head(const StepView* s, const int* prev_live,
                             const int* live, void* stream) {
   const int blocks = (s->S * s->D + TT_WARPS - 1) / TT_WARPS;
@@ -516,20 +556,33 @@ extern "C" int tt_step_head(const StepView* s, const int* prev_live,
   return (int)cudaGetLastError();
 }
 
+// tt_step_head, and the launch's span into ``span`` (2 int64).
+extern "C" int tt_step_head_timed(const StepView* s, const int* prev_live,
+                                  const int* live, void* stream,
+                                  long long* span) {
+  const int blocks = (s->S * s->D + TT_WARPS - 1) / TT_WARPS;
+  step_head_timed_kernel<<<blocks, TT_THREADS, 0, (cudaStream_t)stream>>>(
+      *s, prev_live, live, span);
+  return (int)cudaGetLastError();
+}
+
 // The post's dynamic shared memory for stores of V variables (the lane's
 // two rows where they fit under smem_limit, else none), with the
-// kernel's attribute set to it. Returns a CUDA error code.
-static int post_smem(int V, int smem_limit, size_t* smem, int* use_smem) {
-  static int attr_set = -1;
+// attribute of ``kernel`` (0 the post, 1 the timed post) set to it.
+// Returns a CUDA error code.
+static int post_smem(int kernel, int V, int smem_limit, size_t* smem,
+                     int* use_smem) {
+  static int attr_set[2] = {-1, -1};
   *smem = 2 * sizeof(int) * (size_t)V;
   *use_smem = *smem <= (size_t)smem_limit;
   if (!*use_smem) *smem = 0;
-  if ((int)*smem != attr_set) {
+  if ((int)*smem != attr_set[kernel]) {
     cudaError_t e = cudaFuncSetAttribute(
-        step_post_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)*smem);
+        kernel ? (const void*)step_post_timed_kernel
+               : (const void*)step_post_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = (int)*smem;
+    attr_set[kernel] = (int)*smem;
   }
   return 0;
 }
@@ -538,10 +591,24 @@ extern "C" int tt_step_post(const StepView* s, const int* live,
                             int* live_next, int smem_limit, void* stream) {
   size_t smem;
   int use_smem;
-  const int rc = post_smem(s->V, smem_limit, &smem, &use_smem);
+  const int rc = post_smem(0, s->V, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
   step_post_kernel<<<s->S * s->D, TT_THREADS, smem, (cudaStream_t)stream>>>(
       *s, live, live_next, use_smem);
+  return (int)cudaGetLastError();
+}
+
+// tt_step_post, and the launch's span into ``span`` (2 int64).
+extern "C" int tt_step_post_timed(const StepView* s, const int* live,
+                                  int* live_next, int smem_limit,
+                                  void* stream, long long* span) {
+  size_t smem;
+  int use_smem;
+  const int rc = post_smem(1, s->V, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  step_post_timed_kernel<<<s->S * s->D, TT_THREADS, smem,
+                           (cudaStream_t)stream>>>(*s, live, live_next,
+                                                   use_smem, span);
   return (int)cudaGetLastError();
 }
 
@@ -549,12 +616,20 @@ extern "C" int tt_step_post(const StepView* s, const int* live,
 // loads (cudaFuncGetAttributes loads a lazily loaded kernel) and the
 // post's shared-memory attribute.
 extern "C" int tt_step_load(const PlanView* p, int smem_limit) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, (const void*)step_head_kernel);
-  if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&a, (const void*)step_post_kernel);
-  if (e != cudaSuccess) return (int)e;
+  const void* kernels[] = {
+      (const void*)step_head_kernel, (const void*)step_post_kernel,
+      (const void*)step_head_timed_kernel,
+      (const void*)step_post_timed_kernel};
+  for (const void* k : kernels) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, k);
+    if (e != cudaSuccess) return (int)e;
+  }
   size_t smem;
   int use_smem;
-  return post_smem(p->V, smem_limit, &smem, &use_smem);
+  for (int kernel = 0; kernel < 2; ++kernel) {
+    const int rc = post_smem(kernel, p->V, smem_limit, &smem, &use_smem);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }

@@ -452,21 +452,20 @@ struct WorkSet<false> {
   }
 };
 
-// The kernel: one block a dive. SMEM: the working set in shared memory,
-// else in the dive's row of ``scratch``. STEP: the step entry, which ends
-// with the epilogue. Each memory path is a kernel of its own, so that
-// each gets its own registers: the shared one at most 64 (four blocks
-// per SM at golomb(12)); the global one, for stores that shared memory
-// cannot hold, at most 80 (three blocks).
-template <bool STEP, bool SMEM>
-__global__ void __launch_bounds__(TT_THREADS, SMEM ? 4 : 3)
-wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
-            int* ub_out, int* iters_out, unsigned char* unconv_out,
-            int* scratch, int cap, int inner_cap, const int* live,
-            StepOut so) {
+// The kernel's body: one block a dive. SMEM: the working set in shared
+// memory, else in the dive's row of ``scratch``. STEP: the step entry,
+// which ends with the epilogue. STAMP: the stamped step entry, which also
+// writes the block's clock stamps (epilogue.cuh) into ``stamps``.
+template <bool STEP, bool SMEM, bool STAMP>
+__device__ __forceinline__ void wac1_body(
+    const PlanView& p, const int* lb_in, const int* ub_in, int* lb_out,
+    int* ub_out, int* iters_out, unsigned char* unconv_out, int* scratch,
+    int cap, int inner_cap, const int* live, const StepOut& so,
+    long long* stamps) {
   if (live != nullptr && *live == 0) return;
   const int V = p.V;
   const long long d = blockIdx.x;
+  if constexpr (STAMP) stamp_start(stamps, d);
   lb_in += d * V;
   ub_in += d * V;
   const auto w = WorkSet<SMEM>::of(p, scratch, d);
@@ -485,6 +484,7 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
   const auto epilogue = [&] {
     if constexpr (STEP) {
       __syncthreads();
+      if constexpr (STAMP) stamp_epilogue(stamps, d);
       step_epilogue(p, &w.al()[0], &w.au()[0], so, d);
     }
   };
@@ -495,6 +495,40 @@ wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
     iters_out[d] = sweeps + 1;
     unconv_out[d] = m;
   }
+  if constexpr (STAMP) stamp_end(stamps, d);
+}
+
+// The kernel (``wac1_body``). Each memory path is a kernel of its own, so
+// that each gets its own registers: the shared one at most 64 (four
+// blocks per SM at golomb(12)); the global one, for stores that shared
+// memory cannot hold, at most 80 (three blocks).
+template <bool STEP, bool SMEM>
+__global__ void __launch_bounds__(TT_THREADS, SMEM ? 4 : 3)
+wac1_kernel(PlanView p, const int* lb_in, const int* ub_in, int* lb_out,
+            int* ub_out, int* iters_out, unsigned char* unconv_out,
+            int* scratch, int cap, int inner_cap, const int* live,
+            StepOut so) {
+  wac1_body<STEP, SMEM, false>(p, lb_in, ub_in, lb_out, ub_out, iters_out,
+                               unconv_out, scratch, cap, inner_cap, live, so,
+                               nullptr);
+}
+
+// The stamped step entry on each memory path: the step entry's work and
+// outputs, each block's clock stamps in ``stamps`` ((D, 2) int64) and the
+// launch's span on the global timer in ``span`` (common.cuh). Only
+// profiled chunks launch it.
+template <bool SMEM>
+__global__ void __launch_bounds__(TT_THREADS, SMEM ? 4 : 3)
+wac1_step_stamped_kernel(PlanView p, const int* lb_in, const int* ub_in,
+                         int* lb_out, int* ub_out, int* iters_out,
+                         unsigned char* unconv_out, int* scratch, int cap,
+                         int inner_cap, const int* live, StepOut so,
+                         long long* stamps, long long* span) {
+  span_begin(span);
+  wac1_body<true, SMEM, true>(p, lb_in, ub_in, lb_out, ub_out, iters_out,
+                              unconv_out, scratch, cap, inner_cap, live, so,
+                              stamps);
+  span_end(span);
 }
 
 // The table level entry (level.cuh): row r's parent gathered into A and
@@ -523,11 +557,14 @@ wac1_level_kernel(PlanView p, LevelView lv, int* scratch, int cap,
   if (threadIdx.x == 0) lv.iters[r] = p.P > 0 ? sweeps + 1 : 0;
 }
 
-// K8's kernels by entry (the fixpoint, the step entry, the level entry)
-// and memory path.
-enum { K8_FIXPOINT = 0, K8_STEP = 1, K8_LEVEL = 2 };
+// K8's kernels by entry (the fixpoint, the step entry, the level entry,
+// the stamped step entry) and memory path.
+enum { K8_FIXPOINT = 0, K8_STEP = 1, K8_LEVEL = 2, K8_STEP_STAMPED = 3 };
 
 static const void* entry_kernel(int entry, bool smem) {
+  if (entry == K8_STEP_STAMPED)
+    return smem ? (const void*)wac1_step_stamped_kernel<true>
+                : (const void*)wac1_step_stamped_kernel<false>;
   if (entry == K8_LEVEL)
     return smem ? (const void*)wac1_level_kernel<true>
                 : (const void*)wac1_level_kernel<false>;
@@ -544,7 +581,8 @@ static const void* entry_kernel(int entry, bool smem) {
 // Returns a CUDA error code.
 static int prepare(int entry, const PlanView* p, const int* scratch,
                    int smem_limit, size_t* smem, int* use_smem) {
-  static int attr_set[3][2] = {{-1, -1}, {-1, -1}, {-1, -1}};
+  static int attr_set[4][2] = {
+      {-1, -1}, {-1, -1}, {-1, -1}, {-1, -1}};
   *smem = smem_bytes(*p);
   // uint16 worklist entries: a segment of at most 65536.
   *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit &&
@@ -610,6 +648,30 @@ extern "C" int tt_wac1_step(const PlanView* p, const int* lb_in,
               SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}});
 }
 
+// tt_wac1_step, each block's clock stamps into ``stamps`` ((D, 2)
+// int64) and the launch's span into ``span`` (2 int64).
+extern "C" int tt_wac1_step_stamped(
+    const PlanView* p, const int* lb_in, const int* ub_in, int* lb_out,
+    int* ub_out, int* iters, unsigned char* unconv, int* scratch, int D,
+    int cap, int inner_cap, int smem_limit, const int* live, void* stream,
+    const int* strat, unsigned char* bot, unsigned char* ent,
+    unsigned char* found, int* var, int* chosen, int* valo, int* c0l,
+    int* c0u, int* c1l, int* c1u, long long* stamps, long long* span) {
+  size_t smem;
+  int use_smem;
+  int rc = prepare(K8_STEP_STAMPED, p, scratch, smem_limit, &smem, &use_smem);
+  if (rc != 0) return rc;
+  auto* kernel = use_smem ? wac1_step_stamped_kernel<true>
+                          : wac1_step_stamped_kernel<false>;
+  kernel<<<D, TT_THREADS, smem, (cudaStream_t)stream>>>(
+      *p, lb_in, ub_in, lb_out, ub_out, iters, unconv, scratch, cap,
+      inner_cap, live,
+      StepOut{strat, bot, ent,
+              SelectOut{found, var, chosen, valo, c0l, c0u, c1l, c1u}},
+      stamps, span);
+  return (int)cudaGetLastError();
+}
+
 // One level of the EPS table build, W rows, in one launch (level.cuh).
 extern "C" int tt_wac1_level(const PlanView* p, const LevelView* lv,
                              int* scratch, int W, int cap, int inner_cap,
@@ -626,8 +688,8 @@ extern "C" int tt_wac1_level(const PlanView* p, const LevelView* lv,
 }
 
 // Resident blocks per SM of a launch of ``entry`` (0 the fixpoint, 1 the
-// step entry, 2 the level entry) at the smem_limit the wrappers pass,
-// into *blocks.
+// step entry, 2 the level entry, 3 the stamped step entry) at the
+// smem_limit the wrappers pass, into *blocks.
 extern "C" int tt_wac1_blocks_per_sm(const PlanView* p, int entry,
                                      int smem_limit, int* blocks) {
   size_t smem;
@@ -639,12 +701,12 @@ extern "C" int tt_wac1_blocks_per_sm(const PlanView* p, int entry,
       blocks, entry_kernel(entry, use_smem), TT_THREADS, smem);
 }
 
-// What a first launch of each of K8's six kernels would do, for this
+// What a first launch of each of K8's eight kernels would do, for this
 // plan: the module load of each (cudaFuncGetAttributes loads a lazily
 // loaded kernel), and the shared-memory attribute of each entry on the
 // memory path this plan takes.
 extern "C" int tt_wac1_load(const PlanView* p, int smem_limit) {
-  for (int entry = K8_FIXPOINT; entry <= K8_LEVEL; ++entry) {
+  for (int entry = K8_FIXPOINT; entry <= K8_STEP_STAMPED; ++entry) {
     for (int smem_path = 0; smem_path < 2; ++smem_path) {
       cudaFuncAttributes a;
       const cudaError_t e =

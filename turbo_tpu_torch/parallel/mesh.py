@@ -28,6 +28,8 @@ collective each step) are not ported yet (ROADMAP A12(b)).
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 
 import numpy as np
@@ -241,11 +243,15 @@ class ShardedSolver:
               node_limit: int = 0, verbose: bool = False, on_improve=None,
               on_solution=None, checkpoint_path: str = "",
               checkpoint_every_s: float = 60.0, fp_cap: int = 0):
-        """The mesh host loop (``turbo_tpu/parallel/mesh.py:221-416``
-        without the hard wall): chunks of ``chunk`` steps until every
-        lane is IDLE, the timeout, ``node_limit``, ``max_steps`` or (on
-        satisfaction problems) ``stop_after_n_solutions``, one host read
-        per chunk. After a chunk that leaves a shard dry while another
+        """The mesh host loop (``turbo_tpu/parallel/mesh.py:221-416``):
+        chunks of ``chunk`` steps until every lane is IDLE, the timeout,
+        the hard wall of ``BatchedSolver.solve`` (with the build of
+        ``self.solver`` on the first call), ``node_limit``,
+        ``max_steps`` or (on satisfaction problems)
+        ``stop_after_n_solutions``, one host read per chunk;
+        the first chunk is the warm-up, kept out of the timers' fit, and
+        no profiled split runs (as in JAX's mesh loop). After a chunk
+        that leaves a shard dry while another
         has more than one subproblem left, the state moves through the
         host for ``rebalance_ranges``. ``on_solution`` drains the
         per-shard solution rings every chunk, shard by shard, under one
@@ -256,6 +262,9 @@ class ShardedSolver:
         from ..solver.result import EngineResult
         s = self.solver
         t0 = time.monotonic()
+        hard_mult = float(os.environ.get("TURBO_TPU_HARD_WALL_MULT", "2"))
+        t_entry = t0 - s.wall_setup_s  # the build counts once
+        s.wall_setup_s = 0.0
         if self.plan.root_unsat:
             return EngineResult.unsat(self)
         D, S = s.cfg.num_dives, self.n_shards
@@ -314,7 +323,7 @@ class ShardedSolver:
             steps += chunk
             timers.transfer_g2c += time.monotonic() - tg
             timers.record_chunk(device_dur, int(fpit.sum()), phase, ndone,
-                                time.monotonic() - t0)
+                                time.monotonic() - t0, measured=not warmup)
             if not cal.done:
                 cap, _ = cal.observe(cap, int(nodes_v.sum()), device_dur,
                                      warmup, verbose=verbose)
@@ -374,6 +383,13 @@ class ShardedSolver:
                 stopped = True
                 break
             if time.monotonic() - t0 > timeout_s or steps >= max_steps:
+                stopped = True
+                break
+            if (timeout_s < 1e17 and hard_mult > 0
+                    and time.monotonic() - t_entry > hard_mult * timeout_s):
+                print("% hard wall-clock limit reached "
+                      f"({hard_mult:g}x timeout incl. compile); stopping",
+                      file=sys.stderr, flush=True)
                 stopped = True
                 break
             if node_limit and int(nodes_v.sum()) >= node_limit:

@@ -31,7 +31,11 @@ steals open branches for idle lanes or resplits the stragglers, in
 place: on a CUDA state a steal round is K5 (the count and the plan) and
 K9 (the steals) with one host read of the count, and a resplit one read
 of subp and kpow. The fixpoint cap is a host integer that ``solve``
-owns and passes to ``step``.
+owns and passes to ``step``. Once a run, ``solve`` measures the
+FIXPOINT/SEARCH split of the device time on two real chunks
+(``solver/profile_split.py``), and it stops at a hard wall of
+``TURBO_TPU_HARD_WALL_MULT`` times ``-t``, which also counts the kernel
+build.
 
 ``step`` consumes its input state: the decision stacks (D, MAXD) are
 updated in place (the JAX step donates its input the same way); on the
@@ -39,8 +43,11 @@ CPU every other field of the returned state is a new tensor.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import sys
+import threading
 import time
 
 import numpy as np
@@ -127,20 +134,53 @@ def table_refill_plain(tab_lb, tab_ub, idx, refill, lb, ub, root_lb,
         dst.copy_(torch.where(m, src, dst))
 
 
+# Seconds between two heartbeat lines while the kernels build.
+HEARTBEAT_S = 20.0
+
+
+@contextlib.contextmanager
+def heartbeat(interval: float = 0.0):
+    """While the block runs, a daemon thread prints a progress line on
+    stderr every ``interval`` seconds (0: ``HEARTBEAT_S``): a cold nvcc
+    build takes many seconds, and a silent gap looks like a hang (the
+    JAX loop's compile heartbeat, ``turbo_tpu/solver/engine.py:
+    1500-1516``). The thread stops when the block returns or raises."""
+    every = interval or HEARTBEAT_S
+    done = threading.Event()
+    t0 = time.monotonic()
+
+    def beat():
+        while not done.wait(every):
+            print(f"% building the CUDA kernels... "
+                  f"({time.monotonic() - t0:.0f}s; one-time cost, cached "
+                  f"for later runs)", file=sys.stderr, flush=True)
+
+    th = threading.Thread(target=beat, name="turbo-tpu-heartbeat",
+                          daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        done.set()
+        th.join()
+
+
 def warm_kernels(solver) -> float:
     """On the card: builds the kernels (at first use, ``build_time``),
     then does for ``solver``'s plan what their first launches would do
     (``kernels.warm_up``), so that both count in the solver's setup (the
-    CLI's ``initTime``) and not inside the ``-t`` window. Returns the
-    warm-up's seconds (0.0 on the CPU)."""
+    CLI's ``initTime``) and not inside the ``-t`` window or its hard
+    wall; a ``heartbeat`` runs meanwhile. Returns the warm-up's seconds
+    (0.0 on the CPU)."""
     if solver.device.type != "cuda":
         return 0.0
     from .. import kernels
-    t0 = time.monotonic()
-    kernels.load()
-    solver.build_time = time.monotonic() - t0
-    t0 = time.monotonic()
-    kernels.warm_up(solver.kernels)
+    with heartbeat():
+        t0 = time.monotonic()
+        kernels.load()
+        solver.build_time = time.monotonic() - t0
+        t0 = time.monotonic()
+        kernels.warm_up(solver.kernels)
     return time.monotonic() - t0
 
 
@@ -428,10 +468,14 @@ class BatchedSolver:
         self._table_deadline = None  # absolute monotonic build deadline
         self._table_aborted_s = 0.0  # wall time of an abandoned build
         self.last_auto_cap = None
+        self.last_split = None  # solve's split, see solve
         self.build_time = 0.0
         self._ws = None  # kernel-route scratch (solver/step_cuda.py)
         self._steal_plan = None  # K5's workspace and plan (kernels.StealPlan)
         self.warm_time = warm_kernels(self)
+        # Seconds of setup that the next solve's hard wall counts: the
+        # kernel build and warm-up, as JAX's wall counts its compile.
+        self.wall_setup_s = self.build_time + self.warm_time
 
     def _dive_level(self, *chunk):
         """One level of the EPS table build (``solver/eps_table.py``
@@ -649,27 +693,36 @@ class BatchedSolver:
         801-1117``), on any device and with no host read, in the parts
         that K6 and K7 replace around K1-K3. Returns (state, live):
         ``live`` (0-dim bool) is whether some lane was not IDLE; when
-        none was, the state is returned unchanged."""
-        live = (st.phase != IDLE).any()
-        phase, strat0, ub = self.step_pre_plain(st)
-        lb, ub, iters, unconv = self.propagate(
-            st.lb, ub, cap or self.cfg.fp_max_iters)
-        bot, ent = self.kernels.classify(lb, ub)
-        sel = self._select(lb, ub, strat0)
-        new, flags = self.step_post_plain(st, phase, strat0, lb, ub, iters,
-                                          unconv, bot, ent, sel)
-        new = self.lane_copy_plain(st, new, flags[0],
-                                   *self.shard_scan_plain(st, new, *flags))
-        # With every lane IDLE nothing may change (the JAX loop stops);
-        # the stacks were rewritten with their own values then.
-        new = {k: torch.where(live, v, getattr(st, k))
-               for k, v in new.items()}
-        return dataclasses.replace(st, **new), live
+        none was, the state is returned unchanged. The step runs in a
+        "step" profiler range (``solver/profile_split.py``)."""
+        with torch.profiler.record_function("step"):
+            live = (st.phase != IDLE).any()
+            phase, strat0, ub = self.step_pre_plain(st)
+            lb, ub, iters, unconv = self.propagate(
+                st.lb, ub, cap or self.cfg.fp_max_iters)
+            bot, ent = self.kernels.classify(lb, ub)
+            sel = self._select(lb, ub, strat0)
+            new, flags = self.step_post_plain(st, phase, strat0, lb, ub,
+                                              iters, unconv, bot, ent, sel)
+            new = self.lane_copy_plain(st, new, flags[0],
+                                       *self.shard_scan_plain(st, new,
+                                                              *flags))
+            # With every lane IDLE nothing may change (the JAX loop
+            # stops); the stacks were rewritten with their own values then.
+            new = {k: torch.where(live, v, getattr(st, k))
+                   for k, v in new.items()}
+            return dataclasses.replace(st, **new), live
 
     def propagate(self, lb, ub, cap: int):
         """(II) of the step: propagate to the fixpoint or ``cap`` by
         ``fp_mode`` and ``fp_layout`` (``turbo_tpu/solver/engine.py:
-        837-849``). Returns (lb, ub, iters, unconv)."""
+        837-849``), in a "fixpoint" profiler range (JAX's
+        ``named_scope``; the ``vd`` transposes inside it, as there).
+        Returns (lb, ub, iters, unconv)."""
+        with torch.profiler.record_function("fixpoint"):
+            return self._propagate(lb, ub, cap)
+
+    def _propagate(self, lb, ub, cap):
         cfg, k = self.cfg, self.kernels
         if cfg.fp_mode == "fixed":
             return k.fixed_sweeps(lb, ub, cfg.fp_fixed_iters)
@@ -1042,19 +1095,50 @@ class BatchedSolver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _profiled_steps(self, st: SearchState, n: int, cap: int):
+        """``run_steps`` for a chunk that ``profile_split`` measures: on
+        the card a graph of its own, whose launches time themselves (the
+        stamped step entries, K6's timed entries; CUDA events around the
+        others: ``step_cuda.run(..., stamps=..., spans=...)``). Returns
+        (state, steps run, what was measured: on the card (the launches
+        as ``profile_split.Event``s, (sweep, epilogue) cycles summed over
+        the stamps), None on the CPU)."""
+        if not st.lb.is_cuda:
+            return self.run_steps(st, n, cap) + (None,)
+        from . import step_cuda
+        stamps = torch.zeros((n, st.phase.shape[0], 2), dtype=torch.int64,
+                             device=st.lb.device)
+        spans = step_cuda.Spans(n, st.lb.device)
+        ran = step_cuda.run(self, st, n, cap, stamps=stamps, spans=spans)
+        return st, ran, (spans.events(), stamps.sum(dim=(0, 1)).tolist())
+
     def solve(self, timeout_s: float = 1e18, chunk: int = 16,
               stop_after_n_solutions: int = 1, max_steps: int = 1 << 60,
               node_limit: int = 0, verbose: bool = False, on_improve=None,
               on_solution=None, checkpoint_path: str = "",
               checkpoint_every_s: float = 60.0, fp_cap: int = 0):
         """Single-device host loop (``turbo_tpu/solver/engine.py:
-        1417-1818`` without profiler split, heartbeat and hard wall):
-        chunks of ``run_steps`` until every lane is IDLE, the
-        timeout, ``node_limit``, ``max_steps`` or (on satisfaction
-        problems) ``stop_after_n_solutions``, with one host read per
-        chunk. The table build runs inside the ``-t`` window with a
-        deadline at half of it; ``fp_cap`` > 0 pins the fixpoint cap,
-        else the calibrator sweeps it (``fp_cap_auto``). Once the range
+        1417-1818``): chunks of ``run_steps`` until every lane is IDLE,
+        the timeout, ``node_limit``, ``max_steps``, the hard wall or (on
+        satisfaction problems) ``stop_after_n_solutions``, with one host
+        read per chunk. The first chunk is the warm-up: it stays out of
+        the timers' fit, as in JAX. Once the chunks after it have summed
+        ``profile_split.MIN_DEVICE_S`` of device time, two more real
+        chunks are measured (``solver/profile_split.py``: on the card by
+        launches that time themselves and the stamped step entries' clock
+        stamps, on the CPU under ``torch.profiler``; off with
+        ``TURBO_TPU_PROFILE_SPLIT=0``), and their fixpoint fraction sets
+        ``fixpoint_time`` and ``search_time`` (``timer_split_measured``;
+        ``last_split`` holds (the fraction or None, the profile's wall
+        seconds, the least-squares fit's fraction of the same run)). The
+        hard wall stops the run once ``TURBO_TPU_HARD_WALL_MULT``
+        (default 2, 0 off) times ``timeout_s`` has passed since this call
+        began, counted on a solver's first call from before the kernel
+        build and warm-up of ``__init__`` (``wall_setup_s``), as JAX's
+        wall counts its compile; ``-t`` and ``solveTime`` start here, and
+        ``initTime`` holds the build. The table build runs inside the
+        ``-t`` window with a deadline at half of it; ``fp_cap`` > 0 pins
+        the fixpoint cap, else the calibrator sweeps it (``fp_cap_auto``). Once the range
         is drained, idle lanes steal open branches or the stragglers are
         resplit (not under ``enumerate_all``). With ``checkpoint_path``
         the run resumes from that file when it matches this solver
@@ -1069,8 +1153,13 @@ class BatchedSolver:
         warned about and counted in ``sol_ring_overflow``. Kernels were
         built in ``__init__``: the solve clock starts here."""
         from ..host.solver.timers import PhaseTimers
+        from . import profile_split
         from .result import EngineResult
         t0 = time.monotonic()
+        hard_mult = float(os.environ.get("TURBO_TPU_HARD_WALL_MULT", "2"))
+        t_entry = t0 - self.wall_setup_s  # the build counts once
+        self.wall_setup_s = 0.0
+        self.last_split = None
         if self.plan.root_unsat:
             return EngineResult.unsat(self)
         D = self.cfg.num_dives
@@ -1133,6 +1222,31 @@ class BatchedSolver:
         # after the loop has seen the undrained phase.
         recal_armed = False
         recal_done = False
+        prof_pending = profile_split.enabled()
+        prof_dev = 0.0  # device seconds of the chunks after the warm-up
+
+        def snapshot(ran=None):
+            """One host read: phase, sols, fpit, best_bound, next_sub,
+            sub_limit, nodes, sol_w (D each), and the steps ``ran``."""
+            if ran is None:
+                ran = st.phase.new_zeros(())
+            host = torch.cat([torch.stack(
+                [st.phase, st.sols, st.fpit, st.best_bound, st.next_sub,
+                 st.sub_limit, st.nodes, st.sol_w]).view(-1),
+                ran.view(1)]).cpu().numpy()
+            return host[:-1].reshape(8, D), int(host[-1])
+
+        def profiled_chunk():
+            # A real chunk, measured; accounted as JAX does.
+            nonlocal st, steps
+            tp = time.monotonic()
+            st, ran, measured = self._profiled_steps(st, cur_chunk, cap)
+            f, ran = snapshot(ran)
+            steps += ran
+            timers.record_chunk(time.monotonic() - tp, int(f[2].sum()),
+                                f[0], ran, time.monotonic() - t0)
+            return measured
+
         while True:
             td = time.monotonic()
             st, ndone = self.run_steps(st, cur_chunk, cap)
@@ -1142,17 +1256,33 @@ class BatchedSolver:
             first_call = False
             tg = time.monotonic()
             # One host read per chunk.
-            host = torch.cat([torch.stack(
-                [st.phase, st.sols, st.fpit, st.best_bound, st.next_sub,
-                 st.sub_limit, st.nodes, st.sol_w]).view(-1),
-                ndone.view(1)]).cpu().numpy()
-            ndone = int(host[-1])
             (phase, sols, fpit, bbs, nsub, slim, nodes_v,
-             sol_w) = host[:-1].reshape(8, D)
+             sol_w), ndone = snapshot(ndone)
             steps += ndone
             timers.transfer_g2c += time.monotonic() - tg
             timers.record_chunk(device_dur, int(fpit.sum()), phase, ndone,
-                                time.monotonic() - t0)
+                                time.monotonic() - t0, measured=not warmup)
+            # The measured FIXPOINT/SEARCH split, once a run, on two real
+            # chunks; the trace is small against the work before it.
+            skip_cal = False
+            if not warmup:
+                prof_dev += device_dur
+            if (prof_pending and not warmup
+                    and prof_dev >= profile_split.MIN_DEVICE_S
+                    and not (phase == IDLE).all()):
+                prof_pending = False
+                tp = time.monotonic()
+                frac = profile_split.measure_fixpoint_fraction(
+                    profiled_chunk, cuda=st.lb.is_cuda)
+                if frac is not None:
+                    timers.measured_fix_frac = frac
+                self.last_split = (frac, time.monotonic() - tp, None)
+                # The profiled chunks advanced st: refresh the whole
+                # snapshot, and keep their nodes out of the calibrator's
+                # next rate sample.
+                (phase, sols, fpit, bbs, nsub, slim, nodes_v,
+                 sol_w), _ = snapshot()
+                skip_cal = True
             if ring > 0 and on_solution is not None:
                 cur = int(sol_w[0])
                 if not self.opt and stop_after_n_solutions > 0:
@@ -1186,6 +1316,13 @@ class BatchedSolver:
             if time.monotonic() - t0 > timeout_s or steps >= max_steps:
                 stopped = True
                 break
+            if (timeout_s < 1e17 and hard_mult > 0
+                    and time.monotonic() - t_entry > hard_mult * timeout_s):
+                print("% hard wall-clock limit reached "
+                      f"({hard_mult:g}x timeout incl. compile); stopping",
+                      file=sys.stderr, flush=True)
+                stopped = True
+                break
             # Adapt the chunk to the remaining budget.
             if not warmup and ndone > 0 and timeout_s < 1e17:
                 step_cost = device_dur / ndone
@@ -1194,7 +1331,8 @@ class BatchedSolver:
                     chunk, remaining / max(step_cost, 1e-9))))
             if not cal.done:
                 cap, hint = cal.observe(cap, int(nodes_v.sum()), device_dur,
-                                        warmup, verbose=verbose)
+                                        warmup, skip=skip_cal,
+                                        verbose=verbose)
                 if hint is not None:
                     cur_chunk = min(cur_chunk, hint)
                 else:
@@ -1308,6 +1446,12 @@ class BatchedSolver:
             res.eps_redistributions += resplit_rounds + steal_rounds
         res.best_obj_time = best_obj_time
         res.sol_ring_overflow = overflow
+        if self.last_split is not None and timers.device_time > 0:
+            # The least-squares fit's fraction of the same run, beside
+            # the measured one.
+            fit = dataclasses.replace(timers, measured_fix_frac=None)
+            self.last_split = self.last_split[:2] + (
+                float(fit.fixpoint_search_split()[0] / timers.device_time),)
         timers.fill_result(res, res.solve_time)
         res.dive_time += dive_dur
         res.table_build_time = dive_dur

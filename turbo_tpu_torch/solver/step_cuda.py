@@ -45,9 +45,26 @@ place of three per step. The graph bakes in pointers only, so a replay
 is right whenever the StepView's bytes match. The capture launches
 nothing, so it counts no launch; each replay adds the captured launches
 to the wrappers' counts.
+
+A profiled chunk (``run(..., stamps=..., spans=...)``,
+``solver/profile_split.py``) launches the stamped step entries in place
+of K1's and K8's step entries (the same outputs, and each block's clock
+stamps) and K6's timed entries in place of head and post; each of these
+launches writes its own span on the global timer into a row of
+``Spans``: the first block's start, the last block's end, which leaves
+out the time between launches, and the launch's own start-up and drain
+that a profiler's kernel time holds. The launches with no timed form
+(under ``fixed`` and ``vd``: the propagation, the ``vd`` copies around
+it, K2 and K3) are timed by a CUDA event before and after. Each span is
+tagged by what the launch does (``profile_split.FIXPOINT``, ``OTHER`` or
+``STAMPED``); K7's two launches are not timed. The chunk is captured
+into a graph of its own and replayed once, so that its launches run
+back to back whatever the host's pace. It writes the same state tensors
+in place, so the cached graphs stay valid.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -164,17 +181,32 @@ def view(solver, st, ws):
 MAX_GRAPHS = 8
 
 
-def run(solver, st, n: int, cap: int = 0, graph: bool = True):
+def run(solver, st, n: int, cap: int = 0, graph: bool = True,
+        stamps=None, spans=None):
     """n steps of ``st`` in place at fixpoint cap ``cap`` (0:
     ``fp_max_iters``). Returns the number of steps that ran, as a 0-dim
     int32 tensor on the card (no host read). ``graph``: capture a chunk
-    that repeats the previous one and replay it."""
+    that repeats the previous one and replay it. ``stamps``: an (n, D, 2)
+    int64 tensor; the chunk is a profiled one (a graph of its own, the
+    stamped step entries, step i's stamps in ``stamps[i]``; its launches'
+    spans in ``spans``, a ``Spans`` of n steps)."""
     lanes = st.phase.shape[0]
     if solver._ws is None or solver._ws.lanes != lanes:
         solver._ws = Workspace(solver, lanes)
     ws = solver._ws
     sv = view(solver, st, ws)
     cap = cap or solver.cfg.fp_max_iters
+    if stamps is not None:
+        if spans is None:
+            raise ValueError("a profiled chunk needs its Spans")
+        if tuple(stamps.shape) != (n, lanes, 2):
+            raise ValueError(f"stamps: expected shape {(n, lanes, 2)}, got "
+                             f"{tuple(stamps.shape)}")
+        from .. import kernels
+        g, counts = _capture(solver, st, sv, n, cap, stamps, spans)
+        g.replay()
+        kernels.add_launches(counts)
+        return ws.steps[0].clone()
     key = (n, cap, bytes(sv))
     g = ws.graphs.get(key) if graph else None
     if g is None and graph and key == ws.last_key:
@@ -192,9 +224,10 @@ def run(solver, st, n: int, cap: int = 0, graph: bool = True):
     return ws.steps[0].clone()
 
 
-def _capture(solver, st, sv, n, cap):
-    """(graph, launch counts) of one chunk's launches, captured on a side
-    stream; the capture runs nothing and counts nothing."""
+def _capture(solver, st, sv, n, cap, stamps=None, spans=None):
+    """(graph, launch counts) of one chunk's launches (``stamps``,
+    ``spans``: a profiled chunk's), captured on a side stream; the
+    capture runs nothing and counts nothing."""
     from .. import kernels
     ws = solver._ws
     dev = st.lb.device
@@ -207,7 +240,7 @@ def _capture(solver, st, sv, n, cap):
     with torch.cuda.stream(ws.capture_stream):
         g.capture_begin(capture_error_mode="thread_local")
         try:
-            _enqueue(solver, st, sv, n, cap)
+            _enqueue(solver, st, sv, n, cap, stamps, spans)
         finally:
             g.capture_end()
             captured = kernels.launch_counts(since=before)
@@ -224,22 +257,33 @@ def fused(cfg) -> bool:
                                       and cfg.fp_layout == "dv")
 
 
-def propagate(solver, st, cap, live):
+def propagate(solver, st, cap, live, stamps=None, span=None):
     """The step's propagation launch, in place on ``st.lb`` / ``st.ub``,
     by ``fp_mode`` and ``fp_layout``; iters and unconv go to the
     workspace, and when ``fused(cfg)`` also bot, ent and the selection
-    (from ``strat0``)."""
+    (from ``strat0``). ``stamps`` ((D, 2) int64) and ``span`` ((2,)
+    int64): a profiled step's; the step entry is the stamped one."""
     from .. import kernels
     cfg, ws = solver.cfg, solver._ws
     kp = solver.kernels.kernel_plan
     out = (st.lb, st.ub, ws.iters, ws.unconv, ws.fp_scratch)
     step_out = out + (ws.bot, ws.ent) + ws.sel
     if cfg.fp_mode == "wac1":
-        kernels.wac1.step(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap,
-                          ws.strat0, live=live, out=step_out)
+        if stamps is None:
+            kernels.wac1.step(kp, st.lb, st.ub, cap, cfg.wac1_inner_cap,
+                              ws.strat0, live=live, out=step_out)
+        else:
+            kernels.wac1.step_stamped(kp, st.lb, st.ub, cap,
+                                      cfg.wac1_inner_cap, ws.strat0, stamps,
+                                      span, live=live, out=step_out)
     elif fused(cfg):
-        kernels.fixpoint.step(kp, st.lb, st.ub, cap, ws.strat0, live=live,
-                              out=step_out)
+        if stamps is None:
+            kernels.fixpoint.step(kp, st.lb, st.ub, cap, ws.strat0,
+                                  live=live, out=step_out)
+        else:
+            kernels.fixpoint.step_stamped(kp, st.lb, st.ub, cap, ws.strat0,
+                                          stamps, span, live=live,
+                                          out=step_out)
     elif cfg.fp_mode == "fixed":
         kernels.fixpoint.fixed_sweeps(kp, st.lb, st.ub, cfg.fp_fixed_iters,
                                       live=live, out=out)
@@ -253,26 +297,95 @@ def propagate(solver, st, cap, live):
         st.ub.copy_(ws.ubT.t())
 
 
-def _enqueue(solver, st, sv, n, cap):
+class Spans:
+    """A profiled chunk's measured spans, each with its kind
+    (``profile_split.FIXPOINT``, ``OTHER`` or ``STAMPED``): rows of
+    ``ns`` ((3n, 2) int64 on the card, set to (INT64_MAX, 0)), which a
+    timed launch writes itself (global-timer ns, csrc/common.cuh), or
+    pairs of CUDA events around a launch with no timed form, which also
+    hold its launch latency in the graph."""
+
+    def __init__(self, n: int, device):
+        self.ns = torch.tensor([[torch.iinfo(torch.int64).max, 0]],
+                               dtype=torch.int64, device=device).repeat(
+                                   3 * n, 1)
+        self.spans = []  # (kind, row of ns or (start event, end event))
+        self.rows = 0
+
+    def row(self, kind):
+        """The next row of ``ns``, for a timed launch of ``kind``."""
+        self.spans.append((kind, self.rows))
+        self.rows += 1
+        return self.ns[self.rows - 1]
+
+    @contextlib.contextmanager
+    def timed(self, kind):
+        """A CUDA event before and one after the launches inside
+        (external events, so that the chunk's graph records them when it
+        runs), a span of ``kind``."""
+        a = torch.cuda.Event(enable_timing=True, external=True)
+        b = torch.cuda.Event(enable_timing=True, external=True)
+        a.record()
+        yield
+        b.record()
+        self.spans.append((kind, (a, b)))
+
+    def events(self):
+        """The spans as ``profile_split.Event``s (ms; a row a launch left
+        unwritten, 0). Waits for the chunk, one host read."""
+        from .profile_split import Event
+        torch.cuda.current_stream(self.ns.device).synchronize()
+        ns = self.ns.tolist()
+        out = []
+        for kind, at in self.spans:
+            if isinstance(at, int):
+                t0, t1 = ns[at]
+                out.append(Event(kind, max(t1 - t0, 0) / 1e6))
+            else:
+                out.append(Event(kind, at[0].elapsed_time(at[1])))
+        return out
+
+
+def _enqueue(solver, st, sv, n, cap, stamps=None, spans=None):
     """Launch the live flag, n steps and the closing copy on the current
-    stream: 3n + 2 launches (5n + 2 unless ``fused(cfg)``)."""
+    stream: 3n + 2 launches (5n + 2 unless ``fused(cfg)``). ``stamps``,
+    ``spans``: a profiled chunk's (see ``run``)."""
     from .. import kernels
+    from .profile_split import FIXPOINT, OTHER, STAMPED
     ws = solver._ws
     dev = st.lb.device
     kp = solver.kernels.kernel_plan
     alone = not fused(solver.cfg)
+
+    def row(kind):
+        return None if spans is None else spans.row(kind)
+
+    def span(kind):  # K6's keyword: the timed entry in a profiled chunk
+        return {} if spans is None else {"span": spans.row(kind)}
+
+    def timed(kind):
+        return contextlib.nullcontext() if spans is None \
+            else spans.timed(kind)
+
     kernels.step_tail.live(sv, ws.live[0], dev)
     prev = None
     for i in range(n):
         cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
-        kernels.step.head(sv, prev, cur, dev)
-        propagate(solver, st, cap, cur)
+        kernels.step.head(sv, prev, cur, dev, **span(OTHER))
         if alone:
-            kernels.classify(kp, st.lb, st.ub, live=cur,
-                             out=(ws.bot, ws.ent))
-            kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur,
-                           out=ws.sel)
-        kernels.step.post(sv, cur, nxt, dev, kp.smem_limit)
+            with timed(FIXPOINT):
+                propagate(solver, st, cap, cur)
+            with timed(OTHER):
+                kernels.classify(kp, st.lb, st.ub, live=cur,
+                                 out=(ws.bot, ws.ent))
+            with timed(OTHER):
+                kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur,
+                               out=ws.sel)
+        else:
+            propagate(solver, st, cap, cur,
+                      None if stamps is None else stamps[i],
+                      row(STAMPED))
+        kernels.step.post(sv, cur, nxt, dev, kp.smem_limit, **span(OTHER))
         prev = cur
     if prev is not None:
         kernels.step_tail.copy(sv, prev, dev)
