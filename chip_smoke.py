@@ -2,8 +2,8 @@
 """Smoke test of turbo_tpu_torch on one CUDA card: ``python3 chip_smoke.py``.
 
 Run from the root of the repository (``--kernels-only`` stops after
-phase 3c; ``--hosts-only`` runs phases 1, 2 and 13). Phases (any failure
-exits non-zero):
+phase 3c; ``--hosts-only`` runs phases 1, 2 and 13; ``--cards-only``
+phases 1, 2, 3e and 12e). Phases (any failure exits non-zero):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the kernel build with nvcc (one per source, in parallel) from a cold
@@ -63,6 +63,17 @@ exits non-zero):
    queens(8) with enumerate_all and the rings; then each kernel's time
    inside 20 real golomb(12) steps at S=4, K6 + K7 per step against
    3b's S=1;
+3e. the card-group step (``parallel/mesh.py``: the shards as card groups,
+   a state, a solver and a stream each; K10 ``xcard`` reduces the
+   incumbent min and live flag the groups published before each step)
+   on a golomb(12) state at full width, S=4 x D=512, table on, cap 16,
+   split into 2 x 2 (eager launches) and 4 x 1 groups (a CUDA graph a
+   step) on one card: every field of the global state equal to the
+   lane-group kernel step's after 1, 7 and 40 steps and three chunks of
+   8; K10 alone against its plain version on random slot words of both
+   parities (N = 1-64), exact, and its time; again with a group a card
+   where the call has two or more cards (else one log line says it did
+   not run);
 3c. the step loop on golomb(12), D=512, table on, cap 16: chunks of 16
    steps under ``torch.cuda.set_sync_debug_mode("error")`` (any host
    sync inside a chunk fails the phase; so do more than 3.2 launches a
@@ -143,6 +154,17 @@ exits non-zero):
    rebalanced), cap pinned at 16: the kernel and plain engines on the
    card give the same status, objective, nodes, failures, solutions,
    iterations and redistributions;
+12e. card groups: (a) golomb(8) at 12d's configuration, the card-group
+   kernels (2 x 2 and 4 x 1 groups on one card) and the plain card-group
+   engine (2 x 2) give the statistics of 12d's lane-group kernel run
+   (status, objective, nodes, failures, solutions, iterations, the EPS
+   statistics and the rebalance rounds); (b) golomb(12) at full width as
+   4 x 1 groups on one card for 20 s, every improving solution
+   checker-valid, nodes/s beside 12a's lane groups, K10 launched once a
+   step a group (the path ``multi_cards``), then the host's enqueue us
+   per step and each group's stream busy share over chunks of 16; with
+   two or more cards (a) and (b) again with a group a card, and
+   ``-arch multi -i`` through the CLI on golomb(12) for 20 s;
 13. ``-hosts 2``, two processes sharing the card (one shard and one CUDA
    context each, joined over gloo; any child that fails or hangs fails
    the phase): (a) golomb(8) through the CLI proven optimal at 34, its
@@ -181,8 +203,10 @@ beside the kernel's; K6 and K7 over S shards, ``step.sharded``,
 reads K6 post's launches on the ``-arch multi`` golomb(12) path and its
 times from 3d; K5's and K9's times and bounds are phase 8's steal round;
 ``transports`` holds ``dcn_allgather``, a host transport and
-not a kernel, with its times from 13b), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+not a kernel, with its times from 13b; K10 ``xcard`` reads its launches
+on the path ``multi_cards`` and its times from 3e, and must not launch on
+the main path or the lane-group ``-arch multi`` path), the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 import contextlib
 import dataclasses
@@ -214,6 +238,11 @@ MULTI = f"-arch multi, golomb(12), S={SHARDS}"
 # whose hosts steal.
 HOSTS2 = "hosts2"
 HOSTS_PIN = (16, 7, (1, 2))
+# Card groups (-arch multi over cards): the path whose launch counts the
+# JSON line's xcard row reads (12e: golomb(12), 4 x 1 groups on one card),
+# and what 12e compares with from 12a and 12d (``MULTI_REFS``).
+MULTI_CARDS = "multi_cards"
+MULTI_REFS = {}
 
 
 def fail(msg):
@@ -890,9 +919,9 @@ def clone_state(st):
                                       for f in dataclasses.fields(st)})
 
 
-def same_state(label, a, b):
-    """Fails unless every SearchState field of a equals b's; returns the
-    max abs error (0)."""
+def same_state(label, a, b, what="the plain step"):
+    """Fails unless every SearchState field of a equals b's (``what``
+    names b in the message); returns the max abs error (0)."""
     import dataclasses
     import torch
     torch.cuda.synchronize()
@@ -904,7 +933,7 @@ def same_state(label, a, b):
         if not torch.equal(x, y):
             diff = (x.double() - y.double()).abs()
             rows = diff.reshape(diff.shape[0], -1).amax(dim=1).nonzero()[:, 0]
-            fail(f"{label}: {f.name} differs from the plain step (max abs "
+            fail(f"{label}: {f.name} differs from {what} (max abs "
                  f"err {float(diff.max())}) on {len(rows)} rows, first "
                  f"{rows[:8].tolist()}")
     return 0
@@ -2233,6 +2262,7 @@ def run_multi_paths(torch, dev, big=12):
             f"({moves} shard revived): {t3 - t0:.3f} s (to the host "
             f"{t1 - t0:.3f}, rebalance_ranges {t2 - t1:.3f}, back "
             f"{t3 - t2:.3f})")
+        MULTI_REFS["rate"] = rate(r)
         log(f"  S={SHARDS} x D={D}, k={s.k}, MAXD={s.cfg.max_depth}: "
             f"{len(found)} improving solution(s) and the best checked; "
             f"objective {r.objective} (optimum {GOLOMB_OPT[big]}); nodes "
@@ -2336,6 +2366,8 @@ def run_multi_paths(torch, dev, big=12):
             res[name] = (r.status, r.objective, r.nodes, r.fails,
                          r.solutions, r.fixpoint_iterations,
                          r.eps_redistributions)
+            if name == "kernels":
+                MULTI_REFS["golomb8"] = group_stats(ms, r)
             log(f"  {name}: status/obj/nodes/fails/sols/fp_iters/"
                 f"redistributions {res[name]}, "
                 f"{time.monotonic() - t0:.1f} s; rebalance rounds "
@@ -2351,6 +2383,300 @@ def run_multi_paths(torch, dev, big=12):
     paths[f"-arch multi, golomb(8), cap 16, kernels vs plain"] = counted(
         "-arch multi, golomb(8), cap 16", golomb8_pinned_multi,
         required=step_kernels)
+    return paths
+
+
+def card_split(S, cards):
+    """One card group a card: S shards over the devices ``cards``, in
+    order, as even as they go."""
+    base, extra = divmod(S, len(cards))
+    return [[c] * (base + (i < extra)) for i, c in enumerate(cards)]
+
+
+def distinct_cards(torch):
+    """Every card of the call, or None (and a log line saying so) when
+    there is one: the distinct-card runs of 3e and 12e need two."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)]
+    log(f"  distinct cards: not run: this call has {n} card "
+        "(torch.cuda.device_count()); card groups on distinct cards need "
+        "two or more, so peer access and the device switch stay unchecked "
+        "here, and the groups above shared one card")
+    return None
+
+
+def group_stats(ms, r):
+    """What 12e holds equal between engines: status, objective, nodes,
+    failures, solutions, fixpoint iterations, the EPS statistics and
+    the rebalance rounds."""
+    return (r.status, r.objective, r.nodes, r.fails, r.solutions,
+            r.fixpoint_iterations, r.eps_redistributions,
+            r.eps_solved_subproblems, r.eps_skipped_subproblems,
+            ms.rebalance_rounds)
+
+
+def cards_equal(label, lane, ms, cap, graph):
+    """Fails unless the card groups' kernel steps of ``ms`` equal the
+    lane-group kernel steps of ``lane`` (the same shards as one state),
+    every field of the global state after 1, 7 and 40 steps and three
+    chunks of 8, with the same step counts. ``graph``: each group's step
+    a CUDA graph (else eager launches)."""
+    import torch
+    from turbo_tpu_torch.solver import step_cuda
+    dev = lane.device
+    st_l, st_c = lane.init_state(), ms.init_state()
+
+    def glob():
+        return ms.global_state(st_c, device=dev)
+
+    same_state(f"{label}, init", glob(), st_l, "the lane groups")
+    done = 0
+    for n in (1, 7, 40, 48, 56, 64):
+        st_l, ran_l = lane.run_steps(st_l, n - done, cap)
+        ran_c = step_cuda.run_groups(ms.solvers, st_c, ms._xc, n - done,
+                                     cap, graph=graph)
+        if int(ran_c) != int(ran_l):
+            fail(f"{label}: the card groups counted {int(ran_c)} steps, "
+                 f"the lane groups {int(ran_l)}")
+        done = n
+        same_state(f"{label}, after {n} steps", glob(), st_l,
+                   "the lane groups")
+    if graph and not all(s._ws.step_graphs for s in ms.solvers):
+        fail(f"{label}: a group's step was not captured into a CUDA graph")
+    st = ms.global_state(st_c)
+    log(f"  {label}: every field equal to the lane-group kernel step after "
+        f"1, 7, 40 steps and 3 chunks of 8 ({'CUDA graph a step' if graph else 'eager launches'}; "
+        f"nodes {int(st.nodes.sum())}, solutions {int(st.sols.sum())}, "
+        f"idle lanes {int((st.phase == 2).sum())}/{st.phase.shape[0]})")
+
+
+def phase_card_groups_step(torch, dev, big=12, lanes=512):
+    """3e: the card-group step (K10, then K6 head, K1's step entry and K6
+    post on each group's stream, the streams waiting on each other's
+    events) on a golomb(12) state at full width, S=4 x D=512, table on,
+    cap 16, split into 2 x 2 and 4 x 1 groups on ``dev``, against the
+    lane-group kernel step of the same shards; then K10 alone against its
+    plain version on random slot words of both parities. Again with a
+    group a card where the call has two cards. Returns the JSON entry of
+    K10."""
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.instances import golomb
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver, xcard_plain
+    from turbo_tpu_torch.solver.config import EngineConfig
+    tnf = compile_model(parse_fzn_text(golomb(big)))
+    cfg = EngineConfig(fp_cap_auto=False, num_dives=lanes)
+    lane = ShardedSolver(tnf, cfg, devices=[dev] * SHARDS)
+    groupings = [("2 x 2 groups on one card", [[dev] * 2] * 2, False),
+                 ("4 x 1 groups on one card", [[dev]] * SHARDS, True)]
+    cards = distinct_cards(torch)
+    if cards is not None:
+        groupings.append((f"a group a card on {len(cards)} cards",
+                          card_split(SHARDS, cards), True))
+    for label, devs, graph in groupings:
+        ms = ShardedSolver(tnf, cfg, devices=devs)
+        cards_equal(f"golomb({big}), S={SHARDS} x D={lanes}, {label}", lane,
+                    ms, 16, graph)
+        del ms
+    # K10 alone against xcard_plain on random slot words.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    err = 0
+    for n in (1, 2, 4, 33, 64):
+        for trial in range(4):
+            slots = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, n, 2),
+                                  dtype=torch.int32, device=dev,
+                                  generator=gen)
+            # Live words: 0 mostly (all 0 in the first trial), else any.
+            slots[..., 1] *= (torch.rand((2, n), device=dev, generator=gen)
+                              < (0.0 if trial == 0 else 0.3)).to(torch.int32)
+            for par in (0, 1):
+                live = torch.full((1,), -7, dtype=torch.int32, device=dev)
+                bmin = torch.full((1,), -7, dtype=torch.int32, device=dev)
+                kernels.xcard(slots, par, live, bmin)
+                pl, pm = xcard_plain(slots, par)
+                torch.cuda.synchronize()
+                e = max(abs(int(live) - int(pl)), abs(int(bmin) - int(pm)))
+                err = max(err, e)
+                if e:
+                    fail(f"K10 (xcard), N={n}, parity {par}: live "
+                         f"{int(live)}, bmin {int(bmin)}; plain {int(pl)}, "
+                         f"{int(pm)}")
+    slots = torch.randint(0, 1 << 20, (2, SHARDS, 2), dtype=torch.int32,
+                          device=dev, generator=gen)
+    live = torch.zeros(1, dtype=torch.int32, device=dev)
+    bmin = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms_k = graph_ms(lambda: kernels.xcard(slots, 1, live, bmin))
+    ms_p = graph_ms(lambda: xcard_plain(slots, 1))
+    # Each slot of one parity read once (two words), two words written.
+    b = bound(4 * 2 * SHARDS + 4 * 2, 2 * SHARDS)
+    MULTI_REFS["k10_ms"] = ms_k
+    log(f"  K10 (xcard) equals xcard_plain on random slots of both "
+        f"parities, N = 1, 2, 4, 33, 64 (max abs err {err}); at N={SHARDS}: "
+        f"{ms_k:.5f} ms a launch (graph replay), plain {ms_p:.5f} ms, "
+        f"bound {b[0]:.2e} ms ({b[1]})")
+    return (err, ms_k, ms_p) + b
+
+
+def run_card_paths(torch, dev, big=12):
+    """Phase 12e: -arch multi as card groups (each group a state of its
+    own with its own solver; K10's exchange each step). (a) golomb(8) at
+    12d's configuration: the card-group kernels (2 x 2 and 4 x 1 groups
+    on ``dev``) and the plain card-group engine (2 x 2) equal the
+    lane-group kernel run of 12d; (b) golomb(big) at full width for 20 s
+    as 4 x 1 groups on ``dev``, every improving solution checked, nodes/s
+    beside 12a's lane groups, the host's enqueue us per step and each
+    stream's busy share; the same with a group a card where the call has
+    two cards, and -arch multi through the CLI. Returns the launch counts
+    by label."""
+    from turbo_tpu_torch.host.compile.model import compile_model
+    from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
+    from turbo_tpu_torch.host.solver.plan import auto_num_dives
+    from turbo_tpu_torch.host.utils.output import print_solution
+    from turbo_tpu_torch.instances import golomb
+    from turbo_tpu_torch.parallel.mesh import ShardedSolver
+    from turbo_tpu_torch.solver import step_cuda
+    from turbo_tpu_torch.solver.config import EngineConfig
+    paths = {}
+    cards = distinct_cards(torch)
+    t8 = compile_model(parse_fzn_text(golomb(8)))
+    cfg8 = EngineConfig(fp_cap_auto=False, num_dives=8, subproblems_power=8)
+    if "golomb8" not in MULTI_REFS:  # --cards-only: 12d's kernel run
+        ms = ShardedSolver(t8, cfg8, devices=[dev] * SHARDS)
+        MULTI_REFS["golomb8"] = group_stats(ms, ms.solve(fp_cap=16))
+    ref = MULTI_REFS["golomb8"]
+
+    def golomb8_cards(groupings):
+        def run():
+            for label, devs, plain in groupings:
+                ms = ShardedSolver(t8, cfg8, devices=devs)
+                if plain:
+                    for s in ms.solvers:
+                        plain_engine(s)
+                    ms.run_steps = ms.run_steps_plain
+                t0 = time.monotonic()
+                got = group_stats(ms, ms.solve(fp_cap=16))
+                log(f"  {label}: status/obj/nodes/fails/sols/fp_iters/"
+                    f"redistributions/solved/skipped/rebalance rounds "
+                    f"{got}, {time.monotonic() - t0:.1f} s")
+                if got != ref:
+                    fail(f"golomb(8) {label}: {got}, the lane-group kernel "
+                         f"run {ref}")
+        return run
+
+    log(f"[12e] card groups: golomb(8), S={SHARDS} x D=8 over 2^8 "
+        "subproblems, cap 16, the card-group kernels and the plain "
+        "card-group engine against 12d's lane-group kernel run "
+        f"{ref}; then golomb({big}) for 20 s as 4 x 1 groups on one card")
+    required = STEP_KERNELS + TABLE_KERNELS + ("xcard",)
+    paths["card groups, golomb(8), cap 16"] = counted(
+        "card groups, golomb(8), cap 16", golomb8_cards([
+            ("kernels, 2 x 2 groups on one card", [[dev] * 2] * 2, False),
+            ("kernels, 4 x 1 groups on one card", [[dev]] * SHARDS, False),
+            ("plain, 2 x 2 groups on one card", [[dev] * 2] * 2, True)]),
+        required=required)
+
+    text = golomb(big)
+    model = parse_fzn_text(text)
+    tnf = compile_model(model)
+    D = auto_num_dives(tnf)
+    held = {}
+
+    def cards_big(devs, label):
+        def run():
+            ms = ShardedSolver(tnf, EngineConfig(num_dives=D), devices=devs)
+            found = []
+            r = ms.solve(timeout_s=20, on_improve=found.append)
+            if r.best_lb is None:
+                fail(f"{label}: no solution")
+            for lb in found + [r.best_lb]:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    print_solution(tnf, lb)
+                check_solution(model, buf.getvalue())
+            rate = r.nodes / max(r.solve_time, 1e-9)
+            lanes = MULTI_REFS.get("rate")
+            k10 = MULTI_REFS.get("k10_ms")
+            log(f"  {label}, S={SHARDS} x D={D}: {len(found)} improving "
+                f"solution(s) and the best checked; objective "
+                f"{r.objective}, nodes {r.nodes}, nodes/s {rate:.0f} (12a's "
+                f"lane groups: "
+                f"{'not run' if lanes is None else f'{lanes:.0f}'}; K10 "
+                f"{'not timed' if k10 is None else f'{k10:.5f}'} ms a "
+                "launch, 3e), "
+                f"solveTime {r.solve_time:.3f} s, auto cap "
+                f"{ms.solver.last_auto_cap}, rebalance rounds "
+                f"{ms.rebalance_rounds}, eps_redistributions "
+                f"{r.eps_redistributions}")
+            held["ms"] = ms
+        return run
+
+    def measure(label):
+        """The host's enqueue time per step and each group's stream busy
+        share, over chunks of 16 steps of a fresh state at cap 16."""
+        ms = held.pop("ms")
+        st = ms.init_state()
+        ms.run_steps(st, 16, 16)  # the step graphs, captured
+        ms.sync()
+        enq, shares = [], [[] for _ in ms.groups]
+        for _ in range(5):
+            busy = [[] for _ in ms.groups]
+            t0 = time.perf_counter()
+            step_cuda.run_groups(ms.solvers, st, ms._xc, 16, 16, busy=busy)
+            t1 = time.perf_counter()
+            ms.sync()
+            wall = time.perf_counter() - t0
+            enq.append((t1 - t0) / 16 * 1e6)
+            for g, pairs in enumerate(busy):
+                shares[g].append(sum(a.elapsed_time(b) for a, b in pairs)
+                                 / 1e3 / wall)
+        log(f"  {label}: host enqueue {min(enq):.1f}-{max(enq):.1f} us a "
+            f"step (chunks of 16, 5 chunks); each group's stream busy "
+            "(its steps' event spans over the chunk's wall): " + ", ".join(
+                f"group {g} {min(x):.3f}-{max(x):.3f}"
+                for g, x in enumerate(shares)))
+
+    label = f"golomb({big}), 4 x 1 groups on one card"
+    paths[MULTI_CARDS] = counted(MULTI_CARDS, cards_big(
+        [[dev]] * SHARDS, label), required=required)
+    c = paths[MULTI_CARDS]
+    if c["xcard"] != c["step.head"]:
+        fail(f"{MULTI_CARDS}: K10 launched {c['xcard']} times for "
+             f"{c['step.head']} group steps (one a step a group)")
+    measure(label)
+    if cards is None:
+        return paths
+    split = card_split(SHARDS, cards)
+    paths["card groups on distinct cards, golomb(8), cap 16"] = counted(
+        "card groups on distinct cards, golomb(8), cap 16", golomb8_cards([
+            (f"kernels, a group a card on {len(cards)} cards", split,
+             False)]), required=required)
+    label = f"golomb({big}), a group a card on {len(cards)} cards"
+    paths[f"{MULTI_CARDS}, distinct cards"] = counted(
+        f"{MULTI_CARDS}, distinct cards", cards_big(split, label),
+        required=required)
+    measure(label)
+
+    def cli_multi():
+        out, err, stats = run_cli([write_model(f"golomb{big}", text), "-s",
+                                   "-arch", "multi", "-t", "20000", "-i",
+                                   "-v"])
+        blocks = out.split("----------\n")[:-1]
+        if not blocks:
+            fail(f"-arch multi CLI on {len(cards)} cards: no solution")
+        for blk in blocks:
+            check_solution(model, "\n".join(
+                ln for ln in blk.splitlines() if not ln.startswith("%")))
+        log(f"  CLI -arch multi on {len(cards)} cards: "
+            f"{re.findall(r'^% D=.*$', err, re.M)}; objective "
+            f"{stats.get('objective')}, nodes {stats.get('nodes')}, "
+            f"solveTime {stats.get('solveTime')}; {len(blocks)} "
+            "checker-valid solutions")
+
+    paths["-arch multi CLI, distinct cards"] = counted(
+        "-arch multi CLI, distinct cards", cli_multi, required=required)
     return paths
 
 
@@ -2808,6 +3134,13 @@ def main():
         run_hosts_paths(torch, dev)
         log("--hosts-only: stopping after phase 13")
         sys.exit(0)
+    if "--cards-only" in sys.argv[1:]:
+        log("[3e] the card-group step vs the lane-group kernel step, and "
+            "K10 vs its plain version (exact)")
+        phase_card_groups_step(torch, dev)
+        run_card_paths(torch, dev)
+        log("--cards-only: stopping after phases 3e and 12e")
+        sys.exit(0)
     log("[3] kernels vs plain torch (exact)")
     kres = phase_kernels(torch, dev)
     log("[3b] K6 + K7 vs the plain step on the same CUDA state (exact)")
@@ -2815,6 +3148,9 @@ def main():
     log(f"[3d] the step over S={SHARDS} EPS shards (a scan per shard) vs the "
         "plain sharded step on the same CUDA state (exact)")
     kres["step.sharded"] = phase_sharded_step_kernels(torch, dev, kres)
+    log("[3e] the card-group step vs the lane-group kernel step, and K10 "
+        "vs its plain version (exact)")
+    kres["xcard"] = phase_card_groups_step(torch, dev)
     log("[3c] step loop, golomb(12), D=512, cap 16: K1 (dv), K8, fixed "
         "sweeps, the vd entry against dv and K1 without the skip against "
         "K1, in turns")
@@ -2844,6 +3180,10 @@ def main():
 
     paths = run_path(torch, dev)
     paths.update(run_multi_paths(torch, dev))
+    paths.update(run_card_paths(torch, dev))
+    for p in (MAIN, MULTI):  # one state on one card: no exchange
+        if paths[p]["xcard"]:
+            fail(f"{p}: K10 launched {paths[p]['xcard']} times")
     hosts_paths, allgather = run_hosts_paths(torch, dev)
     paths.update(hosts_paths)
     kres.update(STEAL_ROWS)
@@ -2860,7 +3200,7 @@ def main():
     # (fp_mode fixed, the vd layout) and in the hybrid rounds.
     k1 = kernels.fixpoint
     own_path = {kernels.wac1: WAC1, kernels.classify: FIXED,
-                kernels.select: FIXED}
+                kernels.select: FIXED, kernels.xcard: MULTI_CARDS}
     listed = [(k.name, k, k.replaces, own_path.get(k, MAIN), k.name)
               for k in kernels.KERNELS]
     listed += [(f"{k.name}.{e}", k, k.ENTRY_REPLACES[e], path,

@@ -265,11 +265,14 @@ def test_table_deadline_fallback_leaves_every_shard_in_dive_mode():
     assert r.exhaustive and r.table_build_time > 0
 
 
-def test_distinct_devices_raise():
+def test_non_consecutive_devices_raise():
+    """A card group's shards are a run of global shards: a flat device
+    list whose shards of one device are not consecutive is refused
+    before any solver is built."""
     tnf = compile_model(parse_fzn_text(golomb(4)))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="not consecutive"):
         ShardedSolver(tnf, EngineConfig(num_dives=4),
-                      devices=["cpu", "meta"])
+                      devices=["cpu", "meta", "cpu"])
 
 
 def test_one_shard_equals_the_batched_solver():

@@ -144,10 +144,15 @@ def run(cfg: Configuration) -> int:
         solver = engine = BatchedSolver(tnf, econf, device=device)
     setup = time.monotonic() - tb
     if cfg.verbose:
+        # -arch multi: each card with its shards (a card group each).
+        cards = "".join(f" {g.device}x{g.n_shards}"
+                        for g in getattr(solver, "groups", ()))
+        warm = sum(s.warm_time for s in getattr(solver, "solvers", [engine]))
         print(f"% D={num_dives} k={engine.k} MAXD={engine.cfg.max_depth} "
-              f"device={device} shards={getattr(solver, 'n_shards', 1)} "
+              f"device={device} shards={getattr(solver, 'n_shards', 1)}"
+              f"{' cards:' + cards if cards else ''} "
               f"setup={setup:.2f}s (kernel build {engine.build_time:.2f}s, "
-              f"warm-up {engine.warm_time:.3f}s)", file=sys.stderr)
+              f"warm-up {warm:.3f}s)", file=sys.stderr)
     printed_last = [None]
 
     def on_solution(lb_tnf):

@@ -1,6 +1,6 @@
 """The solver's CUDA kernels for Hopper and their wrappers.
 
-Nine kernels on PyTorch's current stream (``csrc/*.cu``), most of them
+Ten kernels on PyTorch's current stream (``csrc/*.cu``), most of them
 one thread block per dive (or table row):
 
 - ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap, on
@@ -38,7 +38,11 @@ one thread block per dive (or table row):
   ``fp_mode="wac1"``); ``wac1.step_stamped``: the same, with the clock
   stamps and the span of ``fixpoint.step_stamped``; ``wac1.level``: K1's
   level entry with K8's fixpoint;
-- ``steal`` (K9): a steal round applied in place on K5's plan.
+- ``steal`` (K9): a steal round applied in place on K5's plan;
+- ``xcard`` (K10): the incumbent min and the live flag across card
+  groups (``parallel/mesh.py``), reduced from the groups' slots at the
+  head of each step; ``enable_peer`` turns on peer access between two
+  cards for the slots' peer stores.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty`` unless the caller passes them
@@ -255,7 +259,9 @@ class StepView(ctypes.Structure):
             "tab_path", "lb0", "ub0", "sol_ring", "sol_w", "iters",
             "unconv", "bot", "ent", "found", "var", "nstrat", "c0l", "c0u",
             "c1l", "c1u", "strat0", "want", "impr", "dleaf", "nxt",
-            "newidx", "havework", "ridx", "steps", "tail_sync", "bmin")])
+            "newidx", "havework", "ridx", "steps", "tail_sync", "bmin",
+            "xslots")]
+        + [(n, ctypes.c_int) for n in ("xn", "xcard")])
 
 
 class LevelView(ctypes.Structure):
@@ -903,10 +909,13 @@ class _Step(_Kernel):
                 *(() if span is None else (span.data_ptr(),)),
                 entry="head" if span is None else "head_timed")
 
-    def post(self, view, live, live_next, device, smem_limit, span=None):
+    def post(self, view, live, live_next, device, smem_limit, span=None,
+             xpar=0):
         """The per-lane rest of the step after K1-K3, then the shard
         scan, the next step's live flag ``live_next`` and the incumbent
-        min, in place; see csrc/step.cu. ``span``: as for ``head``."""
+        min, in place; see csrc/step.cu. ``span``: as for ``head``.
+        ``xpar``: over card groups (``view.xslots`` set), the parity of
+        the next step, whose slots the post publishes into."""
         if span is not None:
             _check(span, "span", (2,), torch.int64)
         with torch.cuda.device(device):
@@ -914,7 +923,7 @@ class _Step(_Kernel):
                 lambda lib: lib.tt_step_post if span is None
                 else lib.tt_step_post_timed, ctypes.byref(view),
                 _live_ptr(live), _live_ptr(live_next), int(smem_limit),
-                _stream_of(device),
+                int(xpar), _stream_of(device),
                 *(() if span is None else (span.data_ptr(),)),
                 entry="post" if span is None else "post_timed")
 
@@ -941,6 +950,46 @@ class _StepTail(_Kernel):
                          _live_ptr(live), _stream_of(device), entry="copy")
 
 
+class _XCard(_Kernel):
+    name = "xcard"
+    source = "turbo_tpu_torch/kernels/csrc/xcard.cu"
+    replaces = "turbo_tpu/parallel/mesh.py:184"
+
+    def __call__(self, slots, parity: int, live, bmin):
+        """live[0] = some slot of parity ``parity`` is live, bmin[0] = the
+        min of their incumbent words, from a card group's slot array
+        ``slots`` ((2, N, 2) int32: [parity][group] = (min, live)); see
+        csrc/xcard.cu. The plain version is ``parallel/mesh.py``
+        ``xcard_plain``."""
+        if slots.dim() != 3:
+            raise ValueError(f"slots: expected (2, N, 2), got "
+                             f"{tuple(slots.shape)}")
+        n = slots.shape[1]
+        _check(slots, "slots", (2, n, 2))
+        _check(bmin, "bmin", (1,))
+        if parity not in (0, 1):
+            raise ValueError(f"parity {parity}: expected 0 or 1")
+        with torch.cuda.device(slots.device):
+            self._launch(lambda lib: lib.tt_xcard, slots.data_ptr(), n,
+                         int(parity), _live_ptr(live), bmin.data_ptr(),
+                         _stream(slots))
+
+
+def enable_peer(device, peer):
+    """Peer access from card ``device`` to card ``peer`` (one direction;
+    already enabled counts as success). Raises, naming the pair, when the
+    pair has no peer access: the card groups' slots are never routed
+    through the host in its place."""
+    a, b = torch.device(device).index, torch.device(peer).index
+    lib = load()
+    rc = lib.tt_enable_peer(a, b)
+    if rc != 0:
+        raise RuntimeError(f"peer access from cuda:{a} to cuda:{b} failed: "
+                           f"{lib.tt_error_string(rc).decode()} ({rc}); "
+                           "card groups need peer access between every "
+                           "pair of their cards")
+
+
 fixpoint = _Fixpoint()
 classify = _Classify()
 select = _Select()
@@ -950,8 +999,9 @@ step = _Step()
 step_tail = _StepTail()
 wac1 = _Wac1()
 steal = _Steal()
+xcard = _XCard()
 KERNELS = (fixpoint, classify, select, table_refill, open_count, step,
-           step_tail, wac1, steal)
+           step_tail, wac1, steal, xcard)
 
 
 def warm_up(owner) -> dict:

@@ -22,7 +22,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "table_refill.cu",
-           "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu", "steal.cu")
+           "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu", "steal.cu",
+           "xcard.cu")
 # No FMA contraction: K6's float32 deds must round the multiply and the
 # add separately, as the plain torch version does.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,10 +75,12 @@ def _bind(lib):
     lib.tt_steal.argtypes = [P, I, P]
     lib.tt_step_head.argtypes = [P, P, P, P]
     lib.tt_step_head_timed.argtypes = [P, P, P, P, P]
-    lib.tt_step_post.argtypes = [P, P, P, I, P]
-    lib.tt_step_post_timed.argtypes = [P, P, P, I, P, P]
+    lib.tt_step_post.argtypes = [P, P, P, I, I, P]
+    lib.tt_step_post_timed.argtypes = [P, P, P, I, I, P, P]
     lib.tt_step_copy.argtypes = [P, P, P]
     lib.tt_step_live.argtypes = [P, P, P]
+    lib.tt_xcard.argtypes = [P, I, I, P, P, P]
+    lib.tt_enable_peer.argtypes = [I, I]
     loads = [getattr(lib, f"tt_{s[:-3]}_load") for s in SOURCES]
     for fn in loads:
         fn.argtypes = [P, I]
@@ -91,6 +94,7 @@ def _bind(lib):
                lib.tt_open_count, lib.tt_step_head, lib.tt_step_head_timed,
                lib.tt_step_post, lib.tt_step_post_timed,
                lib.tt_step_copy, lib.tt_step_live, lib.tt_steal,
+               lib.tt_xcard, lib.tt_enable_peer,
                lib.tt_runtime_init, *loads):
         fn.restype = I
     lib.tt_error_string.argtypes = [I]

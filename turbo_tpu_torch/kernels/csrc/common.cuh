@@ -29,6 +29,25 @@
 enum { OP_ADD = 0, OP_MUL = 1, OP_DIV = 2, OP_MIN = 3, OP_MAX = 4,
        OP_LE = 5, OP_EQ = 6 };
 
+// cudaFuncSetAttribute holds per device, so a launch wrapper's record of
+// the dynamic shared memory it raised a kernel's attribute to is kept per
+// device: ``attr_slot(table)`` is the current device's row of a static
+// table [TT_MAX_DEVICES][n], each entry the bytes set plus one (0: not
+// set yet), or nullptr when the device cannot be read or lies beyond the
+// table (cudaErrorInvalidDevice goes to *err).
+#define TT_MAX_DEVICES 64
+template <int N>
+static int* attr_slot(int (*table)[N], cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return nullptr;
+  if (dev < 0 || dev >= TT_MAX_DEVICES) {
+    *err = cudaErrorInvalidDevice;
+    return nullptr;
+  }
+  return table[dev];
+}
+
 // A launch's own span in a profiled chunk (solver/step_cuda.py), the
 // time between launches left out: the first block's start and the last
 // block's end on the global timer (ns), thread 0 of each block

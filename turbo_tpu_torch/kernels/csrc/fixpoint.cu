@@ -447,23 +447,26 @@ static const void* entry_kernel(int entry) {
 
 // Dynamic shared memory of a launch of ``entry`` (16 bytes of flags on
 // the global path, which needs the scratch), with the kernel's attribute
-// raised to it; each kernel keeps its own attribute. Returns a CUDA
-// error code.
+// raised to it on the current device; each kernel keeps its own
+// attribute on each device. Returns a CUDA error code.
 static int prepare(int entry, const PlanView* p, const int* scratch,
                    int smem_limit, size_t* smem, int* use_smem) {
-  static int attr_set[4] = {-1, -1, -1, -1};
+  static int attr_set[TT_MAX_DEVICES][4];
   *smem = smem_bytes(*p);
   *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit;
   if (!*use_smem) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     *smem = 16;
   }
-  if ((int)*smem > attr_set[entry]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        entry_kernel(entry), cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)*smem);
+  cudaError_t e;
+  int* set = attr_slot(attr_set, &e);
+  if (set == nullptr) return (int)e;
+  if ((int)*smem + 1 > set[entry]) {
+    e = cudaFuncSetAttribute(entry_kernel(entry),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set[entry] = (int)*smem;
+    set[entry] = (int)*smem + 1;
   }
   return 0;
 }

@@ -36,7 +36,12 @@
 //   than R in one step only the last R land); next_sub and sol_w
 //   advance by the totals. The last shard to scan publishes live_next
 //   (some lane of any shard is not IDLE after this step), bmin, and the
-//   step count.
+//   step count. Over card groups (parallel/mesh.py: the shards on
+//   distinct cards, or as separate states on one) it also publishes the
+//   group's (bmin, live_next) into slot [xpar][xcard] of every group's
+//   slot array (step.cuh xpublish), an idle step included, and the next
+//   step's K10 (xcard.cu) reduces them into live and bmin, the pmin
+//   across cards.
 // - tt_step_head_timed, tt_step_post_timed: the same, each launch also
 //   writing its span on the global timer (common.cuh span_begin /
 //   span_end); only profiled chunks launch them (solver/step_cuda.py).
@@ -315,9 +320,15 @@ __device__ __forceinline__ int shard_scan(const StepView& s, long long sh,
 // profiled chunk).
 __device__ __forceinline__ void step_post_body(
     const StepView& s, const int* __restrict__ live,
-    int* __restrict__ live_next, int use_smem) {
+    int* __restrict__ live_next, int use_smem, int xpar) {
   if (*live == 0) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) *live_next = 0;
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      *live_next = 0;
+      // Card groups: an idle step still publishes, or the other groups'
+      // K10 would read a stale slot of this parity. Nothing moved, so
+      // the incumbent min is the one K10 reduced for this step.
+      if (s.xslots != nullptr) xpublish(s, xpar, *s.bmin, 0);
+    }
     return;
   }
   extern __shared__ int smem[];
@@ -523,18 +534,21 @@ __device__ __forceinline__ void step_post_body(
     ts[3 + shard] = 0;
     __threadfence();
     if (atomicAdd(&ts[0], 1) == s.S - 1) {
-      *live_next = atomicExch(&ts[1], 0) != 0;
-      *s.bmin = atomicExch(&ts[2], INT_MAX);
+      const int ln = atomicExch(&ts[1], 0) != 0;
+      const int bm = atomicExch(&ts[2], INT_MAX);
+      *live_next = ln;
+      *s.bmin = bm;
       ts[0] = 0;
       *s.steps += 1;
+      xpublish(s, xpar, bm, ln);
     }
   }
 }
 
 __global__ void __launch_bounds__(TT_THREADS)
 step_post_kernel(StepView s, const int* __restrict__ live,
-                 int* __restrict__ live_next, int use_smem) {
-  step_post_body(s, live, live_next, use_smem);
+                 int* __restrict__ live_next, int use_smem, int xpar) {
+  step_post_body(s, live, live_next, use_smem, xpar);
 }
 
 // The post of a profiled chunk: the post's work, and the launch's span
@@ -542,9 +556,9 @@ step_post_kernel(StepView s, const int* __restrict__ live,
 __global__ void __launch_bounds__(TT_THREADS)
 step_post_timed_kernel(StepView s, const int* __restrict__ live,
                        int* __restrict__ live_next, int use_smem,
-                       long long* span) {
+                       int xpar, long long* span) {
   span_begin(span);
-  step_post_body(s, live, live_next, use_smem);
+  step_post_body(s, live, live_next, use_smem, xpar);
   span_end(span);
 }
 
@@ -568,47 +582,53 @@ extern "C" int tt_step_head_timed(const StepView* s, const int* prev_live,
 
 // The post's dynamic shared memory for stores of V variables (the lane's
 // two rows where they fit under smem_limit, else none), with the
-// attribute of ``kernel`` (0 the post, 1 the timed post) set to it.
-// Returns a CUDA error code.
+// attribute of ``kernel`` (0 the post, 1 the timed post) set to it on the
+// current device. Returns a CUDA error code.
 static int post_smem(int kernel, int V, int smem_limit, size_t* smem,
                      int* use_smem) {
-  static int attr_set[2] = {-1, -1};
+  static int attr_set[TT_MAX_DEVICES][2];
   *smem = 2 * sizeof(int) * (size_t)V;
   *use_smem = *smem <= (size_t)smem_limit;
   if (!*use_smem) *smem = 0;
-  if ((int)*smem != attr_set[kernel]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel ? (const void*)step_post_timed_kernel
-               : (const void*)step_post_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  cudaError_t e;
+  int* set = attr_slot(attr_set, &e);
+  if (set == nullptr) return (int)e;
+  if ((int)*smem + 1 != set[kernel]) {
+    e = cudaFuncSetAttribute(kernel ? (const void*)step_post_timed_kernel
+                                    : (const void*)step_post_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set[kernel] = (int)*smem;
+    set[kernel] = (int)*smem + 1;
   }
   return 0;
 }
 
+// ``xpar``: the parity of the next step, whose slots the last block
+// publishes into (card groups only).
 extern "C" int tt_step_post(const StepView* s, const int* live,
-                            int* live_next, int smem_limit, void* stream) {
+                            int* live_next, int smem_limit, int xpar,
+                            void* stream) {
   size_t smem;
   int use_smem;
   const int rc = post_smem(0, s->V, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
   step_post_kernel<<<s->S * s->D, TT_THREADS, smem, (cudaStream_t)stream>>>(
-      *s, live, live_next, use_smem);
+      *s, live, live_next, use_smem, xpar);
   return (int)cudaGetLastError();
 }
 
 // tt_step_post, and the launch's span into ``span`` (2 int64).
 extern "C" int tt_step_post_timed(const StepView* s, const int* live,
                                   int* live_next, int smem_limit,
-                                  void* stream, long long* span) {
+                                  int xpar, void* stream, long long* span) {
   size_t smem;
   int use_smem;
   const int rc = post_smem(1, s->V, smem_limit, &smem, &use_smem);
   if (rc != 0) return rc;
   step_post_timed_kernel<<<s->S * s->D, TT_THREADS, smem,
                            (cudaStream_t)stream>>>(*s, live, live_next,
-                                                   use_smem, span);
+                                                   use_smem, xpar, span);
   return (int)cudaGetLastError();
 }
 

@@ -99,6 +99,17 @@ struct StepView {
   // the lanes of shard s that posted
   int* tail_sync;
   int* bmin;       // min of best_bound over every lane, for K6 head
+  // Card groups (parallel/mesh.py): the slot arrays of every group, one
+  // pointer a group (a peer pointer for a group on another card;
+  // nullptr with one group), xn of them, and this group's index. Slot
+  // [p][g] of an array, two words (min, live), is group g's incumbent
+  // min and live flag for a step of parity p: K7 live and K6 post's
+  // last block write this group's slot in every array (xpublish), and
+  // K10 (xcard.cu) reduces this group's own array into live and bmin at
+  // the head of each step.
+  int* const* xslots;
+  int xn;
+  int xcard;
 };
 
 __device__ __forceinline__ int shl32(int a, int s) {
@@ -106,6 +117,22 @@ __device__ __forceinline__ int shl32(int a, int s) {
 }
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// This group's incumbent min ``m`` and live flag into slot [par][xcard]
+// of every group's slot array (nothing with one group). The fence makes
+// the stores, peer stores included, visible to the other cards before
+// the launch ends and the other groups' streams, waiting on its event,
+// run their K10.
+__device__ __forceinline__ void xpublish(const StepView& s, int par, int m,
+                                         int live) {
+  if (s.xslots == nullptr) return;
+  for (int h = 0; h < s.xn; ++h) {
+    int* slot = s.xslots[h] + 2 * (par * s.xn + s.xcard);
+    slot[0] = m;
+    slot[1] = live;
+  }
+  __threadfence_system();
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {

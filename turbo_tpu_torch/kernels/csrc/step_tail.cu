@@ -15,7 +15,9 @@
 // - tt_step_live (one block): *live = some lane of any shard is not
 //   IDLE, *steps = 0 and *bmin = the min of best_bound over every lane
 //   (the incumbent min of the first step's tighten), once at the start
-//   of a chunk;
+//   of a chunk; over card groups it publishes them into slot [0][xcard]
+//   of every group (step.cuh xpublish), which the first step's K10
+//   (xcard.cu) reduces;
 // - tt_step_copy (one warp per lane): lane_copy of step.cuh under the
 //   last step's live word: the refill of a finishing lane with work
 //   (table mode: row clip(newidx, 0, n_pad - 1) of its shard's table
@@ -66,6 +68,7 @@ step_live_kernel(StepView s, int* __restrict__ live) {
     *live = any != 0;
     *s.steps = 0;
     *s.bmin = m;
+    xpublish(s, 0, m, any != 0);  // card groups: for the first step's K10
   }
 }
 

@@ -577,12 +577,11 @@ static const void* entry_kernel(int entry, bool smem) {
 
 // The memory path of a launch of ``entry`` and its dynamic shared memory
 // (the head words alone on the global path, which needs the scratch),
-// with that kernel's attribute raised to it (each kernel keeps its own).
-// Returns a CUDA error code.
+// with that kernel's attribute raised to it on the current device (each
+// kernel keeps its own on each device). Returns a CUDA error code.
 static int prepare(int entry, const PlanView* p, const int* scratch,
                    int smem_limit, size_t* smem, int* use_smem) {
-  static int attr_set[4][2] = {
-      {-1, -1}, {-1, -1}, {-1, -1}, {-1, -1}};
+  static int attr_set[TT_MAX_DEVICES][8];  // [device][entry * 2 + path]
   *smem = smem_bytes(*p);
   // uint16 worklist entries: a segment of at most 65536.
   *use_smem = *smem + TT_STATIC_SMEM <= (size_t)smem_limit &&
@@ -591,13 +590,16 @@ static int prepare(int entry, const PlanView* p, const int* scratch,
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     *smem = 4 * (size_t)head_words(*p);
   }
-  int& set = attr_set[entry][*use_smem];
-  if ((int)*smem > set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        entry_kernel(entry, *use_smem),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  cudaError_t e;
+  int* row = attr_slot(attr_set, &e);
+  if (row == nullptr) return (int)e;
+  int& set = row[entry * 2 + *use_smem];
+  if ((int)*smem + 1 > set) {
+    e = cudaFuncSetAttribute(entry_kernel(entry, *use_smem),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
     if (e != cudaSuccess) return (int)e;
-    set = (int)*smem;
+    set = (int)*smem + 1;
   }
   return 0;
 }

@@ -39,9 +39,10 @@ import torch
 from ..device import pick_device
 from ..host.core.ops import INF
 from ..solver.config import EngineConfig, choose_subproblems_power
+from ..solver.convert import search_state_to_numpy
 from ..solver.engine import DIVE, IDLE
 from ..solver.result import EngineResult
-from .mesh import ShardedSolver
+from .mesh import ShardedSolver, card_groups
 
 I64 = torch.int64
 
@@ -177,8 +178,9 @@ class MultiHostSolver:
 
     def __init__(self, tnf, config: EngineConfig = EngineConfig(),
                  devices=None, exchange_every_chunks: int = 2):
-        """``devices``: one device per local shard, as ``ShardedSolver``
-        takes them. None: one shard on this process's card
+        """``devices``: the local shards' devices, as ``ShardedSolver``
+        takes them (several cards: a card group each, stepped with K10's
+        exchange between them). None: one shard on this process's card
         (``pick_device``, card ``pid`` modulo the visible cards; raises
         without CUDA)."""
         if config.enumerate_all:
@@ -196,7 +198,7 @@ class MultiHostSolver:
             devices = [pick_device(index=self.pid)]
         # Host h owns global shards [off_h, off_h + S_h); the snapshot
         # pads to the largest S_h (padded shards have next == limit).
-        S = len(devices)
+        S = sum(n for _, n in card_groups(devices))
         counts = dcn_allgather(np.array([S], dtype=np.int64)).reshape(-1)
         self.host_shards = counts.astype(np.int64)
         total_shards = int(counts.sum())
@@ -231,6 +233,9 @@ class MultiHostSolver:
         bound, sols, nodes, has_best, ext_bound, per-shard next and limit,
         the store of the best lane). The store is read with the scalars,
         as one transfer, and used only when has_best holds."""
+        st = self.sharded.global_state(st, fields=(
+            "phase", "best_bound", "sols", "nodes", "has_best", "ext_bound",
+            "next_sub", "sub_limit", "best_lb"))
         first = torch.arange(self.S, device=st.phase.device) * D
         d = torch.where(st.has_best, st.best_bound, INF + 1).argmin()
         head = torch.stack([
@@ -248,12 +253,12 @@ class MultiHostSolver:
     def _reseed(self, st, D: int, lo: int, hi: int):
         """``reseed_ranges`` on this host's state, in place: only its
         fields go through the host."""
-        fields = {f: getattr(st, f).cpu().numpy()
-                  for f in RESEED_FIELDS + ("kpow",)}
+        names = RESEED_FIELDS + ("kpow",)
+        glob = self.sharded.global_state(st, fields=names)
+        fields = {f: getattr(glob, f).cpu().numpy() for f in names}
         out = reseed_ranges(fields, D, self.S, self.plan.lb0, self.plan.ub0,
                             lo, hi)
-        for f, a in out.items():
-            getattr(st, f).copy_(torch.from_numpy(a))
+        self.sharded.write_fields(st, out)
 
     def solve(self, timeout_s: float = 1e18, chunk: int = 16,
               stop_after_n_solutions: int = 1, verbose: bool = False,
@@ -287,11 +292,11 @@ class MultiHostSolver:
             ok = dcn_allgather(np.array(
                 [int(restored is not None)], dtype=np.int64)).reshape(-1)
             if ok.all() and restored is not None:
-                st = restored[0]
+                sh.write_fields(st, search_state_to_numpy(restored[0]))
             elif ok.any() and self.pid == 0:
                 print("% warning: partial multi-host checkpoint set; "
                       "all hosts starting fresh", flush=True)
-        s._sync()
+        sh.sync()
         last_ckpt = time.monotonic()
         t0 = time.monotonic()
         first = True
@@ -305,15 +310,15 @@ class MultiHostSolver:
         # same on every host, at ticks counted in chunks: the allgather is
         # a collective, so no host may leave the loop on its own.
         while True:
-            st, _ = s.run_steps(st, chunk)
+            st, _ = sh.run_steps(st, chunk)
             if first:
-                s._sync()
+                sh.sync()
                 first = False
                 t0 = time.monotonic()
             chunks += 1
             if chunks % self.exchange_every:
                 continue
-            s._sync()  # the chunks' device time stays out of exchange_s
+            sh.sync()  # the chunks' device time stays out of exchange_s
             tx = time.monotonic()
             (local_idle, bbm, sols, nodes, has_b, ext, ns, slim,
              store) = self._read_snapshot(st, D)
@@ -341,7 +346,8 @@ class MultiHostSolver:
             next_mat = allsnap[:, 6:6 + SM]
             limit_mat = allsnap[:, 6 + SM:6 + 2 * SM]
             if self.opt and gbest < ext:
-                st.ext_bound.fill_(gbest)
+                for x in sh.states(st):
+                    x.ext_bound.fill_(gbest)
             if (on_improve is not None and self.opt and gbest < INF
                     and gbest < last_improve_printed):
                 last_improve_printed = gbest
@@ -353,20 +359,20 @@ class MultiHostSolver:
             mine = 0
             for thief, d_host, d_shard, mid, hi in moves:
                 if d_host == self.pid:
-                    st.sub_limit[d_shard * D:(d_shard + 1) * D].clamp_(
-                        max=mid)
+                    sh.shard_rows(st, "sub_limit", d_shard).clamp_(max=mid)
                     mine += 1
                 if thief == self.pid:
                     self._reseed(st, D, mid, hi)
                     redistributions += 1
                     mine += 1
             if mine:
-                s._sync()
+                sh.sync()
                 self.steal_moves += mine
                 self.steal_s += time.monotonic() - ts
             if my_ckpt and allsnap[:, 5].any():
                 # Host 0 armed the save: every host saves at this tick.
-                save_state(s, st, my_ckpt, num_shards=self.S)
+                save_state(s, sh.global_state(st), my_ckpt,
+                           num_shards=self.S)
                 last_ckpt = time.monotonic()
             self.exchange_s += time.monotonic() - tx
             if allsnap[:, 2].any():          # some host hit the timeout
@@ -385,9 +391,11 @@ class MultiHostSolver:
                 break
             if verbose and self.pid == 0:
                 print(f"% host0: chunks={chunks} best={bbm}", flush=True)
+        glob = sh.global_state(st)
         if my_ckpt and stopped:
-            save_state(s, st, my_ckpt, num_shards=self.S)
-        res = EngineResult.from_state(sh, st, stopped, time.monotonic() - t0)
+            save_state(s, glob, my_ckpt, num_shards=self.S)
+        res = EngineResult.from_state(sh, glob, stopped,
+                                      time.monotonic() - t0)
         return self._reduce(res, redistributions)
 
     def _reduce(self, res: EngineResult, redistributions: int):

@@ -688,16 +688,23 @@ class BatchedSolver:
             count += live.to(I32)
         return st, count
 
-    def step_plain(self, st: SearchState, cap: int = 0):
+    def step_plain(self, st: SearchState, cap: int = 0, xchg=None):
         """The step as plain torch ops (``turbo_tpu/solver/engine.py:
         801-1117``), on any device and with no host read, in the parts
         that K6 and K7 replace around K1-K3. Returns (state, live):
         ``live`` (0-dim bool) is whether some lane was not IDLE; when
         none was, the state is returned unchanged. The step runs in a
-        "step" profiler range (``solver/profile_split.py``)."""
+        "step" profiler range (``solver/profile_split.py``).
+
+        ``xchg``: the state is one card group of several
+        (``parallel/mesh.py``): (the incumbent min, live) across every
+        group, 0-dim tensors on the state's device (``exchange_plain``,
+        K10 on the card), in place of this state's own; the step of a
+        group runs whenever some group has a live lane."""
         with torch.profiler.record_function("step"):
-            live = (st.phase != IDLE).any()
-            phase, strat0, ub = self.step_pre_plain(st)
+            live = (st.phase != IDLE).any() if xchg is None else xchg[1]
+            phase, strat0, ub = self.step_pre_plain(
+                st, None if xchg is None else xchg[0])
             lb, ub, iters, unconv = self.propagate(
                 st.lb, ub, cap or self.cfg.fp_max_iters)
             bot, ent = self.kernels.classify(lb, ub)
@@ -734,13 +741,14 @@ class BatchedSolver:
             return lbT.t().contiguous(), ubT.t().contiguous(), iters, unconv
         return k.fixpoint(lb, ub, cap)
 
-    def step_pre_plain(self, st: SearchState):
+    def step_pre_plain(self, st: SearchState, g=None):
         """K6 ``step.head`` after the previous step's rows: promote
         finished dives, the strategy cursor, and (I) the objective
         tighten from the incumbent. The batch min
         runs over every shard's lanes, so it is the JAX mesh's pmin
-        (``ext_bound`` is the same on every lane). Returns (phase,
-        strat0, ub)."""
+        (``ext_bound`` is the same on every lane); ``g`` (a 0-dim
+        tensor): the min across card groups in its place. Returns
+        (phase, strat0, ub)."""
         dp, where = self.dp, torch.where
         promote = (st.phase == DIVE) & (st.remaining == 0)
         phase = where(promote, SOLVE, st.phase)
@@ -750,7 +758,8 @@ class BatchedSolver:
         ub = st.ub
         if dp.is_opt:
             ub = ub.clone()
-            g = torch.minimum(st.best_bound.min(), st.ext_bound[0])
+            if g is None:
+                g = torch.minimum(st.best_bound.min(), st.ext_bound[0])
             lim = torch.minimum(g, st.best_bound) - 1
             ub[:, dp.obj] = where(phase == SOLVE,
                                   torch.minimum(ub[:, dp.obj], lim),

@@ -61,6 +61,15 @@ tagged by what the launch does (``profile_split.FIXPOINT``, ``OTHER`` or
 into a graph of its own and replayed once, so that its launches run
 back to back whatever the host's pace. It writes the same state tensors
 in place, so the cached graphs stay valid.
+
+Card groups (``parallel/mesh.py``: EPS shards on distinct cards, or as
+separate states on one) step in lockstep through ``run_groups``: each
+group's step begins with K10 (``kernels.xcard``), which reduces the
+incumbent min and live flag that every group's previous post (or K7
+live) published into the group's slots, so that head, step entry and
+post read the words they read on one card. The groups' streams wait on
+each other's events between steps; one group is the ``run`` above,
+unchanged.
 """
 from __future__ import annotations
 
@@ -114,6 +123,11 @@ class Workspace:
         self.graphs = {}     # (n, cap, StepView bytes) -> (graph, counts)
         self.last_key = None
         self.capture_stream = None
+        # A card group's (Exchange, index) (``run_groups``), else None;
+        # and its step graphs: (step kind, cap, StepView bytes) ->
+        # (graph, counts).
+        self.xc = None
+        self.step_graphs = {}
 
 
 def shards(solver, st) -> int:
@@ -170,6 +184,9 @@ def view(solver, st, ws):
     S = shards(solver, st)
     if st.tab_lb.shape[0] % S:
         raise ValueError(f"{st.tab_lb.shape[0]} table rows for {S} shards")
+    if ws.xc is not None:  # a card group: its slots, K10's exchange
+        xc, g = ws.xc
+        ptr.update(xslots=xc.ptrs[g].data_ptr(), xn=xc.n, xcard=g)
     return StepView(
         D=cfg.num_dives, S=S, V=dp.V, n_active=dp.n_active,
         MAXD=cfg.max_depth, obj=dp.obj, is_opt=int(dp.is_opt),
@@ -228,25 +245,9 @@ def _capture(solver, st, sv, n, cap, stamps=None, spans=None):
     """(graph, launch counts) of one chunk's launches (``stamps``,
     ``spans``: a profiled chunk's), captured on a side stream; the
     capture runs nothing and counts nothing."""
-    from .. import kernels
-    ws = solver._ws
-    dev = st.lb.device
-    if ws.capture_stream is None:
-        ws.capture_stream = torch.cuda.Stream(dev)
-    main = torch.cuda.current_stream(dev)
-    ws.capture_stream.wait_stream(main)
-    g = torch.cuda.CUDAGraph()
-    before = kernels.launch_counts()
-    with torch.cuda.stream(ws.capture_stream):
-        g.capture_begin(capture_error_mode="thread_local")
-        try:
-            _enqueue(solver, st, sv, n, cap, stamps, spans)
-        finally:
-            g.capture_end()
-            captured = kernels.launch_counts(since=before)
-            kernels.add_launches({k: -v for k, v in captured.items()})
-    main.wait_stream(ws.capture_stream)
-    return g, captured
+    return _capture_launches(
+        solver, st.lb.device,
+        lambda: _enqueue(solver, st, sv, n, cap, stamps, spans))
 
 
 def fused(cfg) -> bool:
@@ -351,14 +352,32 @@ def _enqueue(solver, st, sv, n, cap, stamps=None, spans=None):
     stream: 3n + 2 launches (5n + 2 unless ``fused(cfg)``). ``stamps``,
     ``spans``: a profiled chunk's (see ``run``)."""
     from .. import kernels
+    ws = solver._ws
+    dev = st.lb.device
+    kernels.step_tail.live(sv, ws.live[0], dev)
+    prev = None
+    for i in range(n):
+        cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
+        _step(solver, st, sv, cap, prev, cur, nxt,
+              None if stamps is None else stamps[i], spans)
+        prev = cur
+    if prev is not None:
+        kernels.step_tail.copy(sv, prev, dev)
+
+
+def _step(solver, st, sv, cap, prev, cur, nxt, stamps=None, spans=None,
+          xpar=None):
+    """One step's launches on the current stream: K6 head (the rows of
+    the step whose live word is ``prev``, None for none), the
+    propagation (K1's or K8's step entry; or the propagation, K2 and K3)
+    and K6 post, under the live word ``cur``, the post writing ``nxt``.
+    ``stamps``, ``spans``: a profiled step's; ``xpar``: a card group's
+    step, whose post publishes into the slots of parity ``xpar``."""
+    from .. import kernels
     from .profile_split import FIXPOINT, OTHER, STAMPED
     ws = solver._ws
     dev = st.lb.device
     kp = solver.kernels.kernel_plan
-    alone = not fused(solver.cfg)
-
-    def row(kind):
-        return None if spans is None else spans.row(kind)
 
     def span(kind):  # K6's keyword: the timed entry in a profiled chunk
         return {} if spans is None else {"span": spans.row(kind)}
@@ -367,25 +386,178 @@ def _enqueue(solver, st, sv, n, cap, stamps=None, spans=None):
         return contextlib.nullcontext() if spans is None \
             else spans.timed(kind)
 
-    kernels.step_tail.live(sv, ws.live[0], dev)
-    prev = None
-    for i in range(n):
-        cur, nxt = ws.live[i % 2], ws.live[1 - i % 2]
-        kernels.step.head(sv, prev, cur, dev, **span(OTHER))
-        if alone:
-            with timed(FIXPOINT):
-                propagate(solver, st, cap, cur)
-            with timed(OTHER):
-                kernels.classify(kp, st.lb, st.ub, live=cur,
-                                 out=(ws.bot, ws.ent))
-            with timed(OTHER):
-                kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur,
-                               out=ws.sel)
-        else:
-            propagate(solver, st, cap, cur,
-                      None if stamps is None else stamps[i],
-                      row(STAMPED))
-        kernels.step.post(sv, cur, nxt, dev, kp.smem_limit, **span(OTHER))
-        prev = cur
-    if prev is not None:
-        kernels.step_tail.copy(sv, prev, dev)
+    kernels.step.head(sv, prev, cur, dev, **span(OTHER))
+    if not fused(solver.cfg):
+        with timed(FIXPOINT):
+            propagate(solver, st, cap, cur)
+        with timed(OTHER):
+            kernels.classify(kp, st.lb, st.ub, live=cur,
+                             out=(ws.bot, ws.ent))
+        with timed(OTHER):
+            kernels.select(kp, st.lb, st.ub, ws.strat0, live=cur,
+                           out=ws.sel)
+    else:
+        propagate(solver, st, cap, cur, stamps,
+                  None if spans is None else spans.row(STAMPED))
+    kernels.step.post(sv, cur, nxt, dev, kp.smem_limit, **span(OTHER),
+                      **({} if xpar is None else {"xpar": xpar}))
+
+
+# -- card groups: shards on distinct cards of one process ---------------
+
+
+class Exchange:
+    """What the card groups of one ``ShardedSolver`` (``parallel/
+    mesh.py``) share on the card: each group's slot array (K10's,
+    csrc/xcard.cu: (2, N, 2) int32, [parity][group] = (incumbent min,
+    live)) and, on the group's card, the table of every group's slot
+    pointer (peer pointers across cards); each group's stream; the CUDA
+    events each group's stream records after a step's post (one per
+    parity) and at the end of a chunk. ``devices``: each group's card,
+    in shard order; groups may share a card. Peer access is enabled for
+    every pair of distinct cards (``kernels.enable_peer`` raises for a
+    pair without it)."""
+
+    def __init__(self, devices):
+        from .. import kernels
+        self.devices = [torch.device(d) for d in devices]
+        self.n = len(self.devices)
+        cards = sorted({d.index for d in self.devices})
+        for a in cards:
+            for b in cards:
+                if a != b:
+                    kernels.enable_peer(a, b)
+        self.slots, self.streams, self.events, self.done = [], [], [], []
+        for d in self.devices:
+            with torch.cuda.device(d):
+                self.slots.append(torch.zeros((2, self.n, 2), dtype=I32,
+                                              device=d))
+                self.streams.append(torch.cuda.Stream(d))
+                self.events.append((torch.cuda.Event(), torch.cuda.Event()))
+                self.done.append(torch.cuda.Event())
+        addr = [t.data_ptr() for t in self.slots]
+        self.ptrs = [torch.tensor(addr, dtype=torch.int64, device=d)
+                     for d in self.devices]
+        self.started = False  # a chunk was enqueued (``done`` recorded)
+
+
+def run_groups(solvers, states, xc, n: int, cap: int = 0,
+               graph: bool = True, busy=None):
+    """n steps of every card group's state, in place, in lockstep (the
+    card-group counterpart of ``run``): on each group's stream K7 live
+    (publishing the group's incumbent min and live flag for the first
+    step), then per step K10 (the exchange: ``kernels.xcard`` over the
+    slots of the step's parity), K6 head, the step entry and K6 post
+    (publishing for the next step), then K7 copy. The host enqueues the
+    whole chunk without a read: before each step a group's stream waits
+    on the events the other groups' streams recorded after their
+    previous post (K7 live before the first step), and before K7 live on
+    the other groups' ends of the previous chunk. With ``graph`` each
+    group's step is a CUDA graph of its own, captured at its first use
+    (one for the chunk's first step, whose head copies nothing, and one
+    for each parity after it) and replayed from then on. ``busy``: a
+    list of a list per group, which gets a pair of timing CUDA events
+    around each of the group's steps. Returns the steps that ran (group
+    0's counter; every group counts the same), a 0-dim int32 tensor on
+    group 0's card."""
+    from .. import kernels
+    cap = cap or solvers[0].cfg.fp_max_iters
+    views = []
+    for g, (s, st) in enumerate(zip(solvers, states)):
+        lanes = st.phase.shape[0]
+        if s._ws is None or s._ws.lanes != lanes:
+            s._ws = Workspace(s, lanes)
+        s._ws.xc = (xc, g)
+        views.append(view(s, st, s._ws))
+    groups = list(zip(range(xc.n), solvers, states, views, xc.devices,
+                      xc.streams))
+    for g, s, st, sv, dev, stream in groups:
+        with torch.cuda.device(dev):
+            # The state's writes on the card's stream, and every group's
+            # previous chunk: its K10s read the slots K7 live writes.
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            if xc.started:
+                for h in range(xc.n):
+                    if h != g:
+                        stream.wait_event(xc.done[h])
+            with torch.cuda.stream(stream):
+                kernels.step_tail.live(sv, s._ws.live[0], dev)
+                xc.events[g][1].record(stream)
+    for t in range(n):
+        par = t % 2
+        for g, s, st, sv, dev, stream in groups:
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                for h in range(xc.n):
+                    if h != g:
+                        stream.wait_event(xc.events[h][1 - par])
+                if busy is not None:
+                    a = torch.cuda.Event(enable_timing=True)
+                    a.record(stream)
+                _group_step(s, st, sv, t, cap, graph)
+                if busy is not None:
+                    b = torch.cuda.Event(enable_timing=True)
+                    b.record(stream)
+                    busy[g].append((a, b))
+                xc.events[g][par].record(stream)
+    for g, s, st, sv, dev, stream in groups:
+        with torch.cuda.device(dev):
+            with torch.cuda.stream(stream):
+                if n:
+                    kernels.step_tail.copy(sv, s._ws.live[(n - 1) % 2], dev)
+                xc.done[g].record(stream)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+    xc.started = True
+    with torch.cuda.device(xc.devices[0]):
+        return solvers[0]._ws.steps[0].clone()
+
+
+def _group_step(s, st, sv, t, cap, graph):
+    """Step ``t`` of a card group on the current stream: K10, then the
+    step's launches (``_step``), as the group's graph for the step's
+    kind when ``graph``."""
+    from .. import kernels
+    ws = s._ws
+    xc, g = ws.xc
+    par = t % 2
+
+    def launches():
+        kernels.xcard(xc.slots[g], par, ws.live[par], ws.bmin)
+        _step(s, st, sv, cap, None if t == 0 else ws.live[1 - par],
+              ws.live[par], ws.live[1 - par], xpar=1 - par)
+
+    if not graph:
+        launches()
+        return
+    key = (0 if t == 0 else 1 + par, cap, bytes(sv))
+    entry = ws.step_graphs.get(key)
+    if entry is None:
+        if len(ws.step_graphs) >= 3 * MAX_GRAPHS:
+            ws.step_graphs.pop(next(iter(ws.step_graphs)))
+        entry = ws.step_graphs[key] = _capture_launches(s, st.lb.device,
+                                                        launches)
+    entry[0].replay()
+    kernels.add_launches(entry[1])
+
+
+def _capture_launches(s, dev, launches):
+    """(graph, launch counts) of ``launches()`` captured on the solver's
+    capture stream after the current stream's work; the capture runs
+    nothing and counts nothing."""
+    from .. import kernels
+    ws = s._ws
+    if ws.capture_stream is None:
+        ws.capture_stream = torch.cuda.Stream(dev)
+    main = torch.cuda.current_stream(dev)
+    ws.capture_stream.wait_stream(main)
+    g = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts()
+    with torch.cuda.stream(ws.capture_stream):
+        g.capture_begin(capture_error_mode="thread_local")
+        try:
+            launches()
+        finally:
+            g.capture_end()
+            captured = kernels.launch_counts(since=before)
+            kernels.add_launches({k: -v for k, v in captured.items()})
+    main.wait_stream(ws.capture_stream)
+    return g, captured
