@@ -1,0 +1,7 @@
+"""The share of the traced slice of the proofs (whole requests) in which
+no operation ran on the device."""
+from portbench import harness
+
+
+def read(cell):
+    return harness.idle_pct(cell)
