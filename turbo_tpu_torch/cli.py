@@ -21,14 +21,17 @@ on-device solution ring (``-arch hybrid``: each improving solution as it
 is found). ``-checkpoint FILE`` resumes from FILE when it matches and
 writes it when the run is cut. ``-v`` prints the setup (kernel build
 and warm-up), the table, the cap and whether the FIXPOINT/SEARCH split
-was measured (``solver/profile_split.py``); ``-v -v`` also the
-calibrator's choice, the steal and resplit rounds and a line per chunk.
+was measured (``solver/profile_split.py``), and ends the request with
+its spans and counters (``trace.py``) as ``% trace`` lines; ``-v -v``
+also the calibrator's choice, the steal and resplit rounds and a line
+per chunk.
 """
 from __future__ import annotations
 
 import sys
 import time
 
+from . import trace
 from .host.compile.model import compile_model
 from .host.frontend.fzn import parse_fzn
 from .host.utils.config import Configuration, parse_args
@@ -37,6 +40,24 @@ from .host.utils.output import (MznStats, print_final_separator,
 
 
 def run(cfg: Configuration) -> int:
+    """One request. Under ``-v`` it is traced (``trace.py``; unless the
+    caller turned tracing on already) and ends with its ``% trace``
+    lines on stderr."""
+    turned_on = bool(cfg.verbose) and not trace.enabled()
+    if turned_on:
+        trace.enable()
+    try:
+        with trace.request():
+            rc = _run(cfg)
+        if cfg.verbose:
+            trace.report(sys.stderr)
+        return rc
+    finally:
+        if turned_on:
+            trace.disable()
+
+
+def _run(cfg: Configuration) -> int:
     if cfg.hosts > 1 and cfg.host_id != 0:
         # Only host 0 speaks on stdout; at the fd level, since native
         # code (gloo) writes straight to fd 1.
@@ -56,43 +77,45 @@ def run(cfg: Configuration) -> int:
     else:
         hw = "cpu"
     stats = MznStats(cfg.print_statistics)
-    t0 = time.monotonic()
-    stats.stat("command_line", f'"turbo-tpu-torch {cfg.problem_path}"')
-    stats.stat("problem_path", f'"{cfg.problem_path}"')
-    stats.stat("solver", '"turbo-tpu-torch"')
-    from . import __version__
-    stats.stat("version", f'"{cfg.version_tag or __version__}"')
-    stats.stat("hardware", f'"{cfg.hardware or hw}"')
-    stats.stat("arch", f'"{cfg.arch}"')
-    stats.stat("fixpoint", f'"{cfg.fixpoint if cfg.arch != "cpu" else "ac1"}"')
-    if cfg.fixpoint == "wac1" and cfg.arch != "cpu":
-        stats.stat("wac1_threshold", cfg.wac1_threshold)
-    stats.stat("subproblems_factor", cfg.subproblems_factor)
-    stats.stat("seed", cfg.seed)
-    stats.stat("eps_var_order", f'"{cfg.eps_var_order}"')
-    stats.stat("eps_value_order", f'"{cfg.eps_value_order}"')
-    stats.stat("free_search", '"yes"' if cfg.free_search else '"no"')
-    stats.stat("or_nodes", cfg.or_nodes)
-    stats.stat("timeout_ms", cfg.timeout_ms)
-    stats.stat("cutnodes", cfg.stop_after_n_nodes or 0)
-    if cfg.problem_path.endswith(".xml"):
-        from .host.frontend.xcsp3 import parse_xcsp3
+    with trace.span("parse") as sp_parse:
+        stats.stat("command_line", f'"turbo-tpu-torch {cfg.problem_path}"')
+        stats.stat("problem_path", f'"{cfg.problem_path}"')
+        stats.stat("solver", '"turbo-tpu-torch"')
+        from . import __version__
+        stats.stat("version", f'"{cfg.version_tag or __version__}"')
+        stats.stat("hardware", f'"{cfg.hardware or hw}"')
+        stats.stat("arch", f'"{cfg.arch}"')
+        stats.stat("fixpoint",
+                   f'"{cfg.fixpoint if cfg.arch != "cpu" else "ac1"}"')
+        if cfg.fixpoint == "wac1" and cfg.arch != "cpu":
+            stats.stat("wac1_threshold", cfg.wac1_threshold)
+        stats.stat("subproblems_factor", cfg.subproblems_factor)
+        stats.stat("seed", cfg.seed)
+        stats.stat("eps_var_order", f'"{cfg.eps_var_order}"')
+        stats.stat("eps_value_order", f'"{cfg.eps_value_order}"')
+        stats.stat("free_search", '"yes"' if cfg.free_search else '"no"')
+        stats.stat("or_nodes", cfg.or_nodes)
+        stats.stat("timeout_ms", cfg.timeout_ms)
+        stats.stat("cutnodes", cfg.stop_after_n_nodes or 0)
+        if cfg.problem_path.endswith(".xml"):
+            from .host.frontend.xcsp3 import parse_xcsp3
 
-        model = parse_xcsp3(cfg.problem_path)
-    else:
-        model = parse_fzn(cfg.problem_path)
-    stats.stat("parsed_variables", len(model.vars))
-    stats.stat("parsed_constraints", len(model.constraints))
-    if cfg.free_search:
-        model.solve.searches = []
-    tnf = compile_model(model)
-    stats.stat("variables", tnf.num_vars)
-    stats.stat("propagators", tnf.num_props)
-    if cfg.print_statistics and not cfg.disable_network_analysis:
-        from .host.compile.analyze import print_analysis
+            model = parse_xcsp3(cfg.problem_path)
+        else:
+            model = parse_fzn(cfg.problem_path)
+        stats.stat("parsed_variables", len(model.vars))
+        stats.stat("parsed_constraints", len(model.constraints))
+    with trace.span("compile") as sp_compile:
+        if cfg.free_search:
+            model.solve.searches = []
+        tnf = compile_model(model)
+        stats.stat("variables", tnf.num_vars)
+        stats.stat("propagators", tnf.num_props)
+        if cfg.print_statistics and not cfg.disable_network_analysis:
+            from .host.compile.analyze import print_analysis
 
-        print_analysis(stats, model, tnf)
-    init_time = time.monotonic() - t0
+            print_analysis(stats, model, tnf)
+    init_time = sp_parse.s + sp_compile.s
     stats.stat("initTime", f"{init_time:.3f}")
 
     timeout_s = (cfg.timeout_ms / 1000.0 - init_time) if cfg.timeout_ms else 1e18
@@ -131,18 +154,18 @@ def run(cfg: Configuration) -> int:
                          sol_ring_size=ring)
     # Plan, kernel build and warm-up count in initTime, outside the -t
     # window.
-    tb = time.monotonic()
-    if hybrid:
-        from .solver.hybrid import HybridSolver
-        solver = engine = HybridSolver(tnf, econf, device=device)
-    elif cfg.arch == "multi":
-        from .parallel.mesh import ShardedSolver
-        solver = ShardedSolver(tnf, econf, devices=(
-            [device] if device.type == "cpu" else None))
-        engine = solver.solver
-    else:
-        solver = engine = BatchedSolver(tnf, econf, device=device)
-    setup = time.monotonic() - tb
+    with trace.span("init.solver") as sp_init:
+        if hybrid:
+            from .solver.hybrid import HybridSolver
+            solver = engine = HybridSolver(tnf, econf, device=device)
+        elif cfg.arch == "multi":
+            from .parallel.mesh import ShardedSolver
+            solver = ShardedSolver(tnf, econf, devices=(
+                [device] if device.type == "cpu" else None))
+            engine = solver.solver
+        else:
+            solver = engine = BatchedSolver(tnf, econf, device=device)
+    setup = sp_init.s
     if cfg.verbose:
         # -arch multi: each card with its shards (a card group each).
         cards = "".join(f" {g.device}x{g.n_shards}"
@@ -169,39 +192,43 @@ def run(cfg: Configuration) -> int:
                      stop_after_n_solutions=cfg.stop_after_n_solutions,
                      node_limit=cfg.stop_after_n_nodes,
                      verbose=cfg.verbose >= 2, **extra)
-    r.init_time = round(init_time + setup, 3)
-    if cfg.verbose and not hybrid:
-        tb = engine._table
-        print("% eps table: " + (f"n_live={tb.n_live} of {engine.num_sub_total}"
-                                  f" subproblems, n_pad={tb.n_pad}"
-                                  if tb is not None else "off")
-              + f"; fp_cap={engine.last_auto_cap or 'not calibrated'}",
-              file=sys.stderr)
-        # (measured fraction or None, profile s, least-squares fraction)
-        split = getattr(solver, "last_split", None)
-        if split is None:
-            line = "least-squares fit (no measured chunks)"
-        else:
-            frac, wall, fit = split
-            fit = "n/a" if fit is None else f"{fit:.4f}"
-            line = (f"least-squares fit {fit} (profile {wall:.3f} s "
-                    "measured nothing)" if frac is None else
-                    f"measured, fixpoint fraction {frac:.4f} (profile "
-                    f"{wall:.3f} s; least-squares fit {fit})")
-        print(f"% timer split: {line}", file=sys.stderr)
-    # Final block, unless the stream printed this very store last; under
-    # enumeration a stream that lost nothing printed every solution.
-    stream_complete = (enumerate_all and want_stream
-                       and printed_last[0] is not None
-                       and r.sol_ring_overflow == 0)
-    if (r.best_lb is not None and printed_last[0] != list(r.best_lb)
-            and not stream_complete):
-        print_solution(tnf, r.best_lb)
-    print_final_separator(r.status, tnf.obj_var >= 0,
-                          exhaustive=r.exhaustive)
-    if r.sol_ring_overflow:
-        stats.stat("sol_ring_overflow", r.sol_ring_overflow)
-    print_mzn_statistics(stats, r)
+    with trace.span("output"):
+        r.init_time = round(init_time + setup, 3)
+        if cfg.verbose and not hybrid:
+            tb = engine._table
+            print("% eps table: "
+                  + (f"n_live={tb.n_live} of {engine.num_sub_total}"
+                     f" subproblems, n_pad={tb.n_pad}"
+                     if tb is not None else "off")
+                  + f"; fp_cap={engine.last_auto_cap or 'not calibrated'}",
+                  file=sys.stderr)
+            # (measured fraction or None, profile s, least-squares
+            # fraction)
+            split = getattr(solver, "last_split", None)
+            if split is None:
+                line = "least-squares fit (no measured chunks)"
+            else:
+                frac, wall, fit = split
+                fit = "n/a" if fit is None else f"{fit:.4f}"
+                line = (f"least-squares fit {fit} (profile {wall:.3f} s "
+                        "measured nothing)" if frac is None else
+                        f"measured, fixpoint fraction {frac:.4f} (profile "
+                        f"{wall:.3f} s; least-squares fit {fit})")
+            print(f"% timer split: {line}", file=sys.stderr)
+        # Final block, unless the stream printed this very store last;
+        # under enumeration a stream that lost nothing printed every
+        # solution.
+        stream_complete = (enumerate_all and want_stream
+                           and printed_last[0] is not None
+                           and r.sol_ring_overflow == 0)
+        if (r.best_lb is not None and printed_last[0] != list(r.best_lb)
+                and not stream_complete):
+            print_solution(tnf, r.best_lb)
+        print_final_separator(r.status, tnf.obj_var >= 0,
+                              exhaustive=r.exhaustive)
+        if r.sol_ring_overflow:
+            stats.stat("sol_ring_overflow", r.sol_ring_overflow)
+        print_mzn_statistics(stats, r)
     return 0
 
 

@@ -53,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..host.core.ops import INF, NINF
 from ..host.solver import strategy as _strategy
 from ..host.solver.plan import build_plan
@@ -439,22 +440,25 @@ class BatchedSolver:
         self.cfg = config
         self.num_shards = num_shards
         self.device = pick_device() if device is None else torch.device(device)
-        self.plan = build_plan(tnf, disable_simplify=config.disable_simplify,
-                               shave=config.shave)
-        self.has_eps = apply_strategy_config(self.plan, config)
-        if (config.fp_mode == "wac1"
-                and self.plan.num_real_props < config.wac1_threshold):
-            # WAC1 behaves as AC-1 below the threshold.
-            self.cfg = config = dataclasses.replace(config,
-                                                    fp_mode="fixpoint")
-        if config.max_depth <= 0:
-            self.cfg = config = dataclasses.replace(
-                config, max_depth=auto_max_depth(self.plan))
-        self.k = choose_subproblems_power(tnf, config, num_shards)
+        with trace.span("init.plan"):
+            self.plan = build_plan(tnf,
+                                   disable_simplify=config.disable_simplify,
+                                   shave=config.shave)
+            self.has_eps = apply_strategy_config(self.plan, config)
+            if (config.fp_mode == "wac1"
+                    and self.plan.num_real_props < config.wac1_threshold):
+                # WAC1 behaves as AC-1 below the threshold.
+                self.cfg = config = dataclasses.replace(config,
+                                                        fp_mode="fixpoint")
+            if config.max_depth <= 0:
+                self.cfg = config = dataclasses.replace(
+                    config, max_depth=auto_max_depth(self.plan))
+            self.k = choose_subproblems_power(tnf, config, num_shards)
         self.num_sub_total = 1 << self.k
         self.opt = self.plan.is_opt
-        self.dp = DevicePlan.from_plan(self.plan, self.device)
-        self.kernels = PropagatorKernels(self.dp)
+        with trace.span("init.upload"):
+            self.dp = DevicePlan.from_plan(self.plan, self.device)
+            self.kernels = PropagatorKernels(self.dp)
         # EPS subproblem-root table gate (see EngineConfig.use_table).
         self.use_table = (config.use_table and not config.enumerate_all
                           and config.fp_mode in ("fixpoint", "wac1"))
@@ -472,7 +476,8 @@ class BatchedSolver:
         self.build_time = 0.0
         self._ws = None  # kernel-route scratch (solver/step_cuda.py)
         self._steal_plan = None  # K5's workspace and plan (kernels.StealPlan)
-        self.warm_time = warm_kernels(self)
+        with trace.span("init.warm_up"):
+            self.warm_time = warm_kernels(self)
         # Seconds of setup that the next solve's hard wall counts: the
         # kernel build and warm-up, as JAX's wall counts its compile.
         self.wall_setup_s = self.build_time + self.warm_time
@@ -1121,6 +1126,7 @@ class BatchedSolver:
         ran = step_cuda.run(self, st, n, cap, stamps=stamps, spans=spans)
         return st, ran, (spans.events(), stamps.sum(dim=(0, 1)).tolist())
 
+    @trace.spanned("solve")
     def solve(self, timeout_s: float = 1e18, chunk: int = 16,
               stop_after_n_solutions: int = 1, max_steps: int = 1 << 60,
               node_limit: int = 0, verbose: bool = False, on_improve=None,
@@ -1160,7 +1166,11 @@ class BatchedSolver:
         ``enumerate_all`` the chunk is capped so that the ring cannot
         overflow between drains. Solutions lost to an overflow are
         warned about and counted in ``sol_ring_overflow``. Kernels were
-        built in ``__init__``: the solve clock starts here."""
+        built in ``__init__``: the solve clock starts here. The timers
+        read the spans of ``trace.py`` (``init_state``, and in each
+        ``chunk`` of the loop ``chunk.enqueue``, ``chunk.wait``,
+        ``chunk.read``, ``split``, ``ring``, ``calibrate``,
+        ``tail.steal``, ``tail.resplit``, ``checkpoint``)."""
         from ..host.solver.timers import PhaseTimers
         from . import profile_split
         from .result import EngineResult
@@ -1173,20 +1183,20 @@ class BatchedSolver:
             return EngineResult.unsat(self)
         D = self.cfg.num_dives
         timers = PhaseTimers(num_lanes=D)
-        tt = time.monotonic()
-        if self.use_table and self._table is None and timeout_s < 1e17:
-            # Budget the table build inside -t: at most half of it; a
-            # tighter deadline set by the caller stays binding.
-            dl = time.monotonic() + max(2.0, 0.5 * timeout_s)
-            prev = self._table_deadline
-            self._table_deadline = dl if prev is None else min(prev, dl)
-        st = self.init_state()
-        self._table_deadline = None  # consumed; don't leak to re-solves
-        cap = fp_cap if fp_cap > 0 else self.cfg.fp_max_iters
-        cal = AutoCapCalibrator(self.cfg, fp_cap)
-        cap = cal.arm(cap)
-        self._sync()
-        timers.transfer_c2g = time.monotonic() - tt
+        with trace.span("init_state") as sp:
+            if self.use_table and self._table is None and timeout_s < 1e17:
+                # Budget the table build inside -t: at most half of it; a
+                # tighter deadline set by the caller stays binding.
+                dl = time.monotonic() + max(2.0, 0.5 * timeout_s)
+                prev = self._table_deadline
+                self._table_deadline = dl if prev is None else min(prev, dl)
+            st = self.init_state()
+            self._table_deadline = None  # consumed; don't leak to re-solves
+            cap = fp_cap if fp_cap > 0 else self.cfg.fp_max_iters
+            cal = AutoCapCalibrator(self.cfg, fp_cap)
+            cap = cal.arm(cap)
+            self._sync()
+        timers.transfer_c2g = sp.s
         # The table build (or an abandoned one) counts in the solve
         # window and in dive_time / table_build_time.
         dive_dur = self._table.build_time if self._table is not None else 0.0
@@ -1197,10 +1207,11 @@ class BatchedSolver:
 
         def checkpoint():
             from .checkpoint import save_state
-            save_state(self, st, checkpoint_path, extras={
-                "resplit_base": resplit_base,
-                "resplit_rounds": resplit_rounds,
-                "steal_rounds": steal_rounds})
+            with trace.span("checkpoint"):
+                save_state(self, st, checkpoint_path, extras={
+                    "resplit_base": resplit_base,
+                    "resplit_rounds": resplit_rounds,
+                    "steal_rounds": steal_rounds})
 
         if checkpoint_path:
             from .checkpoint import load_state
@@ -1252,194 +1263,219 @@ class BatchedSolver:
             st, ran, measured = self._profiled_steps(st, cur_chunk, cap)
             f, ran = snapshot(ran)
             steps += ran
+            trace.count("chunks")
+            trace.count("steps", ran)
             timers.record_chunk(time.monotonic() - tp, int(f[2].sum()),
                                 f[0], ran, time.monotonic() - t0)
             return measured
 
         while True:
-            td = time.monotonic()
-            st, ndone = self.run_steps(st, cur_chunk, cap)
-            self._sync()
-            device_dur = time.monotonic() - td
-            warmup = first_call
-            first_call = False
-            tg = time.monotonic()
-            # One host read per chunk.
-            (phase, sols, fpit, bbs, nsub, slim, nodes_v,
-             sol_w), ndone = snapshot(ndone)
-            steps += ndone
-            timers.transfer_g2c += time.monotonic() - tg
-            timers.record_chunk(device_dur, int(fpit.sum()), phase, ndone,
-                                time.monotonic() - t0, measured=not warmup)
-            # The measured FIXPOINT/SEARCH split, once a run, on two real
-            # chunks; the trace is small against the work before it.
-            skip_cal = False
-            if not warmup:
-                prof_dev += device_dur
-            if (prof_pending and not warmup
-                    and prof_dev >= profile_split.MIN_DEVICE_S
-                    and not (phase == IDLE).all()):
-                prof_pending = False
-                tp = time.monotonic()
-                frac = profile_split.measure_fixpoint_fraction(
-                    profiled_chunk, cuda=st.lb.is_cuda)
-                if frac is not None:
-                    timers.measured_fix_frac = frac
-                self.last_split = (frac, time.monotonic() - tp, None)
-                # The profiled chunks advanced st: refresh the whole
-                # snapshot, and keep their nodes out of the calibrator's
-                # next rate sample.
-                (phase, sols, fpit, bbs, nsub, slim, nodes_v,
-                 sol_w), _ = snapshot()
-                skip_cal = True
-            if ring > 0 and on_solution is not None:
-                cur = int(sol_w[0])
-                if not self.opt and stop_after_n_solutions > 0:
-                    cur = min(cur, stop_after_n_solutions)
-                if cur - ring_drained > ring:
-                    lost = cur - ring_drained - ring
-                    overflow += lost
-                    print(f"% warning: solution ring overflow; {lost} "
-                          "solutions not streamed", flush=True)
-                    ring_drained = cur - ring
-                if cur > ring_drained:
-                    # Only the new rows cross to the host.
-                    slots = torch.arange(ring_drained, cur) % ring
-                    rows = st.sol_ring[slots.to(st.sol_ring.device)]
-                    for row in rows.cpu().numpy():
-                        on_solution(self.plan.store_to_tnf(row))
-                    ring_drained = cur
-            bbm = int(bbs.min())
-            if on_improve is not None and bbm < last_best:
-                last_best = bbm
-                d = int(bbs.argmin())
-                on_improve(self.plan.store_to_tnf(st.best_lb[d].cpu().numpy()))
-            if bbm < (best_seen if best_seen is not None else 1 << 40):
-                best_seen = bbm
-                best_obj_time = time.monotonic() - t0
-            if (phase == IDLE).all():
-                break
-            if not self.opt and sols.sum() >= stop_after_n_solutions > 0:
-                stopped = True
-                break
-            if time.monotonic() - t0 > timeout_s or steps >= max_steps:
-                stopped = True
-                break
-            if (timeout_s < 1e17 and hard_mult > 0
-                    and time.monotonic() - t_entry > hard_mult * timeout_s):
-                print("% hard wall-clock limit reached "
-                      f"({hard_mult:g}x timeout incl. compile); stopping",
-                      file=sys.stderr, flush=True)
-                stopped = True
-                break
-            # Adapt the chunk to the remaining budget.
-            if not warmup and ndone > 0 and timeout_s < 1e17:
-                step_cost = device_dur / ndone
-                remaining = timeout_s - (time.monotonic() - t0)
-                cur_chunk = int(max(1, min(
-                    chunk, remaining / max(step_cost, 1e-9))))
-            if not cal.done:
-                cap, hint = cal.observe(cap, int(nodes_v.sum()), device_dur,
-                                        warmup, skip=skip_cal,
-                                        verbose=verbose)
-                if hint is not None:
-                    cur_chunk = min(cur_chunk, hint)
-                else:
-                    self.last_auto_cap = cal.chosen
-                    cur_chunk = chunk
-            # EPS tail: once the range is drained, idle lanes can only
-            # get work from the stragglers. Stack stealing first (no
-            # re-exploration); resplit when there is nothing to steal.
-            drained = nsub[0] >= slim[0]
-            if not drained:
-                recal_armed = True
-            elif (recal_armed and not recal_done and cal.done
-                    and fp_cap == 0 and self.cfg.fp_cap_auto
-                    and timeout_s - (time.monotonic() - t0) > 10.0):
-                recal_done = True
-                cal = AutoCapCalibrator(self.cfg, fp_cap)
+            with trace.span("chunk"):
+                with trace.span("chunk.enqueue") as sp_enqueue:
+                    st, ndone = self.run_steps(st, cur_chunk, cap)
+                with trace.span("chunk.wait") as sp_wait:
+                    self._sync()
+                device_dur = sp_enqueue.s + sp_wait.s
+                warmup = first_call
+                first_call = False
+                # One host read per chunk.
+                with trace.span("chunk.read") as sp_read:
+                    (phase, sols, fpit, bbs, nsub, slim, nodes_v,
+                     sol_w), ndone = snapshot(ndone)
+                    steps += ndone
+                timers.transfer_g2c += sp_read.s
+                trace.count("chunks")
+                trace.count("steps", ndone)
+                timers.record_chunk(device_dur, int(fpit.sum()), phase,
+                                    ndone, time.monotonic() - t0,
+                                    measured=not warmup)
+                # The measured FIXPOINT/SEARCH split, once a run, on two
+                # real chunks; the trace is small against the work before
+                # it.
+                skip_cal = False
+                if not warmup:
+                    prof_dev += device_dur
+                if (prof_pending and not warmup
+                        and prof_dev >= profile_split.MIN_DEVICE_S
+                        and not (phase == IDLE).all()):
+                    prof_pending = False
+                    with trace.span("split") as sp:
+                        frac = profile_split.measure_fixpoint_fraction(
+                            profiled_chunk, cuda=st.lb.is_cuda)
+                    if frac is not None:
+                        timers.measured_fix_frac = frac
+                    self.last_split = (frac, sp.s, None)
+                    # The profiled chunks advanced st: refresh the whole
+                    # snapshot, and keep their nodes out of the
+                    # calibrator's next rate sample.
+                    (phase, sols, fpit, bbs, nsub, slim, nodes_v,
+                     sol_w), _ = snapshot()
+                    skip_cal = True
+                if ring > 0 and on_solution is not None:
+                    with trace.span("ring"):
+                        cur = int(sol_w[0])
+                        if not self.opt and stop_after_n_solutions > 0:
+                            cur = min(cur, stop_after_n_solutions)
+                        if cur - ring_drained > ring:
+                            lost = cur - ring_drained - ring
+                            overflow += lost
+                            print(f"% warning: solution ring overflow; "
+                                  f"{lost} solutions not streamed",
+                                  flush=True)
+                            ring_drained = cur - ring
+                        if cur > ring_drained:
+                            # Only the new rows cross to the host.
+                            slots = torch.arange(ring_drained, cur) % ring
+                            rows = st.sol_ring[slots.to(st.sol_ring.device)]
+                            for row in rows.cpu().numpy():
+                                on_solution(self.plan.store_to_tnf(row))
+                            ring_drained = cur
+                bbm = int(bbs.min())
+                if on_improve is not None and bbm < last_best:
+                    last_best = bbm
+                    d = int(bbs.argmin())
+                    on_improve(self.plan.store_to_tnf(
+                        st.best_lb[d].cpu().numpy()))
+                if bbm < (best_seen if best_seen is not None else 1 << 40):
+                    best_seen = bbm
+                    best_obj_time = time.monotonic() - t0
+                if (phase == IDLE).all():
+                    break
+                if not self.opt and sols.sum() >= stop_after_n_solutions > 0:
+                    stopped = True
+                    break
+                if time.monotonic() - t0 > timeout_s or steps >= max_steps:
+                    stopped = True
+                    break
+                if (timeout_s < 1e17 and hard_mult > 0
+                        and time.monotonic() - t_entry
+                        > hard_mult * timeout_s):
+                    print("% hard wall-clock limit reached "
+                          f"({hard_mult:g}x timeout incl. compile); stopping",
+                          file=sys.stderr, flush=True)
+                    stopped = True
+                    break
+                # Adapt the chunk to the remaining budget.
+                if not warmup and ndone > 0 and timeout_s < 1e17:
+                    step_cost = device_dur / ndone
+                    remaining = timeout_s - (time.monotonic() - t0)
+                    cur_chunk = int(max(1, min(
+                        chunk, remaining / max(step_cost, 1e-9))))
                 if not cal.done:
-                    cal.nodes0 = int(nodes_v.sum())
-                    cap = cal.arm(cap)
-                    if verbose:
+                    with trace.span("calibrate"):
+                        cap, hint = cal.observe(cap, int(nodes_v.sum()),
+                                                device_dur, warmup,
+                                                skip=skip_cal,
+                                                verbose=verbose)
+                    if hint is not None:
+                        cur_chunk = min(cur_chunk, hint)
+                    else:
+                        self.last_auto_cap = cal.chosen
+                        cur_chunk = chunk
+                # EPS tail: once the range is drained, idle lanes can only
+                # get work from the stragglers. Stack stealing first (no
+                # re-exploration); resplit when there is nothing to steal.
+                drained = nsub[0] >= slim[0]
+                if not drained:
+                    recal_armed = True
+                elif (recal_armed and not recal_done and cal.done
+                        and fp_cap == 0 and self.cfg.fp_cap_auto
+                        and timeout_s - (time.monotonic() - t0) > 10.0):
+                    recal_done = True
+                    with trace.span("calibrate"):
+                        cal = AutoCapCalibrator(self.cfg, fp_cap)
+                        if not cal.done:
+                            cal.nodes0 = int(nodes_v.sum())
+                            cap = cal.arm(cap)
+                    if not cal.done and verbose:
                         print("% range drained: re-calibrating fp_cap",
                               flush=True)
-            idle_n = int((phase == IDLE).sum())
-            # idle_n >= D/8: JAX's policy (turbo_tpu/solver/engine.py:
-            # 1702), set when a round fetched the whole state; a round here
-            # moves no state through the host, the gate stays JAX's.
-            if (drained and idle_n >= max(1, len(phase) // 8)
-                    and not (phase == IDLE).all()
-                    and not self.cfg.enumerate_all
-                    and timeout_s - (time.monotonic() - t0) > 2.0
-                    and time.monotonic() - last_steal > steal_wait):
-                last_steal = time.monotonic()
+                idle_n = int((phase == IDLE).sum())
+                # idle_n >= D/8: JAX's policy (turbo_tpu/solver/engine.py:
+                # 1702), set when a round fetched the whole state; a round
+                # here moves no state through the host, the gate stays
+                # JAX's.
+                if (drained and idle_n >= max(1, len(phase) // 8)
+                        and not (phase == IDLE).all()
+                        and not self.cfg.enumerate_all
+                        and timeout_s - (time.monotonic() - t0) > 2.0
+                        and time.monotonic() - last_steal > steal_wait):
+                    last_steal = time.monotonic()
 
-                def _freeze_accounting():
-                    # Coarse (2^k) accounting from here on: counter
-                    # deltas of refined / stolen units are credited as
-                    # the not-yet-accounted coarse subproblems when the
-                    # run exhausts (post-fix below).
-                    nonlocal resplit_base
-                    if resplit_base is None:
-                        s0 = int(st.solved_sub.sum())
-                        k0 = int(st.skipped_sub.sum())
-                        resplit_base = (
-                            s0, k0, max(0, self.num_sub_total - s0 - k0))
-                # The open-branch count gates the steal (on the card K5,
-                # which also plans the round; K9 applies it).
-                tr = time.monotonic()
-                res3 = self._steal_open_branches(st, phase)
-                if res3 is not None:
-                    self._sync()
-                    round_ms = (time.monotonic() - tr) * 1e3
-                    # The round writes neither solved_sub nor skipped_sub:
-                    # the snapshot reads the pre-steal counters.
-                    _freeze_accounting()
-                    st, n_steals = res3
-                    steal_rounds += 1
-                    steal_wait = 1.0
-                    if verbose:
-                        print(f"% stack steal #{steal_rounds}: "
-                              f"{n_steals} open branches reseeded "
-                              f"({round_ms:.3f} ms)")
-                elif resplit_rounds < 8 and idle_n >= (3 * len(phase)) // 4:
-                    tr = time.monotonic()
-                    res2 = self._tail_resplit(st, phase)
-                    if res2 is not None:
-                        self._sync()
-                        round_ms = (time.monotonic() - tr) * 1e3
+                    def _freeze_accounting():
+                        # Coarse (2^k) accounting from here on: counter
+                        # deltas of refined / stolen units are credited
+                        # as the not-yet-accounted coarse subproblems
+                        # when the run exhausts (post-fix below).
+                        nonlocal resplit_base
+                        if resplit_base is None:
+                            s0 = int(st.solved_sub.sum())
+                            k0 = int(st.skipped_sub.sum())
+                            resplit_base = (
+                                s0, k0,
+                                max(0, self.num_sub_total - s0 - k0))
+                    # The open-branch count gates the steal (on the card
+                    # K5, which also plans the round; K9 applies it).
+                    with trace.span("tail.steal") as sp:
+                        res3 = self._steal_open_branches(st, phase)
+                        if res3 is not None:
+                            self._sync()
+                    if res3 is not None:
+                        round_ms = sp.s * 1e3
+                        # The round writes neither solved_sub nor
+                        # skipped_sub: the snapshot reads the pre-steal
+                        # counters.
                         _freeze_accounting()
-                        st, n_coarse = res2
-                        resplit_rounds += 1
+                        st, n_steals = res3
+                        steal_rounds += 1
+                        trace.count("steal_rounds")
+                        trace.count("steals", n_steals)
                         steal_wait = 1.0
                         if verbose:
-                            print(f"% tail resplit #{resplit_rounds}: "
-                                  f"{n_coarse} stragglers refined "
+                            print(f"% stack steal #{steal_rounds}: "
+                                  f"{n_steals} open branches reseeded "
                                   f"({round_ms:.3f} ms)")
+                    elif (resplit_rounds < 8
+                            and idle_n >= (3 * len(phase)) // 4):
+                        with trace.span("tail.resplit") as sp:
+                            res2 = self._tail_resplit(st, phase)
+                            if res2 is not None:
+                                self._sync()
+                        if res2 is not None:
+                            round_ms = sp.s * 1e3
+                            _freeze_accounting()
+                            st, n_coarse = res2
+                            resplit_rounds += 1
+                            trace.count("resplit_rounds")
+                            steal_wait = 1.0
+                            if verbose:
+                                print(f"% tail resplit #{resplit_rounds}: "
+                                      f"{n_coarse} stragglers refined "
+                                      f"({round_ms:.3f} ms)")
+                        else:
+                            steal_wait = min(steal_wait * 2, 8.0)
                     else:
+                        # Nothing to steal or refine: back off so retries
+                        # do not starve the stragglers' chunks.
                         steal_wait = min(steal_wait * 2, 8.0)
-                else:
-                    # Nothing to steal or refine: back off so retries do
-                    # not starve the stragglers' chunks.
-                    steal_wait = min(steal_wait * 2, 8.0)
-            if node_limit and int(nodes_v.sum()) >= node_limit:
-                stopped = True
-                break
-            if checkpoint_path and \
-                    time.monotonic() - last_ckpt > checkpoint_every_s:
-                checkpoint()
-                last_ckpt = time.monotonic()
-            if verbose:
-                bb = int(bbs.min())
-                print(f"% t={time.monotonic()-t0:6.1f}s steps={steps} "
-                      f"chunk_s={device_dur:.2f} nodes={int(nodes_v.sum())} "
-                      f"best={bb if bb < INF else None} "
-                      f"dive={(phase == DIVE).sum()} "
-                      f"solve={(phase == SOLVE).sum()} "
-                      f"idle={(phase == IDLE).sum()}/{len(phase)} "
-                      f"next_sub={int(nsub[0])}/{int(slim[0])}",
-                      flush=True)
+                if node_limit and int(nodes_v.sum()) >= node_limit:
+                    stopped = True
+                    break
+                if checkpoint_path and \
+                        time.monotonic() - last_ckpt > checkpoint_every_s:
+                    checkpoint()
+                    last_ckpt = time.monotonic()
+                if verbose:
+                    bb = int(bbs.min())
+                    print(f"% t={time.monotonic()-t0:6.1f}s steps={steps} "
+                          f"chunk_s={device_dur:.2f} "
+                          f"nodes={int(nodes_v.sum())} "
+                          f"best={bb if bb < INF else None} "
+                          f"dive={(phase == DIVE).sum()} "
+                          f"solve={(phase == SOLVE).sum()} "
+                          f"idle={(phase == IDLE).sum()}/{len(phase)} "
+                          f"next_sub={int(nsub[0])}/{int(slim[0])}",
+                          flush=True)
         if checkpoint_path and stopped:
             checkpoint()
         res = EngineResult.from_state(self, st, stopped,

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..host.core.ops import INF, NINF
 
 I32 = torch.int32
@@ -158,7 +159,10 @@ class _Chunk:
 
 def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
     """Expand the dive tree over shard ``shard_idx``'s range and return
-    its leaf table.
+    its leaf table, built inside the span ``table`` (``trace.py``), whose
+    seconds are its ``build_time``: ``table.level`` a level's launch,
+    ``table.read`` a host read of a level's results, ``table.leaf`` the
+    leaf level in numpy.
 
     Returns None when the build overruns ``solver._table_deadline`` (an
     absolute ``time.monotonic()`` deadline budgeted from ``-t`` by
@@ -166,6 +170,25 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
     ``solver._table_aborted_s`` so the solve budget still charges it.
     Progress goes to stderr as ``%`` lines once the build runs longer
     than ~2 s."""
+    with trace.span("table") as sp:
+        try:
+            acc = _build(solver, shard_idx)
+        except TableBuildTimeout:
+            acc = None
+    if acc is None:
+        solver._table_aborted_s = sp.s
+        print(f"% table build deadline exceeded at level<= {solver.k}: "
+              f"abandoning after {solver._table_aborted_s:.1f}s; "
+              f"falling back to dive-mode refills",
+              file=sys.stderr, flush=True)
+        return None
+    acc.build_time = sp.s
+    return acc
+
+
+def _build(solver, shard_idx):
+    """``build_table``'s work; raises ``TableBuildTimeout`` past the
+    deadline."""
     cfg, plan = solver.cfg, solver.plan
     W = cfg.num_dives
     k = solver.k
@@ -198,9 +221,10 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
         """Account a freshly-propagated chunk (one host read); return the
         expandable subset (rows, paths) with the chunk's device arrays."""
         dvc = raw[:8]
-        bot, ent, found, iters, objlb = torch.stack(
-            [raw[8].to(I32), raw[9].to(I32), raw[10].to(I32), raw[11],
-             raw[12]]).cpu().numpy()
+        with trace.span("table.read"):
+            bot, ent, found, iters, objlb = torch.stack(
+                [raw[8].to(I32), raw[9].to(I32), raw[10].to(I32), raw[11],
+                 raw[12]]).cpu().numpy()
         bot, ent, found = bot != 0, ent != 0, found != 0
         n = len(rows)
         acc.nodes += n
@@ -227,8 +251,9 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
                     acc.sols += 1
                     acc.has_cand = True
                     acc.cand_bound = objv if is_opt else 0
-                    acc.cand_lb = dvc[0][int(r)].cpu().numpy()
-                    acc.cand_ub = dvc[1][int(r)].cpu().numpy()
+                    with trace.span("table.read"):
+                        acc.cand_lb = dvc[0][int(r)].cpu().numpy()
+                        acc.cand_ub = dvc[1][int(r)].cpu().numpy()
                 if cov >= 1:
                     acc.solved += 1
                     acc.skipped += cov - 1
@@ -252,8 +277,9 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
     z = torch.zeros(W, dtype=I32, device=dev)
     neu0l = torch.full((W,), NINF, dtype=I32, device=dev)
     neu0u = torch.full((W,), INF, dtype=I32, device=dev)
-    raw = solver._dive_level(lb_r, ub_r, z, z, neu0l, neu0u, neu0l, neu0u,
-                             z, z)
+    with trace.span("table.level"):
+        raw = solver._dive_level(lb_r, ub_r, z, z, neu0l, neu0u, neu0l,
+                                 neu0u, z, z)
     parents = [classify(raw, np.asarray([0]), np.asarray([0]), 0)]
 
     def expand(level):
@@ -276,85 +302,80 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
                 pbit = np.zeros(W, dtype=np.int32)
                 pidx[:len(grp)] = [g[0] for g in grp]
                 pbit[:len(grp)] = [g[1] for g in grp]
-                res = solver._dive_level(ch.lb, ch.ub, ch.strat, ch.var,
-                                         ch.c0l, ch.c0u, ch.c1l, ch.c1u,
-                                         torch.from_numpy(pidx).to(dev),
-                                         torch.from_numpy(pbit).to(dev))
+                with trace.span("table.level"):
+                    res = solver._dive_level(
+                        ch.lb, ch.ub, ch.strat, ch.var, ch.c0l, ch.c0u,
+                        ch.c1l, ch.c1u, torch.from_numpy(pidx).to(dev),
+                        torch.from_numpy(pbit).to(dev))
                 out.append((res, np.arange(len(grp)),
                             np.asarray([g[2] for g in grp])))
         return out
 
-    try:
-        for level in range(1, k):
-            parents = [classify(raw, rows, paths, level)
-                       for raw, rows, paths in expand(level)]
-            parents = [c for c in parents if len(c.rows)]
-            if not parents:
-                break
-    except TableBuildTimeout:
-        solver._table_aborted_s = time.monotonic() - t_start
-        print(f"% table build deadline exceeded at level<= {k}: "
-              f"abandoning after {solver._table_aborted_s:.1f}s; "
-              f"falling back to dive-mode refills",
-              file=sys.stderr, flush=True)
-        return None
-
+    for level in range(1, k):
+        parents = [classify(raw, rows, paths, level)
+                   for raw, rows, paths in expand(level)]
+        parents = [c for c in parents if len(c.rows)]
+        if not parents:
+            break
     # Leaf level k: embed-only, in numpy (the lane's first step
     # propagates the leaf anyway).
-    leaf_lb, leaf_ub, leaf_st, leaf_paths = [], [], [], []
-    for ch in parents:
-        if not len(ch.rows):
-            continue
-        lbh, ubh = ch.lb.cpu().numpy(), ch.ub.cpu().numpy()
-        sth, vrh, c0lh, c0uh, c1lh, c1uh = torch.stack(
-            [ch.strat, ch.var, ch.c0l, ch.c0u, ch.c1l, ch.c1u]).cpu().numpy()
-        for bit in (0, 1):
-            cps = ch.paths * 2 + bit
-            inr = (cps >= base) & (cps < limit)
-            rs = ch.rows[inr]
-            if not len(rs):
+    with trace.span("table.leaf"):
+        leaf_lb, leaf_ub, leaf_st, leaf_paths = [], [], [], []
+        for ch in parents:
+            if not len(ch.rows):
                 continue
-            lbn = lbh[rs].copy()
-            ubn = ubh[rs].copy()
-            v = vrh[rs]
-            cl = (c1lh if bit else c0lh)[rs]
-            cu = (c1uh if bit else c0uh)[rs]
-            ar = np.arange(len(rs))
-            lbn[ar, v] = np.maximum(lbn[ar, v], cl)
-            ubn[ar, v] = np.minimum(ubn[ar, v], cu)
-            leaf_lb.append(lbn)
-            leaf_ub.append(ubn)
-            leaf_st.append(sth[rs])
-            leaf_paths.append(cps[inr])
+            with trace.span("table.read"):
+                lbh, ubh = ch.lb.cpu().numpy(), ch.ub.cpu().numpy()
+                sth, vrh, c0lh, c0uh, c1lh, c1uh = torch.stack(
+                    [ch.strat, ch.var, ch.c0l, ch.c0u, ch.c1l,
+                     ch.c1u]).cpu().numpy()
+            for bit in (0, 1):
+                cps = ch.paths * 2 + bit
+                inr = (cps >= base) & (cps < limit)
+                rs = ch.rows[inr]
+                if not len(rs):
+                    continue
+                lbn = lbh[rs].copy()
+                ubn = ubh[rs].copy()
+                v = vrh[rs]
+                cl = (c1lh if bit else c0lh)[rs]
+                cu = (c1uh if bit else c0uh)[rs]
+                ar = np.arange(len(rs))
+                lbn[ar, v] = np.maximum(lbn[ar, v], cl)
+                ubn[ar, v] = np.minimum(ubn[ar, v], cu)
+                leaf_lb.append(lbn)
+                leaf_ub.append(ubn)
+                leaf_st.append(sth[rs])
+                leaf_paths.append(cps[inr])
 
-    n_pad = acc.n_pad
-    if leaf_lb:
-        tlb = np.concatenate(leaf_lb, axis=0).astype(np.int32)
-        tub = np.concatenate(leaf_ub, axis=0).astype(np.int32)
-        tst = np.maximum(np.concatenate(leaf_st), eps_skip).astype(np.int32)
-        tpa = np.concatenate(leaf_paths).astype(np.int32)
-    else:
-        tlb = np.zeros((0, V), dtype=np.int32)
-        tub = np.zeros((0, V), dtype=np.int32)
-        tst = np.zeros((0,), dtype=np.int32)
-        tpa = np.zeros((0,), dtype=np.int32)
-    if len(tlb):
-        # Deterministic live ordering: sort leaves by bit-path (chunk
-        # emission order interleaves left/right children).
-        order = np.argsort(tpa, kind="stable")
-        tlb, tub, tst, tpa = tlb[order], tub[order], tst[order], tpa[order]
-    n_live = len(tlb)
-    pad = n_pad - n_live
-    if pad > 0:
-        # Padding rows are never gathered (refill guards newidx <
-        # sub_limit == n_live); root copies keep them harmless.
-        tlb = np.concatenate(
-            [tlb, np.tile(plan.lb0[None, :], (pad, 1))]).astype(np.int32)
-        tub = np.concatenate(
-            [tub, np.tile(plan.ub0[None, :], (pad, 1))]).astype(np.int32)
-        tst = np.concatenate([tst, np.zeros(pad, dtype=np.int32)])
-        tpa = np.concatenate([tpa, np.zeros(pad, dtype=np.int32)])
-    acc.lb, acc.ub, acc.strat, acc.path = tlb, tub, tst, tpa
-    acc.n_live = n_live
-    acc.build_time = time.monotonic() - t_start
+        n_pad = acc.n_pad
+        if leaf_lb:
+            tlb = np.concatenate(leaf_lb, axis=0).astype(np.int32)
+            tub = np.concatenate(leaf_ub, axis=0).astype(np.int32)
+            tst = np.maximum(np.concatenate(leaf_st),
+                             eps_skip).astype(np.int32)
+            tpa = np.concatenate(leaf_paths).astype(np.int32)
+        else:
+            tlb = np.zeros((0, V), dtype=np.int32)
+            tub = np.zeros((0, V), dtype=np.int32)
+            tst = np.zeros((0,), dtype=np.int32)
+            tpa = np.zeros((0,), dtype=np.int32)
+        if len(tlb):
+            # Deterministic live ordering: sort leaves by bit-path (chunk
+            # emission order interleaves left/right children).
+            order = np.argsort(tpa, kind="stable")
+            tlb, tub, tst, tpa = tlb[order], tub[order], tst[order], tpa[order]
+        n_live = len(tlb)
+        pad = n_pad - n_live
+        if pad > 0:
+            # Padding rows are never gathered (refill guards newidx <
+            # sub_limit == n_live); root copies keep them harmless.
+            tlb = np.concatenate(
+                [tlb, np.tile(plan.lb0[None, :], (pad, 1))]).astype(np.int32)
+            tub = np.concatenate(
+                [tub, np.tile(plan.ub0[None, :], (pad, 1))]).astype(np.int32)
+            tst = np.concatenate([tst, np.zeros(pad, dtype=np.int32)])
+            tpa = np.concatenate([tpa, np.zeros(pad, dtype=np.int32)])
+        acc.lb, acc.ub, acc.strat, acc.path = tlb, tub, tst, tpa
+        acc.n_live = n_live
     return acc

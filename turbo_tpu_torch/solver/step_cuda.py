@@ -78,6 +78,8 @@ import dataclasses
 
 import torch
 
+from .. import trace
+
 I32 = torch.int32
 F32 = torch.float32
 BOOL = torch.bool
@@ -206,7 +208,10 @@ def run(solver, st, n: int, cap: int = 0, graph: bool = True,
     that repeats the previous one and replay it. ``stamps``: an (n, D, 2)
     int64 tensor; the chunk is a profiled one (a graph of its own, the
     stamped step entries, step i's stamps in ``stamps[i]``; its launches'
-    spans in ``spans``, a ``Spans`` of n steps)."""
+    spans in ``spans``, a ``Spans`` of n steps). Traced (``trace.py``),
+    the chunk counts as ``graph_replays``, ``graph_captures`` (captured
+    in this call, then replayed) or ``eager_chunks`` (enqueued launch by
+    launch; a profiled chunk, or ``graph`` False, too)."""
     lanes = st.phase.shape[0]
     if solver._ws is None or solver._ws.lanes != lanes:
         solver._ws = Workspace(solver, lanes)
@@ -223,6 +228,7 @@ def run(solver, st, n: int, cap: int = 0, graph: bool = True,
         g, counts = _capture(solver, st, sv, n, cap, stamps, spans)
         g.replay()
         kernels.add_launches(counts)
+        trace.count("eager_chunks")
         return ws.steps[0].clone()
     key = (n, cap, bytes(sv))
     g = ws.graphs.get(key) if graph else None
@@ -231,6 +237,9 @@ def run(solver, st, n: int, cap: int = 0, graph: bool = True,
         if len(ws.graphs) >= MAX_GRAPHS:
             ws.graphs.pop(next(iter(ws.graphs)))
         ws.graphs[key] = g
+        trace.count("graph_captures")
+    else:
+        trace.count("eager_chunks" if g is None else "graph_replays")
     ws.last_key = key
     if g is not None:
         from .. import kernels
