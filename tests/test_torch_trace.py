@@ -25,7 +25,8 @@ TIMED = ("initTime", "table_build_time", "dive_time",
          "transfer_cpu2gpu_time", "transfer_gpu2cpu_time", "fixpoint_time",
          "search_time", "wait_cpu_time", "solveTime")
 SPANS = ("request", "parse", "compile", "output", "init.solver",
-         "init.plan", "init.upload", "init.warm_up", "solve", "init_state",
+         "init.plan", "init.probe", "init.upload", "init.warm_up", "solve",
+         "init_state",
          "table", "table.level", "table.read", "table.leaf", "chunk",
          "chunk.enqueue", "chunk.wait", "chunk.read", "split", "ring",
          "calibrate", "tail.steal", "tail.resplit", "checkpoint")
@@ -193,8 +194,8 @@ def test_every_span_appears(tmp_path, capsys, monkeypatch):
     """A golomb(7) solve with the table on, streamed (``-i``: the ring)
     and with nothing to steal (so the resplit is tried), then a golomb(6)
     cut by ``-cutnodes`` (its checkpoint): every span of the request, the
-    solver set-up, the table build and the chunk loop, each under its
-    parent and with its request's id."""
+    solver set-up (the tree probe's too), the table build and the chunk
+    loop, each under its parent and with its request's id."""
     monkeypatch.setattr(BatchedSolver, "_steal_open_branches",
                         lambda self, st, phase: None)
     trace.enable()
@@ -212,7 +213,8 @@ def test_every_span_appears(tmp_path, capsys, monkeypatch):
     by_id = {r.span: r for r in recs}
     parent = {"parse": "request", "compile": "request", "output": "request",
               "init.solver": "request", "solve": "request",
-              "init.plan": "init.solver", "init.upload": "init.solver",
+              "init.plan": "init.solver", "init.probe": "init.plan",
+              "init.upload": "init.solver",
               "init.warm_up": "init.solver", "init_state": "solve",
               "table": "init_state", "table.level": "table",
               "chunk": "solve", "chunk.enqueue": "chunk",
@@ -228,9 +230,12 @@ def test_every_span_appears(tmp_path, capsys, monkeypatch):
             assert by_id[r.parent].name in ("table", "table.leaf")
         elif r.name == "checkpoint":
             assert by_id[r.parent].name in ("chunk", "solve")
-    for err in (err1, err2):
+    # The tree probe: native, golomb(7)'s and golomb(6)'s whole trees.
+    for err, nodes in ((err1, 717), (err2, 95)):
         spans, counters = _lines(err)
         assert counters["chunks"] >= spans["chunk"][0] > 0
+        assert (counters["probe_native"], counters["probe_nodes"],
+                counters["probe_exhaustive"]) == (1, nodes, 1)
         for n, total, self_ms in spans.values():
             assert n > 0 and -1e-3 <= self_ms <= total + 1e-3
     assert "resplit_rounds" in _lines(err1)[1]

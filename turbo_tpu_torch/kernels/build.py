@@ -19,6 +19,8 @@ import pathlib
 import shutil
 import subprocess
 
+from ..solver import tree_probe
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "table_refill.cu",
@@ -119,8 +121,11 @@ def without_skip():
 def load():
     """Build (at first use, once per source hash) and load the kernel
     library (the one without the skip inside ``without_skip``);
-    raises when the kernels cannot be built."""
+    raises when the kernels cannot be built. Builds and loads the host
+    library of the EPS tree probe (``solver/tree_probe.py``) first, so
+    that no request compiles it."""
     global build_log
+    tree_probe.load()
     key = _no_skip
     if key in _libs:
         return _libs[key]

@@ -11,8 +11,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 
 import numpy as np
+
+from .. import trace
 
 
 @dataclasses.dataclass
@@ -71,16 +74,46 @@ def probe_tree_power(tnf, probe_nodes: int = 2000,
                      probe_timeout_s: float = 0.5):
     """Root-tree size probe for EPS auto-splitting: run the sequential
     oracle briefly; if it exhausts the whole tree in N nodes, return
-    ceil(log2(N))+1, else None (use the factor split)."""
+    ceil(log2(N))+1, else None (use the factor split).
+
+    The oracle's search runs in native code (``tree_probe.py``), node for
+    node; the numpy oracle runs only where that library cannot be built
+    or loaded, said once on stderr while tracing is on (the CLI's
+    ``-v``). Inside span ``init.probe``, with counters ``probe_nodes``,
+    ``probe_exhaustive`` and ``probe_native`` (1: the native probe
+    answered)."""
     from ..host.solver import oracle
-    try:
-        r = oracle.solve(tnf, timeout_s=probe_timeout_s,
-                         node_limit=probe_nodes)
-    except Exception:
+    from . import tree_probe
+    with trace.span("init.probe"):
+        try:
+            r = tree_probe.solve(tnf, timeout_s=probe_timeout_s,
+                                 node_limit=probe_nodes)
+            native = r is not None
+            if not native:
+                _say_fallback(tree_probe.load_error)
+                st = oracle.solve(tnf, timeout_s=probe_timeout_s,
+                                  node_limit=probe_nodes).stats
+                r = tree_probe.Probe(st.nodes, st.exhaustive, st.fails,
+                                     st.solutions, None)
+        except Exception:
+            return None
+    trace.count("probe_native", int(native))
+    trace.count("probe_nodes", r.nodes)
+    trace.count("probe_exhaustive", int(r.exhaustive))
+    if not r.exhaustive:
         return None
-    if not r.stats.exhaustive:
-        return None
-    return max(1, int(np.ceil(np.log2(max(2, r.stats.nodes)))) + 1)
+    return max(1, int(np.ceil(np.log2(max(2, r.nodes)))) + 1)
+
+
+_said_fallback = False
+
+
+def _say_fallback(why) -> None:
+    global _said_fallback
+    if trace.enabled() and not _said_fallback:
+        _said_fallback = True
+        print(f"% tree probe: native library unavailable ({why}); "
+              f"running the numpy oracle", file=sys.stderr, flush=True)
 
 
 def auto_max_depth(plan) -> int:
