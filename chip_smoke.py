@@ -20,8 +20,11 @@ phases 1, 2, 3e and 12e). Phases (any failure exits non-zero):
    outputs against the plain ``dive_level``, both memory paths) on the
    widest level of a golomb(12) table build at W=512, at V=2560 and at
    an unrounded V that is not a multiple of 4 (rows loaded by the loop,
-   not by TMA); K4's table refill (V and V - 1) and K5 (the open-branch
-   count and the steal plan) on
+   not by TMA); K4's leaf entry against ``table_leaf_plain`` on the leaf
+   levels of K1's two golomb(12) builds and of a golomb(8) build at
+   D=1024, timed with L2 flushed, back to back and inside table builds
+   (the JSON line's row is golomb(8)'s); K4's table refill (V and V - 1)
+   and K5 (the open-branch count and the steal plan) on
    random stores, table rows, masks and stacks at golomb(12)'s shapes
    (D=512, V=2560, 2048 table rows, MAXD=10000); on the same stores
    K8 (WAC1: outer caps 2 and 10000, inner caps 1 and 16; iters, unconv
@@ -778,13 +781,15 @@ def exact(name, got, want):
     return err
 
 
-def level_chunk(dev, text, mode, odd=False):
-    """A solver of D=512 lanes for ``text`` under fp_mode ``mode`` and the
+def level_chunk(dev, text, mode, odd=False, D=512):
+    """A solver of D lanes for ``text`` under fp_mode ``mode``, the
     inputs of its table build's widest level (the one with the most
-    distinct parent rows; through the kernels), as the main path builds
-    it: (solver, the ten inputs). ``odd``: the plan keeps V unrounded (the
-    planner rounds it up to a multiple of 128), a V that is not a
-    multiple of 4, whose rows the level entries load with the loop."""
+    distinct parent rows; through the kernels) and the six arguments of
+    its leaf level (``eps_table.table_leaf``'s), as the main path builds
+    them: (solver, the ten inputs, the leaf's arguments). ``odd``: the
+    plan keeps V unrounded (the planner rounds it up to a multiple of
+    128), a V that is not a multiple of 4, whose rows the level and leaf
+    entries load with the loop."""
     from unittest import mock
     from turbo_tpu_torch.host.compile.model import compile_model
     from turbo_tpu_torch.host.frontend.fzn import parse_fzn_text
@@ -797,16 +802,102 @@ def level_chunk(dev, text, mode, odd=False):
             lambda n, min_gran=32: n if min_gran == 128
             else rounded(n, min_gran)) if odd else rounded):
         s = BatchedSolver(compile_model(parse_fzn_text(text)),
-                          EngineConfig(num_dives=512, fp_mode=mode),
+                          EngineConfig(num_dives=D, fp_mode=mode),
                           device=dev)
     if (s.plan.V % 4 != 0) != odd or not s.use_table:
         fail(f"level chunk: V={s.plan.V}, table {s.use_table}")
-    chunks = []
-    level = eps_table.dive_level
+    chunks, leaves = [], []
+    level, leaf = eps_table.dive_level, eps_table.table_leaf
     with mock.patch.object(eps_table, "dive_level", lambda solver, *c: (
-            chunks.append(c), level(solver, *c))[1]):
+            chunks.append(c), level(solver, *c))[1]), mock.patch.object(
+            eps_table, "table_leaf", lambda *a: (leaves.append(a),
+                                                 leaf(*a))[1]):
         eps_table.build_table(s)
-    return s, max(chunks, key=lambda c: len(set(c[8].tolist())))
+    if len(leaves) != 1:
+        fail(f"level chunk: {len(leaves)} leaf levels in one build")
+    return s, max(chunks, key=lambda c: len(set(c[8].tolist()))), leaves[0]
+
+
+# Bytes written between two timed launches to evict their inputs and
+# outputs from the H100's 50 MB L2.
+L2_FLUSH_BYTES = 128 << 20
+
+
+def profiled_ms(kernel, fn, reps, flush=None):
+    """Mean device ms of the launches of ``kernel`` (a name prefix) over
+    ``reps`` calls of ``fn`` under ``torch.profiler``; with ``flush`` (a
+    card tensor) zeroed before each call, so that the launch starts with
+    an L2 that holds none of its bytes. Fails when the profiler sees no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.key.startswith(kernel) and e.count:
+            us = getattr(e, "device_time_total", 0) or getattr(
+                e, "cuda_time_total", 0)
+            if us:
+                return us / e.count / 1e3
+    fail(f"torch.profiler saw no device time of {kernel}")
+
+
+def phase_table_leaf(torch, dev, leaves, g8):
+    """K4's leaf entry against ``table_leaf_plain`` on the leaf levels of
+    real builds (``leaves``: label -> (solver, the leaf's arguments)),
+    exactly: 16-byte words where V % 4 == 0, 4-byte ones at an unrounded
+    V. Times each: the kernel by ``torch.profiler``, the mean of 20
+    launches with L2 flushed before each (the row's ms), back to back
+    (warm), and inside 5 table builds of its solver (in the path); the
+    wrapper with its upload and the plain version by CUDA events.
+    Returns the kres row of ``g8``, the proofs cells' table (golomb(8),
+    D = 1024), and puts every shape's figures in ``ROW_EXTRA``."""
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.solver import eps_table
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    shapes, row = {}, None
+    for label, (ls, a) in leaves.items():
+        chunks, rows, lb0, ub0, n_pad, _ = a
+        V, n_live = lb0.shape[0], len(rows)
+        err = exact(f"table_leaf ({label})", kernels.table_leaf(*a),
+                    eps_table.table_leaf_plain(*a))
+        # A live row reads two parent rows; every row writes two, its
+        # strat and its path; the root box, the row indices (16 bytes a
+        # row) and the chunks' pointers are read once.
+        b = bound(8 * V * (n_live + n_pad) + 8 * n_pad + 8 * V
+                  + 16 * n_live + 64 * len(chunks), 0)
+        ms = profiled_ms("table_leaf_kernel", lambda: kernels.table_leaf(*a),
+                         20, flush)
+        plain = median_ms(lambda: eps_table.table_leaf_plain(*a), reps=5)
+        fig = {"n_pad": n_pad, "n_live": n_live, "V": V,
+               "chunks": len(chunks), "vec": V % 4 == 0, "ms": ms,
+               "plain_ms": plain, "bound_ms": b[0],
+               "warm_ms": profiled_ms("table_leaf_kernel",
+                                      lambda: kernels.table_leaf(*a), 20),
+               "in_path_ms": profiled_ms(
+                   "table_leaf_kernel", lambda: eps_table.build_table(ls),
+                   5),
+               "wrapper_ms": median_ms(lambda: kernels.table_leaf(*a))}
+        shapes[label] = fig
+        if label == g8:
+            row = (err, ms, plain) + b
+        log(f"  table_leaf, {label} ({n_pad} rows, {n_live} live, V={V}, "
+            f"{len(chunks)} chunks): exact; ms {ms:.4f} with L2 flushed "
+            f"(back to back {fig['warm_ms']:.4f}, in 5 table builds "
+            f"{fig['in_path_ms']:.4f}; the wrapper with its upload "
+            f"{fig['wrapper_ms']:.4f}; plain {plain:.4f}), bound "
+            f"{b[0]:.5f} ({b[1]})")
+    ROW_EXTRA.setdefault("table_leaf", {}).update(
+        shape=g8, ms_by="torch.profiler, L2 flushed before each launch",
+        shapes=shapes)
+    return row
 
 
 def phase_table_kernels(torch, dev, s, tnf, epi_ops):
@@ -814,9 +905,11 @@ def phase_table_kernels(torch, dev, s, tnf, epi_ops):
     golomb(12)'s shapes: K1's and K8's level entries (each on both memory
     paths, V = 2560 and an unrounded V that is not a multiple of 4, on
     the widest level of a real build at W = 512) against
-    ``dive_level_plain``; K4's refill (2048 table rows, D = 512) and K5
-    ((512, 10000) stacks) on random inputs. ``epi_ops``: K2's and K3's
-    operations at W = 512."""
+    ``dive_level_plain``; K4's leaf entry on the leaf levels of the
+    same builds (K1's) and of golomb(8)'s at D = 1024 against
+    ``table_leaf_plain`` (``phase_table_leaf``); K4's refill (2048 table
+    rows, D = 512) and K5 ((512, 10000) stacks) on random inputs.
+    ``epi_ops``: K2's and K3's operations at W = 512."""
     import numpy as np
     from turbo_tpu_torch import kernels
     from turbo_tpu_torch.instances import golomb
@@ -829,11 +922,13 @@ def phase_table_kernels(torch, dev, s, tnf, epi_ops):
     n_pad = quantize(1 << 11)  # golomb(12) at D=512 splits 2^11 ways
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                   device=dev)
-    out = {}
+    out, leaves = {}, {}
     for mode, k in (("fixpoint", kernels.fixpoint), ("wac1", kernels.wac1)):
         name = f"{k.name}.level"
         for odd in (False, True):
-            ls, chunk = level_chunk(dev, golomb(12), mode, odd)
+            ls, chunk, leaf = level_chunk(dev, golomb(12), mode, odd)
+            if mode == "fixpoint":
+                leaves[f"golomb(12) D=512, V={ls.plan.V}"] = (ls, leaf)
             kp, V, W = ls.kernels.kernel_plan, ls.plan.V, len(chunk[8])
             caps = (_BIG_CAP, ls.cfg.wac1_inner_cap) if mode == "wac1" \
                 else (_BIG_CAP,)
@@ -862,6 +957,10 @@ def phase_table_kernels(torch, dev, s, tnf, epi_ops):
                 f"graph ({one:.4f} a single launch; global-memory path "
                 f"{glob:.4f}; plain {ms[1]:.4f}), bound {out[name][3]:.5f} "
                 f"({out[name][4]})")
+    g8 = "golomb(8) D=1024"
+    ls, _, leaf = level_chunk(dev, golomb(8), "fixpoint", D=1024)
+    leaves[g8] = (ls, leaf)
+    out["table_leaf"] = phase_table_leaf(torch, dev, leaves, g8)
     tlb, tub = random_stores(plan, tnf, n_pad, rng, None)
     tab = (t(tlb), t(tub))
     idx = t(rng.integers(-3, n_pad + 3, D))
@@ -1759,13 +1858,14 @@ def fused_only(label, c, prop="fixpoint"):
 
 # The step's own kernels (K6, K7), the default step's (K2 and K3 run
 # inside K1's step entry), and the default table build's (a level is one
-# launch of K1's level entry; the refill seeds the first lanes).
+# launch of K1's level entry, the leaf level one of K4's leaf entry; the
+# refill seeds the first lanes).
 STEP_OWN = ("step", "step_tail", "step.head", "step.post", "step_tail.live",
             "step_tail.copy")
 STEP_KERNELS = ("fixpoint", "fixpoint.step") + STEP_OWN
 # K6's timed entries, which a CLI run's profiled chunks launch.
 PROFILED = ("step.head_timed", "step.post_timed")
-TABLE_KERNELS = ("table_refill", "fixpoint.level")
+TABLE_KERNELS = ("table_refill", "table_leaf", "fixpoint.level")
 
 
 def api_run(dev, big, tnf, model, seconds, **kw):
@@ -2054,7 +2154,8 @@ def run_option_paths(torch, dev, big=12):
     # The step's kernels besides its propagation launch, where K2 and K3
     # run as launches of their own.
     rest = ("classify", "select") + STEP_OWN
-    wac1_kernels = ("wac1", "wac1.step", "wac1.level", "table_refill")
+    wac1_kernels = ("wac1", "wac1.step", "wac1.level", "table_refill",
+                    "table_leaf")
     paths = {}
     text = golomb(big)
     model = parse_fzn_text(text)

@@ -5,7 +5,9 @@ The same model and configuration (table on, a pinned subproblem power
 and stack depth, the (D, V) layout) go through ``turbo_tpu``'s
 ``build_table`` / ``dive_level`` and the port's. Tolerance is zero:
 every ``SubTable`` field but the wall-clock ``build_time`` must be
-equal. ``dive_level`` outputs are compared on the same random inputs:
+equal (the port's table planes are tensors, read back with
+``.cpu().numpy()``), also on shards whose range starts past 0.
+``dive_level`` outputs are compared on the same random inputs:
 ``bot``, ``ent`` and ``iters`` on every row, the rest on rows that are
 not bot (the JAX fixpoint keeps sweeping a bot row while others
 converge, the port freezes it). The calibrators get the same
@@ -46,36 +48,102 @@ CASES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(name, fp_mode="fixpoint"):
-    """One JAX and one port table-mode solver per case and propagation
-    mode (the JAX dive program compiles once per solver)."""
+def _pair(name, fp_mode="fixpoint", num_shards=1):
+    """One JAX and one port table-mode solver per case, propagation mode
+    and shard count (the JAX dive program compiles once per solver)."""
     text, kw = CASES[name]
     kw = dict(kw, max_depth=96, fp_max_iters=10000, use_table=True,
               fp_cap_auto=False, fp_mode=fp_mode)
     js = JaxSolver(jax_compile(jax_parse(text)),
-                   JaxConfig(fp_layout="dv", **kw))
+                   JaxConfig(fp_layout="dv", **kw), num_shards=num_shards)
     ts = BatchedSolver(compile_model(parse_fzn_text(text)), EngineConfig(**kw),
-                       device="cpu")
+                       device="cpu", num_shards=num_shards)
     assert js.use_table and ts.use_table
     return js, ts
+
+
+def _assert_same_table(want, got):
+    """Every field but ``build_time`` equal, dtypes too; the port's
+    tensor fields read back to the host."""
+    assert want is not None and got is not None
+    for f in eps_table.SubTable.__dataclass_fields__:
+        if f == "build_time":
+            continue
+        w, g = getattr(want, f), getattr(got, f)
+        if isinstance(g, torch.Tensor):
+            g = g.cpu().numpy()
+        if isinstance(w, np.ndarray) or isinstance(g, np.ndarray):
+            assert w.dtype == g.dtype, f
+            np.testing.assert_array_equal(g, w, err_msg=f)
+        else:
+            assert g == w, (f, g, w)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_build_table_matches_jax(name):
     js, ts = _pair(name)
     want, got = js.get_table(0), ts.get_table()
-    assert want is not None and got is not None
-    for f in eps_table.SubTable.__dataclass_fields__:
-        if f == "build_time":
-            continue
-        w, g = getattr(want, f), getattr(got, f)
-        if isinstance(w, np.ndarray) or isinstance(g, np.ndarray):
-            assert w.dtype == g.dtype, f
-            np.testing.assert_array_equal(g, w, err_msg=f)
-        else:
-            assert g == w, (f, g, w)
+    _assert_same_table(want, got)
     assert got.solved + got.skipped + got.n_live == 1 << ts.k
     assert got.build_time > 0
+
+
+# (case, shards, shard) -> what its leaf level holds: live rows from
+# several chunks, then padding ("padded"); live rows only ("full"); no
+# live row, every parent pruned ("empty").
+SHARDED = {("golomb6", 3, 1): "padded", ("golomb6", 3, 2): "padded",
+           ("golomb6", 2, 1): "full", ("rand12_eps", 2, 0): "empty"}
+
+
+@pytest.mark.parametrize("name,num_shards,shard", sorted(SHARDED))
+def test_build_table_leaf_order_matches_jax(name, num_shards, shard,
+                                            monkeypatch):
+    """A shard's table against JAX's where the leaf level's row order has
+    something to get wrong: the shard's range does not start at 0, the
+    last propagated level is wider than W (its parents lie in several
+    chunks), padding rows follow the live ones, or none are live."""
+    js, ts = _pair(name, num_shards=num_shards)
+    seen = []
+    leaf = eps_table.table_leaf
+    monkeypatch.setattr(eps_table, "table_leaf", lambda chunks, rows, *a: (
+        seen.append((len(chunks), rows)), leaf(chunks, rows, *a))[1])
+    got = ts.get_table(shard)
+    _assert_same_table(js.get_table(shard), got)
+    (n_chunks, rows), = seen
+    assert len(rows) == got.n_live
+    base, limit = eps_table.shard_range(ts, shard)
+    assert (rows[:, 3] >= base).all() and (rows[:, 3] < limit).all()
+    kind = SHARDED[name, num_shards, shard]
+    if kind == "empty":
+        assert got.n_live == 0
+        return
+    assert base > 0 and n_chunks > 1 and len(set(rows[:, 0].tolist())) > 1
+    assert (got.n_live < got.n_pad) == (kind == "padded") and got.n_live > 0
+
+
+def test_init_state_copies_the_table():
+    """A state's table rows are its own: writing into them in place (as a
+    rebalance or a checkpoint restore does) leaves the cached table, and
+    the next state of the shard seeds from the table as built."""
+    _, ts = _pair("golomb6")
+    tb = ts.get_table()
+    built = [t.clone() for t in (tb.lb, tb.ub, tb.strat, tb.path)]
+    names = ("tab_lb", "tab_ub", "tab_strat", "tab_path")
+    st = ts.init_state()
+    for f in names:
+        getattr(st, f).fill_(-7)
+    st2 = ts.init_state()
+    for f, t, w in zip(names, (tb.lb, tb.ub, tb.strat, tb.path), built):
+        assert torch.equal(t, w), f
+        assert torch.equal(getattr(st2, f), w), f
+    m = min(tb.n_live, ts.cfg.num_dives)
+    assert m > 0
+    for f in ("lb", "root_lb"):
+        assert torch.equal(getattr(st2, f)[:m], built[0][:m]), f
+    for f in ("ub", "root_ub"):
+        assert torch.equal(getattr(st2, f)[:m], built[1][:m]), f
+    assert torch.equal(st2.strat[:m], built[2][:m])
+    assert torch.equal(st2.subp[:m], built[3][:m])
 
 
 def _dive_inputs(ts, seed):

@@ -1229,6 +1229,182 @@ def test_cuda_embed_refill_open_count_match_plain(seed):
         open_branch_count_plain(dec_cur, depth, phase))
 
 
+# -- K4's leaf entry (table_leaf.cu) -------------------------------------
+
+def leaf_case(seed, V, n_chunks, kind):
+    """Random last-level chunk stores, as numpy: ``n_chunks`` chunks of W
+    rows, each (lb, ub, strat, var, c0l, c0u, c1l, c1u) with some
+    neutral children, the live rows and unique bit-paths of each, and a
+    shard range [base, limit) that cuts some children off. ``kind``:
+    "padded" (n_pad above the live rows), "full" (n_pad equal to them)
+    or "empty" (no live row). Returns (chunks, parents, base, limit, lb0,
+    ub0, n_pad)."""
+    rng = np.random.default_rng(seed)
+    W = 40
+    lb0 = rng.integers(-50, 0, V).astype(np.int32)
+    ub0 = (lb0 + rng.integers(0, 100, V)).astype(np.int32)
+    chunks, parents = [], []
+    paths = rng.permutation(4 * W * n_chunks)
+    for c in range(n_chunks):
+        lb = (lb0 + rng.integers(0, 20, (W, V))).astype(np.int32)
+        ub = (ub0 - rng.integers(0, 20, (W, V))).astype(np.int32)
+        var = rng.integers(0, V, W).astype(np.int32)
+        lo, hi = lb[np.arange(W), var], ub[np.arange(W), var]
+        mid = lo + (hi - lo) // 2
+        neutral = rng.random(W) < 0.2
+        c0l, c1l = (np.where(neutral, NINF, x).astype(np.int32)
+                    for x in (lo, mid + 1))
+        c0u, c1u = (np.where(neutral, INF, x).astype(np.int32)
+                    for x in (mid, hi))
+        strat = rng.integers(0, 3, W).astype(np.int32)
+        chunks.append((lb, ub, strat, var, c0l, c0u, c1l, c1u))
+        n = 0 if kind == "empty" else int(rng.integers(W // 2, W + 1))
+        rows = np.sort(rng.choice(W, n, replace=False)).astype(np.int64)
+        parents.append((rows, paths[c * W:c * W + n].astype(np.int64)))
+    top = 2 * len(paths)
+    base = int(rng.integers(0, top // 4))
+    limit = int(rng.integers(3 * top // 4, top + 1))
+    live = sum(int(((2 * p + b >= base) & (2 * p + b < limit)).sum())
+               for _, p in parents for b in (0, 1))
+    n_pad = live if kind == "full" else live + int(rng.integers(1, 50))
+    return chunks, parents, base, limit, lb0, ub0, n_pad
+
+
+def numpy_leaf(chunks, parents, base, limit, lb0, ub0, n_pad, eps_skip):
+    """The leaf level as the numpy of ``turbo_tpu/solver/eps_table.py``
+    (328-384) builds it on the host: each chunk's children embedded,
+    concatenated, sorted by a stable argsort of the path, padded with
+    root rows."""
+    leaf_lb, leaf_ub, leaf_st, leaf_paths = [], [], [], []
+    for ch, (rows, paths) in zip(chunks, parents):
+        if not len(rows):
+            continue
+        lbh, ubh, sth, vrh, c0lh, c0uh, c1lh, c1uh = ch
+        for bit in (0, 1):
+            cps = paths * 2 + bit
+            inr = (cps >= base) & (cps < limit)
+            rs = rows[inr]
+            if not len(rs):
+                continue
+            lbn = lbh[rs].copy()
+            ubn = ubh[rs].copy()
+            v = vrh[rs]
+            cl = (c1lh if bit else c0lh)[rs]
+            cu = (c1uh if bit else c0uh)[rs]
+            ar = np.arange(len(rs))
+            lbn[ar, v] = np.maximum(lbn[ar, v], cl)
+            ubn[ar, v] = np.minimum(ubn[ar, v], cu)
+            leaf_lb.append(lbn)
+            leaf_ub.append(ubn)
+            leaf_st.append(sth[rs])
+            leaf_paths.append(cps[inr])
+    V = len(lb0)
+    if leaf_lb:
+        tlb = np.concatenate(leaf_lb, axis=0).astype(np.int32)
+        tub = np.concatenate(leaf_ub, axis=0).astype(np.int32)
+        tst = np.maximum(np.concatenate(leaf_st), eps_skip).astype(np.int32)
+        tpa = np.concatenate(leaf_paths).astype(np.int32)
+        order = np.argsort(tpa, kind="stable")
+        tlb, tub, tst, tpa = tlb[order], tub[order], tst[order], tpa[order]
+    else:
+        tlb = tub = np.zeros((0, V), dtype=np.int32)
+        tst = tpa = np.zeros((0,), dtype=np.int32)
+    pad = n_pad - len(tlb)
+    return (np.concatenate([tlb, np.tile(lb0[None, :], (pad, 1))]),
+            np.concatenate([tub, np.tile(ub0[None, :], (pad, 1))]),
+            np.concatenate([tst, np.zeros(pad, dtype=np.int32)]),
+            np.concatenate([tpa, np.zeros(pad, dtype=np.int32)]))
+
+
+LEAF_CASES = [(seed, V, n_chunks, kind, eps_skip)
+              for seed, (V, n_chunks, kind, eps_skip) in enumerate([
+                  (64, 3, "padded", 0), (37, 2, "padded", 1),
+                  (64, 1, "full", 1), (38, 3, "full", 0),
+                  (64, 2, "empty", 0), (37, 1, "empty", 1)])]
+
+
+@pytest.mark.parametrize("seed,V,n_chunks,kind,eps_skip", LEAF_CASES)
+def test_table_leaf_plain_matches_the_numpy_leaf(seed, V, n_chunks, kind,
+                                                 eps_skip):
+    """``table_leaf_plain`` on the rows ``leaf_rows`` orders against the
+    JAX package's numpy leaf level on the same chunks, exactly."""
+    from turbo_tpu_torch.solver.eps_table import leaf_rows, table_leaf_plain
+    chunks, parents, base, limit, lb0, ub0, n_pad = leaf_case(
+        seed, V, n_chunks, kind)
+    rows = leaf_rows(parents, base, limit)
+    assert rows.dtype == np.int32 and rows.shape[1] == 4
+    assert (len(rows) == 0) == (kind == "empty")
+    assert (len(rows) == n_pad) == (kind == "full")
+    got = table_leaf_plain([tuple(map(torch.as_tensor, ch)) for ch in chunks],
+                           rows, torch.as_tensor(lb0), torch.as_tensor(ub0),
+                           n_pad, eps_skip)
+    want = numpy_leaf(chunks, parents, base, limit, lb0, ub0, n_pad,
+                      eps_skip)
+    for name, g, w in zip(("lb", "ub", "strat", "path"), got, want):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,V,n_chunks,kind,eps_skip", LEAF_CASES)
+def test_cuda_table_leaf_matches_plain(seed, V, n_chunks, kind, eps_skip):
+    """K4's leaf entry against ``table_leaf_plain`` on the same CUDA
+    chunks, byte for byte: 16-byte words (V % 4 == 0) and 4-byte ones,
+    padding, no padding and no live row, one chunk and several."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from turbo_tpu_torch import kernels
+    from turbo_tpu_torch.solver.eps_table import leaf_rows, table_leaf_plain
+    dev = torch.device("cuda:0")
+    chunks, parents, base, limit, lb0, ub0, n_pad = leaf_case(
+        seed, V, n_chunks, kind)
+    rows = leaf_rows(parents, base, limit)
+    chunks = [tuple(torch.as_tensor(a, device=dev) for a in ch)
+              for ch in chunks]
+    lb0, ub0 = torch.as_tensor(lb0, device=dev), torch.as_tensor(ub0,
+                                                               device=dev)
+    n0 = kernels.table_leaf.launches
+    got = kernels.table_leaf(chunks, rows, lb0, ub0, n_pad, eps_skip)
+    want = table_leaf_plain(chunks, rows, lb0, ub0, n_pad, eps_skip)
+    torch.cuda.synchronize()
+    assert kernels.table_leaf.launches == n0 + 1
+    for name, g, w in zip(("lb", "ub", "strat", "path"), got, want):
+        assert g.is_cuda and g.dtype == w.dtype == torch.int32, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp_mode", ["fixpoint", "wac1"])
+def test_cuda_table_matches_cpu_table(fp_mode):
+    """The EPS table built on the card (the level entries, then K4's leaf
+    entry) against the CPU's build (the plain versions), every field
+    exactly, on each shard of golomb(6) split three ways: ranges that
+    start past 0, a last level in several chunks, padding rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from turbo_tpu_torch.solver.eps_table import SubTable
+    tnf = compile_model(parse_fzn_text(golomb(6)))
+    cfg = EngineConfig(num_dives=8, subproblems_power=6, max_depth=96,
+                       fp_max_iters=10000, use_table=True, fp_cap_auto=False,
+                       fp_mode=fp_mode)
+    cpu = BatchedSolver(tnf, cfg, device="cpu", num_shards=3)
+    card = BatchedSolver(tnf, cfg, device="cuda:0", num_shards=3)
+    for shard in range(3):
+        want, got = cpu.get_table(shard), card.get_table(shard)
+        assert 0 < got.n_live < got.n_pad
+        for f in SubTable.__dataclass_fields__:
+            if f == "build_time":
+                continue
+            w, g = getattr(want, f), getattr(got, f)
+            if isinstance(w, torch.Tensor):
+                assert g.is_cuda and g.dtype == w.dtype, f
+                assert torch.equal(g.cpu(), w), (shard, f)
+            elif isinstance(w, np.ndarray):
+                np.testing.assert_array_equal(g, w, err_msg=f)
+            else:
+                assert g == w, (shard, f, g, w)
+
+
 # -- K6 step.cu and K7 step_tail.cu, transliterated --------------------
 
 DIVE, SOLVE, IDLE = 0, 1, 2

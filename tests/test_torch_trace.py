@@ -2,8 +2,9 @@
 nesting, parents, request ids and self times; nothing kept with tracing
 off; the profiler's clock; the CLI's ``% trace`` lines under ``-v`` only,
 with the engine's own step count; every span of the request, the solver
-set-up, the table build and the chunk loop in a CPU solve; and, on the
-card, the device's idle time of a golomb(12) window laid over the spans.
+set-up, the table build and the chunk loop in a CPU solve, with the
+table leaf's counters; and, on the card, the device's idle time of a
+golomb(12) window laid over the spans.
 """
 import re
 import sys
@@ -217,6 +218,7 @@ def test_every_span_appears(tmp_path, capsys, monkeypatch):
               "init.upload": "init.solver",
               "init.warm_up": "init.solver", "init_state": "solve",
               "table": "init_state", "table.level": "table",
+              "table.read": "table", "table.leaf": "table",
               "chunk": "solve", "chunk.enqueue": "chunk",
               "chunk.wait": "chunk", "chunk.read": "chunk",
               "split": "chunk", "ring": "chunk", "calibrate": "chunk",
@@ -226,16 +228,20 @@ def test_every_span_appears(tmp_path, capsys, monkeypatch):
             p = by_id[r.parent]
             assert p.name == parent[r.name] and p.request == r.request
             assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
-        elif r.name == "table.read":
-            assert by_id[r.parent].name in ("table", "table.leaf")
         elif r.name == "checkpoint":
             assert by_id[r.parent].name in ("chunk", "solve")
-    # The tree probe: native, golomb(7)'s and golomb(6)'s whole trees.
+    # The tree probe: native, golomb(7)'s and golomb(6)'s whole trees. The
+    # table's leaf level: once a request, on the CPU here, and as many
+    # rows as the table has live ones.
     for err, nodes in ((err1, 717), (err2, 95)):
         spans, counters = _lines(err)
         assert counters["chunks"] >= spans["chunk"][0] > 0
         assert (counters["probe_native"], counters["probe_nodes"],
                 counters["probe_exhaustive"]) == (1, nodes, 1)
+        n_live = int(re.search(r"^% eps table: n_live=(\d+) ", err, re.M)[1])
+        assert spans["table.leaf"][0] == 1 and n_live > 0
+        assert (counters["table_leaf_device"],
+                counters["table_leaf_rows"]) == (0, n_live)
         for n, total, self_ms in spans.values():
             assert n > 0 and -1e-3 <= self_ms <= total + 1e-3
     assert "resplit_rounds" in _lines(err1)[1]
@@ -281,3 +287,5 @@ def test_window_idle_lies_in_spans_on_the_card(tmp_path, capsys):
             print(f"  {name}: {ns / 1e9:.4f} s")
     assert covered >= 0.9 * idle
     assert "% trace: chunk " in err
+    # The table's leaf level ran on the card.
+    assert _lines(err)[1]["table_leaf_device"] == 1

@@ -1,6 +1,6 @@
 """The solver's CUDA kernels for Hopper and their wrappers.
 
-Ten kernels on PyTorch's current stream (``csrc/*.cu``), most of them
+Eleven kernels on PyTorch's current stream (``csrc/*.cu``), most of them
 one thread block per dive (or table row):
 
 - ``fixpoint`` (K1): AC-1 propagation to the fixpoint or the cap, on
@@ -20,6 +20,9 @@ one thread block per dive (or table row):
 - ``select`` (K3): branch variable and the two children;
 - ``table_refill`` (K4): the table-row refill that seeds the first
   lanes, in place (K4's parent gather runs in the level entries);
+- ``table_leaf`` (K4's leaf entry): the EPS table's leaf level, each
+  surviving parent's children embedded into the table's planes, and
+  the padding rows;
 - ``open_count`` (K5): open right branches on the SOLVE-phase stacks,
   and in the same launch the plan of a steal round (``StealPlan``);
 - ``step`` (K6): a search step around K1's step entry, in place: before it
@@ -784,6 +787,59 @@ class _TableRefill(_Kernel):
                          _stream(lb))
 
 
+class _TableLeaf(_Kernel):
+    name = "table_leaf"
+    source = "turbo_tpu_torch/kernels/csrc/table_leaf.cu"
+    replaces = "turbo_tpu/solver/eps_table.py:325"
+
+    def __call__(self, chunks, rows, lb0, ub0, n_pad: int, eps_skip: int):
+        """The (n_pad, V) ``lb``, ``ub`` and (n_pad,) ``strat``, ``path``
+        of ``eps_table.table_leaf_plain`` for the same arguments (``rows``
+        a host array), new tensors on lb0's card; see
+        csrc/table_leaf.cu. The row indices and the chunks' pointers go
+        up in one copy; the launch does not synchronise."""
+        V = lb0.shape[0]
+        _check(lb0, "lb0", (V,))
+        _check(ub0, "ub0", (V,))
+        rows = np.ascontiguousarray(rows, np.int32)
+        n_live = rows.shape[0]
+        if rows.shape != (n_live, 4) or not 0 <= n_live <= n_pad:
+            raise ValueError(f"rows: expected (n, 4) with n <= {n_pad}, "
+                             f"got {rows.shape}")
+        widths, ptrs = [], []
+        for c, ch in enumerate(chunks):
+            W = ch[0].shape[0]
+            for name, t in zip(("lb", "ub", "strat", "var", "c0l", "c0u",
+                                "c1l", "c1u"), ch):
+                _check(t, f"chunks[{c}].{name}", (W, V) if name in (
+                    "lb", "ub") else (W,))
+            widths.append(W)
+            ptrs.extend(t.data_ptr() for t in ch)
+        c, i, bit = rows[:, 0], rows[:, 1], rows[:, 2]
+        inside = (0 <= c) & (c < len(chunks)) & ((bit == 0) | (bit == 1))
+        if not (inside.all() and (0 <= i).all()
+                and (i < np.asarray(widths)[c]).all()):
+            raise ValueError("rows: a chunk or a parent row out of range, "
+                             "or a bit other than 0 and 1")
+        buf = np.empty(2 * len(ptrs) + 4 * n_live, np.int32)
+        buf[:2 * len(ptrs)].view(np.int64)[:] = ptrs
+        buf[2 * len(ptrs):] = rows.reshape(-1)
+        idx = torch.from_numpy(buf).to(lb0.device)
+        out = (torch.empty((n_pad, V), dtype=I32, device=lb0.device),
+               torch.empty((n_pad, V), dtype=I32, device=lb0.device),
+               torch.empty(n_pad, dtype=I32, device=lb0.device),
+               torch.empty(n_pad, dtype=I32, device=lb0.device))
+        planes = [lb0, ub0, *out[:2]] + [t for ch in chunks for t in ch[:2]]
+        vec = V % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in planes)
+        with torch.cuda.device(lb0.device):
+            self._launch(lambda lib: lib.tt_table_leaf, idx.data_ptr(),
+                         idx.data_ptr() + 8 * len(ptrs), lb0.data_ptr(),
+                         ub0.data_ptr(), *(t.data_ptr() for t in out),
+                         n_live, n_pad, V, int(eps_skip), int(vec),
+                         _stream(lb0))
+        return out
+
+
 class StealPlan:
     """K5's workspace and the steal plan it leaves for K9, for D lanes of
     MAXD-deep stacks on one card (csrc/steal.cuh): one int32 buffer, the
@@ -994,14 +1050,15 @@ fixpoint = _Fixpoint()
 classify = _Classify()
 select = _Select()
 table_refill = _TableRefill()
+table_leaf = _TableLeaf()
 open_count = _OpenCount()
 step = _Step()
 step_tail = _StepTail()
 wac1 = _Wac1()
 steal = _Steal()
 xcard = _XCard()
-KERNELS = (fixpoint, classify, select, table_refill, open_count, step,
-           step_tail, wac1, steal, xcard)
+KERNELS = (fixpoint, classify, select, table_refill, table_leaf, open_count,
+           step, step_tail, wac1, steal, xcard)
 
 
 def warm_up(owner) -> dict:

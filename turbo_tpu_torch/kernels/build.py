@@ -24,8 +24,8 @@ from ..solver import tree_probe
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 SOURCES = ("fixpoint.cu", "classify.cu", "select.cu", "table_refill.cu",
-           "open_count.cu", "step.cu", "step_tail.cu", "wac1.cu", "steal.cu",
-           "xcard.cu")
+           "table_leaf.cu", "open_count.cu", "step.cu", "step_tail.cu",
+           "wac1.cu", "steal.cu", "xcard.cu")
 # No FMA contraction: K6's float32 deds must round the multiply and the
 # add separately, as the plain torch version does.
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,6 +73,7 @@ def _bind(lib):
     lib.tt_classify.argtypes = [P, P, P, P, P, I, P, P]
     lib.tt_select.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, P, P]
     lib.tt_table_refill.argtypes = [P] * 8 + [I, I, I, P]
+    lib.tt_table_leaf.argtypes = [P] * 8 + [I, I, I, I, I, P]
     lib.tt_open_count.argtypes = [P, P, P, P, P, I, I, P]
     lib.tt_steal.argtypes = [P, I, P]
     lib.tt_step_head.argtypes = [P, P, P, P]
@@ -93,7 +94,8 @@ def _bind(lib):
                lib.tt_wac1, lib.tt_wac1_step, lib.tt_wac1_step_stamped,
                lib.tt_wac1_level, lib.tt_wac1_blocks_per_sm,
                lib.tt_classify, lib.tt_select, lib.tt_table_refill,
-               lib.tt_open_count, lib.tt_step_head, lib.tt_step_head_timed,
+               lib.tt_table_leaf, lib.tt_open_count, lib.tt_step_head,
+               lib.tt_step_head_timed,
                lib.tt_step_post, lib.tt_step_post_timed,
                lib.tt_step_copy, lib.tt_step_live, lib.tt_steal,
                lib.tt_xcard, lib.tt_enable_peer,

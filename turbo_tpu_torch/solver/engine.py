@@ -463,6 +463,9 @@ class BatchedSolver:
         self.use_table = (config.use_table and not config.enumerate_all
                           and config.fp_mode in ("fixpoint", "wac1"))
         if self.use_table:
+            # The budget counts one copy of the table's lb and ub planes.
+            # A card holds two while a state runs: the table cached in
+            # ``_tables`` and the state's own clone (``init_state``).
             from .eps_table import table_n_pad
             budget = int(os.environ.get("TURBO_TPU_TABLE_BUDGET",
                                         str(512 << 20)))
@@ -599,9 +602,12 @@ class BatchedSolver:
                   for f in _STACKS}
         if tb is not None:
             n_live = tb.n_live
+            # The state's own copy: a rebalance or a checkpoint restore
+            # rewrites its rows in place (``ShardedSolver.write_fields``),
+            # and the next state of this shard starts from the table as
+            # built.
             tab_lb, tab_ub, tab_strat, tab_path = (
-                torch.from_numpy(a).to(dev)
-                for a in (tb.lb, tb.ub, tb.strat, tb.path))
+                t.clone() for t in (tb.lb, tb.ub, tb.strat, tb.path))
             rows0 = torch.arange(D, dtype=I32, device=dev)
             seeded = rows0 < min(n_live, D)
             table_refill(tab_lb, tab_ub, rows0, seeded, lb, ub, root_lb,

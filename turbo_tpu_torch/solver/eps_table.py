@@ -3,10 +3,11 @@
 Port of ``turbo_tpu/solver/eps_table.py``: the 2^k-leaf dive tree is
 expanded once, level by level, by ``dive_level`` (embed the children of
 the previous frontier -> propagate to the true fixpoint -> classify ->
-select), sharing every prefix. The surviving leaves (stores, strategy
-cursors, bit-paths) become the table that ``BatchedSolver.init_state``
-puts on the device; a refill is then one row gather that drops the lane
-straight into SOLVE phase.
+select), sharing every prefix. The surviving parents' children at level
+k (stores, strategy cursors, bit-paths) become the table, built on the
+solver's device by ``table_leaf`` and copied by each
+``BatchedSolver.init_state``; a refill is then one row gather that drops
+the lane straight into SOLVE phase.
 
 Dead prefixes (bot / entailed / no splittable var) are accounted like
 the engine's dive-leaf subtree skip: a dead node at level l covers
@@ -20,6 +21,8 @@ launch of K1's level entry (``kernels.fixpoint.level``; K8's under
 ``fp_mode="wac1"``), which gathers each row's parent into its block,
 propagates it and classifies and selects on the result; on CPU tensors
 it is ``dive_level_plain``, the same four stages in plain torch.
+``table_leaf`` dispatches alike: one launch of K4's leaf entry
+(``kernels.table_leaf``) or ``table_leaf_plain``.
 """
 from __future__ import annotations
 
@@ -46,11 +49,13 @@ class TableBuildTimeout(Exception):
 
 @dataclasses.dataclass
 class SubTable:
-    """Host-side build result; ``init_state`` puts it on the device."""
-    lb: np.ndarray       # (n_pad, V) int32 leaf stores (plan space)
-    ub: np.ndarray
-    strat: np.ndarray    # (n_pad,) int32 post-dive strategy cursor
-    path: np.ndarray     # (n_pad,) int32 bit-path (for resplit / stats)
+    """Build result: the table's planes on the solver's device, which
+    ``init_state`` copies into each state (a state's rows may be
+    rewritten in place), and the build's statistics on the host."""
+    lb: torch.Tensor     # (n_pad, V) int32 leaf stores (plan space)
+    ub: torch.Tensor
+    strat: torch.Tensor  # (n_pad,) int32 post-dive strategy cursor
+    path: torch.Tensor   # (n_pad,) int32 bit-path (for resplit / stats)
     n_live: int
     n_pad: int
     # Build statistics, seeded into the engine's counters so the
@@ -104,6 +109,64 @@ def embed_plain(lb_par, ub_par, strat_par, var_par, c0l, c0u, c1l, c1u,
     return lbp, ubp, stp
 
 
+def leaf_rows(parents, base: int, limit: int) -> np.ndarray:
+    """The leaf level's rows, as (n_live, 4) int32 (chunk, parent row,
+    bit, path): the children path * 2 + bit of each (rows, paths) of
+    ``parents`` (a chunk's live rows and their bit-paths) that fall in
+    the shard's [base, limit), in bit-path order. The paths are unique,
+    so this is the order of the JAX package's stable sort."""
+    kids = [np.zeros((0, 4), dtype=np.int64)]
+    for c, (rows, paths) in enumerate(parents):
+        for bit in (0, 1):
+            cps = paths * 2 + bit
+            inr = (cps >= base) & (cps < limit)
+            n = int(inr.sum())
+            kids.append(np.stack([np.full(n, c), rows[inr],
+                                  np.full(n, bit), cps[inr]], axis=1))
+    out = np.concatenate(kids)
+    return out[np.argsort(out[:, 3], kind="stable")].astype(np.int32)
+
+
+def table_leaf_plain(chunks, rows, lb0, ub0, n_pad: int, eps_skip: int):
+    """The table's leaf level: row r < len(rows) embeds child
+    ``rows[r]`` = (chunk, parent row, bit, path) of ``chunks[chunk]``
+    (the eight (lb, ub, strat, var, c0l, c0u, c1l, c1u) of a last-level
+    chunk) as ``embed_plain`` does, with strat max(strat, eps_skip) and
+    its path; the rows after it copy the root box (lb0, ub0) with strat
+    and path 0 (a refill never gathers them, as it takes rows below
+    ``sub_limit`` == n_live; root copies keep them harmless). Returns
+    the (n_pad, V) ``lb``, ``ub`` and (n_pad,) ``strat``, ``path``,
+    int32, on lb0's device."""
+    dev = lb0.device
+    tab_lb = lb0[None, :].repeat(n_pad, 1)
+    tab_ub = ub0[None, :].repeat(n_pad, 1)
+    tab_strat = torch.zeros(n_pad, dtype=I32, device=dev)
+    tab_path = torch.zeros(n_pad, dtype=I32, device=dev)
+    for c, ch in enumerate(chunks):
+        sel = np.flatnonzero(rows[:, 0] == c)
+        if not len(sel):
+            continue
+        pidx, pbit, path = (torch.as_tensor(rows[sel, j], device=dev)
+                            for j in (1, 2, 3))
+        lbp, ubp, stp = embed_plain(*ch, pidx, pbit)
+        at = torch.as_tensor(sel, device=dev)
+        tab_lb[at], tab_ub[at] = lbp, ubp
+        tab_strat[at] = stp.clamp(min=eps_skip)
+        tab_path[at] = path
+    return tab_lb, tab_ub, tab_strat, tab_path
+
+
+def table_leaf(chunks, rows, lb0, ub0, n_pad: int, eps_skip: int):
+    """``table_leaf_plain``'s four planes: on the card one launch of K4's
+    leaf entry, which writes them without a host copy."""
+    if lb0.is_cuda:
+        from .. import kernels
+        return kernels.table_leaf(chunks, rows, lb0, ub0, n_pad, eps_skip)
+    if lb0.device.type != "cpu":
+        raise RuntimeError(f"no table leaf for device {lb0.device}")
+    return table_leaf_plain(chunks, rows, lb0, ub0, n_pad, eps_skip)
+
+
 def dive_level_plain(solver, lb_par, ub_par, strat_par, var_par, c0l, c0u,
                      c1l, c1u, pidx, pbit):
     """One frontier chunk of W rows: embed -> fixpoint (true fixpoint;
@@ -147,12 +210,10 @@ def dive_level(solver, *chunk):
 class _Chunk:
     """One frontier chunk: device outputs of a dive_level call plus the
     host bookkeeping needed to expand it."""
-    __slots__ = ("lb", "ub", "strat", "var", "c0l", "c0u", "c1l", "c1u",
-                 "rows", "paths")
+    __slots__ = ("dev", "rows", "paths")
 
     def __init__(self, dev, rows, paths):
-        (self.lb, self.ub, self.strat, self.var,
-         self.c0l, self.c0u, self.c1l, self.c1u) = dev
+        self.dev = dev        # (lb, ub, strat, var, c0l, c0u, c1l, c1u)
         self.rows = rows      # np int64: live row indices in this chunk
         self.paths = paths    # np int64: bit-path per live row
 
@@ -162,7 +223,9 @@ def build_table(solver, shard_idx: int = 0) -> Optional[SubTable]:
     its leaf table, built inside the span ``table`` (``trace.py``), whose
     seconds are its ``build_time``: ``table.level`` a level's launch,
     ``table.read`` a host read of a level's results, ``table.leaf`` the
-    leaf level in numpy.
+    leaf level: its row indices on the host and its launch. Counts
+    ``table_leaf_device`` (1: the leaf ran on the card) and
+    ``table_leaf_rows`` (its live rows).
 
     Returns None when the build overruns ``solver._table_deadline`` (an
     absolute ``time.monotonic()`` deadline budgeted from ``-t`` by
@@ -271,7 +334,6 @@ def _build(solver, shard_idx):
                       np.asarray(keep_paths, dtype=np.int64))
 
     # Level 0: the root, W copies of the root box with neutral children.
-    V = plan.V
     lb_r = solver.dp.lb0[None, :].repeat(W, 1)
     ub_r = solver.dp.ub0[None, :].repeat(W, 1)
     z = torch.zeros(W, dtype=I32, device=dev)
@@ -304,8 +366,7 @@ def _build(solver, shard_idx):
                 pbit[:len(grp)] = [g[1] for g in grp]
                 with trace.span("table.level"):
                     res = solver._dive_level(
-                        ch.lb, ch.ub, ch.strat, ch.var, ch.c0l, ch.c0u,
-                        ch.c1l, ch.c1u, torch.from_numpy(pidx).to(dev),
+                        *ch.dev, torch.from_numpy(pidx).to(dev),
                         torch.from_numpy(pbit).to(dev))
                 out.append((res, np.arange(len(grp)),
                             np.asarray([g[2] for g in grp])))
@@ -317,65 +378,15 @@ def _build(solver, shard_idx):
         parents = [c for c in parents if len(c.rows)]
         if not parents:
             break
-    # Leaf level k: embed-only, in numpy (the lane's first step
-    # propagates the leaf anyway).
+    # Leaf level k: embed-only (the lane's first step propagates the
+    # leaf anyway), on the solver's device.
     with trace.span("table.leaf"):
-        leaf_lb, leaf_ub, leaf_st, leaf_paths = [], [], [], []
-        for ch in parents:
-            if not len(ch.rows):
-                continue
-            with trace.span("table.read"):
-                lbh, ubh = ch.lb.cpu().numpy(), ch.ub.cpu().numpy()
-                sth, vrh, c0lh, c0uh, c1lh, c1uh = torch.stack(
-                    [ch.strat, ch.var, ch.c0l, ch.c0u, ch.c1l,
-                     ch.c1u]).cpu().numpy()
-            for bit in (0, 1):
-                cps = ch.paths * 2 + bit
-                inr = (cps >= base) & (cps < limit)
-                rs = ch.rows[inr]
-                if not len(rs):
-                    continue
-                lbn = lbh[rs].copy()
-                ubn = ubh[rs].copy()
-                v = vrh[rs]
-                cl = (c1lh if bit else c0lh)[rs]
-                cu = (c1uh if bit else c0uh)[rs]
-                ar = np.arange(len(rs))
-                lbn[ar, v] = np.maximum(lbn[ar, v], cl)
-                ubn[ar, v] = np.minimum(ubn[ar, v], cu)
-                leaf_lb.append(lbn)
-                leaf_ub.append(ubn)
-                leaf_st.append(sth[rs])
-                leaf_paths.append(cps[inr])
-
-        n_pad = acc.n_pad
-        if leaf_lb:
-            tlb = np.concatenate(leaf_lb, axis=0).astype(np.int32)
-            tub = np.concatenate(leaf_ub, axis=0).astype(np.int32)
-            tst = np.maximum(np.concatenate(leaf_st),
-                             eps_skip).astype(np.int32)
-            tpa = np.concatenate(leaf_paths).astype(np.int32)
-        else:
-            tlb = np.zeros((0, V), dtype=np.int32)
-            tub = np.zeros((0, V), dtype=np.int32)
-            tst = np.zeros((0,), dtype=np.int32)
-            tpa = np.zeros((0,), dtype=np.int32)
-        if len(tlb):
-            # Deterministic live ordering: sort leaves by bit-path (chunk
-            # emission order interleaves left/right children).
-            order = np.argsort(tpa, kind="stable")
-            tlb, tub, tst, tpa = tlb[order], tub[order], tst[order], tpa[order]
-        n_live = len(tlb)
-        pad = n_pad - n_live
-        if pad > 0:
-            # Padding rows are never gathered (refill guards newidx <
-            # sub_limit == n_live); root copies keep them harmless.
-            tlb = np.concatenate(
-                [tlb, np.tile(plan.lb0[None, :], (pad, 1))]).astype(np.int32)
-            tub = np.concatenate(
-                [tub, np.tile(plan.ub0[None, :], (pad, 1))]).astype(np.int32)
-            tst = np.concatenate([tst, np.zeros(pad, dtype=np.int32)])
-            tpa = np.concatenate([tpa, np.zeros(pad, dtype=np.int32)])
-        acc.lb, acc.ub, acc.strat, acc.path = tlb, tub, tst, tpa
-        acc.n_live = n_live
+        rows = leaf_rows([(ch.rows, ch.paths) for ch in parents], base,
+                         limit)
+        acc.lb, acc.ub, acc.strat, acc.path = table_leaf(
+            [ch.dev for ch in parents], rows, solver.dp.lb0, solver.dp.ub0,
+            acc.n_pad, eps_skip)
+        acc.n_live = len(rows)
+    trace.count("table_leaf_device", int(acc.lb.is_cuda))
+    trace.count("table_leaf_rows", acc.n_live)
     return acc
